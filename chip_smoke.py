@@ -10,11 +10,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
               csrc/` (one nvcc per source, all at once); print the build
               seconds, nvcc's register report and the card's name and
               power limit.
-2. kernels  — call each kernel's wrapper at the serving path's shapes and
-              hold it against its plain PyTorch version on the same inputs
-              (bf16 at 3e-2, f32 at 2e-5, as tests/test_ops.py holds the
-              JAX kernels); print max error, kernel ms, plain ms, the
-              library call's ms and the bound.
+2. kernels  — call each kernel's wrapper at the shapes of the serving
+              and training paths and hold it against its plain PyTorch
+              version on the same inputs: elementwise (bf16 at 3e-2, f32
+              at 2e-5 for the forwards and 2e-4 for the flash backward, as
+              tests/test_ops.py holds the JAX kernels) and, for bf16
+              flash outputs, by norm: ||got - want|| / ||want|| over the
+              whole tensor and over each row of D, within 1e-2 (late rows
+              are small, so an elementwise 3e-2 alone would pass a kernel
+              that dropped their tiles); print the errors, kernel ms,
+              plain ms, the library call's ms and the bound.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
@@ -26,37 +31,75 @@ Phases (any failure exits non-zero, and the result line is not printed):
               forward on the card agrees with the forward on the CPU.
 5. profile  — where a full-width prefill's and decode step's time goes
               (host wall, device busy time, idle share, top kernels).
+6. train    — the training path at full width: the Trainer that
+              `python -m tony_tpu_torch.train` builds, on llama3_1b_proxy
+              (full depth, bf16, random weights from a fixed seed) at
+              batch 4 x 4096 tokens with save_flash remat, 5 steps of
+              synthetic tokens plus one profiled step, in one run.
+              Checks finite losses, the exact kernel launches of every
+              step and peak device memory; prints the Trainer's own
+              tokens/s and MFU (its metrics_history) and where a step's
+              time goes. Then `tiny` f32 trains 3 SGD steps on the
+              card and on the CPU: the same losses and parameters.
 
 `--phases build,kernels` (for instance) runs a subset.
 
-Two lines before the last is a JSON object with one entry per kernel, then
-the card's name and power limit from nvidia-smi; the last line is
-{"ok": true, "device": {...}}.
+Two lines before the last is a JSON object with one entry per kernel
+(`launches`: its launches on the serve and train paths together, split
+in `launches_by_path`), then the card's name and power limit from
+nvidia-smi; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
 
-# (substring of the card's name, memory TB/s, dense bf16 TFLOP/s, f32
-# non-tensor TFLOP/s), from NVIDIA's data sheets; first match wins
-PEAKS = (
-    ("H100 PCIe", 2.0, 756.0, 51.0),
-    ("H100 NVL", 3.9, 835.0, 60.0),
-    ("H200", 4.8, 989.0, 67.0),
-    ("H100", 3.35, 989.0, 67.0),
-)
-
 SERVE_CONFIG = "llama3_8b"
-FLASH_SEQS = (1, 37, 512, 513, 2000)
-RMS_ROWS = (1, 4, 513, 2000)
+FLASH_SEQS = (1, 37, 512, 513, 2000)     # the last is the timed summary
+# (rows, D): serving's shapes (2000 x 4096 is the timed summary) and the
+# training path's, B4 x S4096 rows of llama3_1b_proxy's 2048
+RMS_CASES = ((1, 4096), (4, 4096), (513, 4096), (2000, 4096),
+             (16384, 2048))
+RMS_SUMMARY = (2000, 4096)
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
+# bf16 flash outputs: the limit on the norm-wise relative error, over the
+# whole tensor and over each row. Both sides round the same f32 sums to
+# bf16, so they differ by at most one bf16 ulp (2^-7 relative) in a few
+# elements; a dropped or misplaced tile costs its rows O(1).
+NORM_TOL = 1e-2
+# the f32 time K1's lse may differ by: both sides sum in f32, K1 scales q
+# before the product and the plain version after it
+LSE_TOL = 1e-4
+# (B, H, Hkv, S, D, causal, dtype) of the flash backward cases: the
+# training shape of llama3_1b_proxy first (timed, and K1 held there too),
+# llama3_8b's head layout (group 4), ragged S, and f32 at D 128 (S 1024)
+# and at small shapes
+BWD_CASES = (
+    (4, 16, 8, 4096, 128, True, "bfloat16"),
+    (1, 32, 8, 2048, 128, True, "bfloat16"),
+    (1, 16, 8, 1000, 128, True, "bfloat16"),
+    (1, 16, 8, 37, 128, True, "bfloat16"),
+    (1, 4, 2, 1024, 128, True, "float32"),
+    (1, 4, 2, 100, 32, True, "float32"),
+    (1, 4, 2, 100, 32, False, "float32"),
+    (2, 4, 4, 37, 16, True, "float32"),
+)
+TRAIN_CONFIG = "llama3_1b_proxy"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
+# peak device memory the train phase may reach, GiB: the reckoning of
+# PERF.md (weights, grads and AdamW moments 9.1 GB, saved block inputs and
+# flash out/lse 2.2 GB, one block's replay and backward ~2 GB, the
+# cross-entropy chunk ~1.8 GB: ~15 GB) plus a margin for the optimizer's
+# per-leaf temporaries
+TRAIN_PEAK_GIB = 20.0
 PROMPT_LENS = (1, 17, 128, 512, 513, 1000, 1500, 1900)
 MAX_NEW = 16
 N_STREAMED = 2
@@ -84,10 +127,13 @@ def smi_line() -> str:
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
-    for key, tbs, bf16, f32 in PEAKS:
-        if key in name:
-            return tbs * 1e12, bf16 * 1e12, f32 * 1e12
-    raise SmokeFailure(f"no peak rates known for {name!r}")
+    """(bytes/s, bf16 FLOP/s, f32 FLOP/s) from the port's table
+    (`tony_tpu_torch/device.py`)."""
+    from tony_tpu_torch.device import card_peaks as table
+    peaks = table(name)
+    if peaks is None:
+        raise SmokeFailure(f"no peak rates known for {name!r}")
+    return peaks
 
 
 def _device_us(event) -> float:
@@ -96,9 +142,15 @@ def _device_us(event) -> float:
 
 def device_events(prof) -> list:
     """A profile's device-side events (kernels, copies, fills): the host
-    ops that launched them carry the same time again."""
-    return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+    ops that launched them carry the same time again. The device-side
+    mirrors of `record_function` ranges (train_step, Optimizer.step) span
+    other kernels and are left out."""
+    events = prof.key_averages()
+    annotations = {e.key for e in events
+                   if getattr(e, "is_user_annotation", False)}
+    return [e for e in events if str(e.device_type).endswith("CUDA")
+            and e.key not in annotations
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _events_ms(fn, iters: int, sleep_cycles: int = 0) -> float:
@@ -145,6 +197,42 @@ def max_err(got, want, tol: float) -> tuple[float, bool]:
     return float(diff.max().item()), ok
 
 
+def norm_err(got, want) -> tuple[float, float]:
+    """(||got - want|| / ||want||, the worst row's ||got_r - want_r|| /
+    (||want_r|| + 1e-3 * rms_r ||want_r||)), rows along the last dim. The
+    floor keeps rows whose exact value is 0 (causal dQ of row 0) from
+    dividing rounding noise by nothing."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    diff = (g - w).norm(dim=-1)
+    rows = w.norm(dim=-1)
+    floor = 1e-3 * rows.square().mean().sqrt()
+    total = float(diff.norm() / rows.norm().clamp_min(1e-30))
+    return total, float((diff / (rows + floor).clamp_min(1e-30)).max())
+
+
+def hold(got, want, tol: float, by_norm: bool) -> dict:
+    """The case's verdict: elementwise within `tol`, and with `by_norm` the
+    norm-wise errors within NORM_TOL."""
+    err, ok = max_err(got, want, tol)
+    r = {"max_abs_err": err, "ok": ok}
+    if by_norm:
+        total, row = norm_err(got, want)
+        r.update(norm_err=total, row_err=row,
+                 ok=ok and total <= NORM_TOL and row <= NORM_TOL)
+    return r
+
+
+def merge(*held: dict) -> dict:
+    """One verdict for several outputs of a kernel: the worst of each
+    error, ok only if every output is."""
+    r = {"ok": all(h["ok"] for h in held)}
+    for key in ("max_abs_err", "norm_err", "row_err"):
+        if any(key in h for h in held):
+            r[key] = max(h.get(key, 0.0) for h in held)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -164,9 +252,13 @@ def phase_build() -> None:
         f"{time.monotonic() - t0:.1f} s wall "
         + ", ".join(f"{s} {t:.1f} s" for s, t in seconds.items()))
     for source in sources:
+        entry = ""
         for line in cuda_lib.build_log(source).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  nvcc {source}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled kernel name carries its template arguments
+                entry = line.split("'")[1][-60:] if "'" in line else ""
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc {source} {entry}: {line.strip()}")
         cuda_lib.load(source)
 
 
@@ -196,8 +288,8 @@ def _flash_case(s: int, dtype, peaks, iters: int) -> dict:
     ref_out, ref_lse = blockwise_forward(q, k, v, True, scale)
     torch.cuda.synchronize()
     tol = TOL[str(dtype).split(".")[-1]]
-    err_o, ok_o = max_err(out, ref_out, tol)
-    err_l, ok_l = max_err(lse, ref_lse, tol)
+    verdict = merge(hold(out, ref_out, tol, dtype == torch.bfloat16),
+                    hold(lse, ref_lse, tol, False))
     ms, call_ms = timed(lambda: flash_fwd_cuda(q, k, v, True, scale), iters)
     plain_ms, _ = timed(lambda: blockwise_forward(q, k, v, True, scale),
                         max(1, iters // 4))
@@ -211,20 +303,19 @@ def _flash_case(s: int, dtype, peaks, iters: int) -> dict:
     peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     return {"shape": f"B{b} H{h} Hkv{hk} S{s} D{d} causal",
-            "dtype": str(dtype).split(".")[-1], "max_abs_err": max(err_o,
-                                                                    err_l),
-            "ok": ok_o and ok_l, "tol": tol, "ms": ms, "call_ms": call_ms,
+            "dtype": str(dtype).split(".")[-1], **verdict, "tol": tol,
+            "summary": s == FLASH_SEQS[-1], "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _rms_case(rows: int, dtype, peaks, iters: int) -> dict:
+def _rms_case(rows: int, d: int, dtype, peaks, iters: int) -> dict:
     import torch
     import torch.nn.functional as F
 
     from tony_tpu_torch.ops.rmsnorm import rms_norm_cuda, rms_norm_reference
-    d, eps = 4096, 1e-5
+    eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(rows)
     x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
     w = torch.randn((d,), generator=g, device="cuda") * 0.1 + 1.0
@@ -240,41 +331,144 @@ def _rms_case(rows: int, dtype, peaks, iters: int) -> dict:
     bw = peaks[0]
     nbytes = 2 * rows * d * x.element_size() + 4 * d
     return {"shape": f"rows{rows} D{d}", "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "ok": ok, "tol": tol, "ms": ms,
+            "max_abs_err": err, "ok": ok, "tol": tol,
+            "summary": (rows, d) == RMS_SUMMARY, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes"}
 
 
+def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
+                    dtype_name: str, peaks, timed_case: bool
+                    ) -> tuple[dict, dict, dict | None]:
+    """K2 and K3 against `blockwise_backward` on the same (out, lse) and
+    dO, in the layouts the training path gives them; at the timed case
+    also K1's (out, lse) against `blockwise_forward` (the training shape),
+    and K2's and K3's times, the plain backward's and SDPA's backward's.
+    Returns the K2 entry, the K3 entry and the K1 entry or None."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.ops.attention import (
+        attention_delta, blockwise_backward, blockwise_forward,
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+    )
+    dtype = getattr(torch, dtype_name)
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(s + h)
+
+    def bshd(heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device="cuda").to(dtype).transpose(1, 2)
+
+    q, k, v, dout = bshd(h), bshd(hk), bshd(hk), bshd(h)
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    delta = attention_delta(dout, out)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale)
+    want = blockwise_backward(q, k, v, out, lse, dout, causal, scale)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name]
+    bf16 = dtype == torch.bfloat16
+    held = [hold(got, w, tol, bf16) for got, w in zip((dq, dk, dv), want)]
+    shape = (f"B{b} H{h} Hkv{hk} S{s} D{d}"
+             f"{' causal' if causal else ''}")
+    entries = [{"shape": shape, "dtype": dtype_name, "tol": tol,
+                "summary": timed_case, **verdict}
+               for verdict in (held[0], merge(held[1], held[2]))]
+    del want, held
+    if not timed_case:
+        return entries[0], entries[1], None
+    ref_out, ref_lse = blockwise_forward(q, k, v, causal, scale)
+    fwd = {"shape": shape, "dtype": dtype_name, "tol": TOL[dtype_name],
+           "summary": False,
+           **merge(hold(out, ref_out, TOL[dtype_name], bf16),
+                   hold(lse, ref_lse, LSE_TOL, False))}
+    del ref_out, ref_lse
+    iters = 5
+    ms_dq, call_dq = timed(lambda: flash_bwd_dq_cuda(
+        q, k, v, dout, lse, delta, causal, scale), iters)
+    ms_dkv, call_dkv = timed(lambda: flash_bwd_dkv_cuda(
+        q, k, v, dout, lse, delta, causal, scale), iters)
+    plain_ms, _ = timed(lambda: blockwise_backward(
+        q, k, v, out, lse, dout, causal, scale), 2, warmup=1)
+    # the library yardstick: SDPA's backward on the same q, k, v and dO
+    # (one number for K2 and K3 together)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=causal, scale=scale, enable_gqa=True)
+    library_ms, _ = timed(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True), iters)
+    library_call = lib_out.grad_fn.name()
+    bw, bf16_peak, f32_peak = peaks
+    peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+    item = q.element_size()
+    # each causal product covers half the S x S pairs
+    pairs = s * s / 2 if causal else s * s
+    product = 2.0 * b * h * pairs * d
+    in_bytes = (2 * b * h * s * d + 2 * b * hk * s * d) * item \
+        + 2 * 4 * b * h * s
+    for entry, ms, call_ms, n_products, out_bytes in (
+            (entries[0], ms_dq, call_dq, 3, b * h * s * d * item),
+            (entries[1], ms_dkv, call_dkv, 4, 2 * b * hk * s * d * item)):
+        t_ops = n_products * product / peak * 1e3
+        t_bytes = (in_bytes + out_bytes) / bw * 1e3
+        entry.update({"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "library_call": library_call,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes"})
+    return entries[0], entries[1], fwd
+
+
 def phase_kernels(peaks) -> dict[str, dict]:
     """Every kernel at every listed shape and dtype. Returns, per kernel,
-    the bf16 entry at the largest shape, with the worst bf16 error."""
+    its timed bf16 summary entry (serving's largest shape for K1 and K4,
+    the training shape for K2 and K3), with the worst bf16 error."""
     import torch
 
-    from tony_tpu_torch.ops.attention import FLASH_FWD
+    from tony_tpu_torch.ops.attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
+    )
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
 
-    cases = {FLASH_FWD.name: [], RMSNORM_FWD.name: []}
+    cases = {FLASH_FWD.name: [], FLASH_BWD_DQ.name: [],
+             FLASH_BWD_DKV.name: [], RMSNORM_FWD.name: []}
     for dtype in (torch.bfloat16, torch.float32):
         for s in FLASH_SEQS:
             cases[FLASH_FWD.name].append(
                 _flash_case(s, dtype, peaks, 20 if s >= 512 else 50))
-        for rows in RMS_ROWS:
-            cases[RMSNORM_FWD.name].append(_rms_case(rows, dtype, peaks, 100))
+        for rows, d in RMS_CASES:
+            cases[RMSNORM_FWD.name].append(
+                _rms_case(rows, d, dtype, peaks, 100))
+    for i, case in enumerate(BWD_CASES):
+        dq, dkv, fwd = _flash_bwd_case(*case, peaks, timed_case=i == 0)
+        cases[FLASH_BWD_DQ.name].append(dq)
+        cases[FLASH_BWD_DKV.name].append(dkv)
+        if fwd is not None:
+            cases[FLASH_FWD.name].append(fwd)
+        torch.cuda.empty_cache()
     summary = {}
     for name, results in cases.items():
         for r in results:
-            lib = r["library_ms"]
-            log(f"kernel {name} {r['dtype']} {r['shape']}: max_abs_err "
-                f"{r['max_abs_err']:.3e} (tol {r['tol']}) ms {r['ms']:.4f} "
-                f"call_ms {r['call_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-                f"library_ms {'null' if lib is None else f'{lib:.4f}'} "
-                f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
-                f"{'' if r['ok'] else '  <-- OUT OF TOLERANCE'}")
+            line = (f"kernel {name} {r['dtype']} {r['shape']}: max_abs_err "
+                    f"{r['max_abs_err']:.3e} (tol {r['tol']})")
+            if "norm_err" in r:
+                line += (f" norm_err {r['norm_err']:.3e} row_err "
+                         f"{r['row_err']:.3e} (tol {NORM_TOL})")
+            if "ms" in r:
+                lib = r["library_ms"]
+                line += (f" ms {r['ms']:.4f} call_ms {r['call_ms']:.4f} "
+                         f"plain_ms {r['plain_ms']:.4f} library_ms "
+                         f"{'null' if lib is None else f'{lib:.4f}'}"
+                         f"{' (' + r['library_call'] + ')' if 'library_call' in r else ''}"
+                         f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+            log(line + ("" if r["ok"] else "  <-- OUT OF TOLERANCE"))
         bad = [r for r in results if not r["ok"]]
         check(not bad, f"{name} disagrees with its plain version at "
                        + ", ".join(f"{r['dtype']} {r['shape']}" for r in bad))
         bf16 = [r for r in results if r["dtype"] == "bfloat16"]
-        top = dict(bf16[-1])
+        top = dict(next(r for r in bf16 if r["summary"]))
         top["max_abs_err"] = max(r["max_abs_err"] for r in bf16)
         summary[name] = top
     return summary
@@ -322,7 +516,9 @@ def phase_serve(config_name: str) -> dict[str, int]:
     import torch
 
     from tony_tpu_torch.ops import cuda_lib
-    from tony_tpu_torch.ops.attention import FLASH_FWD
+    from tony_tpu_torch.ops.attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
+    )
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
     from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
 
@@ -391,6 +587,7 @@ def phase_serve(config_name: str) -> dict[str, int]:
         check(admissions == len(PROMPT_LENS),
               f"{admissions} admissions for {len(PROMPT_LENS)} requests")
         want = {FLASH_FWD.name: cfg.n_layers * len(PROMPT_LENS),
+                FLASH_BWD_DQ.name: 0, FLASH_BWD_DKV.name: 0,
                 RMSNORM_FWD.name: (2 * cfg.n_layers + 1)
                 * (admissions + steps)}
         log(f"serve: launches {launches}, expected {want} "
@@ -557,9 +754,173 @@ def phase_profile(config_name: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path at full width
+# ---------------------------------------------------------------------------
+
+def _step_launches(n_layers: int) -> dict[str, int]:
+    """The kernel launches one save_flash training step must make: the
+    flash forward once per layer (the replay takes its saved out and lse),
+    each backward kernel once per layer, RMSNorm twice per layer plus the
+    final norm in the forward and twice per layer again in the replay."""
+    return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers + 1}
+
+
+def phase_train() -> dict[str, int]:
+    """One `Trainer.run()` of TRAIN_STEPS steps and a profiled last one.
+    Its step is wrapped to count each step's kernel launches (counts set to
+    0 just before the step, read just after); the step time, tokens/s and
+    MFU are the Trainer's own `metrics_history`. Returns each kernel's
+    launches over the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.device import peak_flops
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+
+    steps = TRAIN_STEPS + 1                  # the last one is profiled
+    args = build_arg_parser().parse_args(
+        ["--config", TRAIN_CONFIG, "--device", "cuda", "--steps",
+         str(steps), "--batch-size", str(TRAIN_BATCH), "--seq-len",
+         str(TRAIN_SEQ), "--log-every", "1"])
+    t0 = time.monotonic()
+    trainer, cfg = build_trainer(args)
+    trainer.setup()
+    log(f"train: {TRAIN_CONFIG} (dim {cfg.dim}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim}, vocab "
+        f"{cfg.vocab_size}, {str(cfg.dtype).split('.')[-1]}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, xent_chunk "
+        f"{cfg.xent_chunk}), batch {TRAIN_BATCH} x {TRAIN_SEQ}; set up in "
+        f"{time.monotonic() - t0:.1f} s, "
+        f"{cfg.num_params() / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    want = _step_launches(cfg.n_layers)
+    step_fn = trainer.train_step
+    per_step: list[dict[str, int]] = []
+    profiled: dict = {}
+
+    def counted_step(params, opt_state, batch):
+        """The Trainer's step with its launches counted; the last step runs
+        under the profiler, from a drained device to a drained device."""
+        cuda_lib.reset_launches()
+        if len(per_step) + 1 < steps:
+            out = step_fn(params, opt_state, batch)
+        else:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t_step = time.monotonic()
+                out = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                profiled["wall_ms"] = (time.monotonic() - t_step) * 1e3
+            profiled["prof"] = prof
+        per_step.append({name: cuda_lib.launches()[name] for name in want})
+        return out
+
+    trainer.train_step = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.metrics_history
+    check(len(history) == steps and len(per_step) == steps,
+          f"{len(history)} log entries, {len(per_step)} steps, want {steps}")
+    total = {name: 0 for name in want}
+    for entry, got in zip(history, per_step):
+        log(f"train: step {entry['step']} loss {entry['loss']:.4f} "
+            f"interval tokens/s {entry.get('tokens_per_s', 0.0):.1f} "
+            f"launches {got}")
+        check(got == want, f"step {entry['step']} launches {got} != {want}")
+        for name in want:
+            total[name] += got[name]
+    losses = [e["loss"] for e in history]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # With log_every 1 the Trainer reads step k-1's loss at step k's
+    # boundary, so in steady state the host time between two boundaries is
+    # one step of device time. Step 1's interval is host issue alone, step
+    # 2's holds the warm-up, and the last is profiled: steps 3-5 count.
+    window = history[TRAIN_STEPS - 3:TRAIN_STEPS]
+    check(all("mfu_pct" in e for e in window),
+          f"the Trainer reported no MFU: {window}")
+    tok_s = sorted(e["tokens_per_s"] for e in window)[1]
+    mfu = sorted(e["mfu_pct"] for e in window)[1]
+    peak = peak_flops(torch.device("cuda"))
+    # the Trainer counts a batch's B x (S + 1) tokens, as the JAX one does
+    step_s = TRAIN_BATCH * (TRAIN_SEQ + 1) / tok_s
+    log(f"train: the Trainer's median interval over steps "
+        f"{TRAIN_STEPS - 2}-{TRAIN_STEPS}: {step_s:.4f} s per step = "
+        f"{tok_s:.1f} "
+        f"tokens/s, MFU {mfu:.2f}% of {peak / 1e12:.0f} TFLOP/s "
+        f"(flops_per_token {cfg.flops_per_token(TRAIN_SEQ):.4e}); peak "
+        f"memory allocated {peak_gib:.2f} GiB (limit {TRAIN_PEAK_GIB})")
+    check(peak_gib <= TRAIN_PEAK_GIB,
+          f"peak memory {peak_gib:.2f} GiB > {TRAIN_PEAK_GIB} GiB")
+
+    wall = profiled["wall_ms"]
+    kernels = device_events(profiled["prof"])
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"profile: train step {steps}: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+        f"{sum(e.count for e in kernels)} device ops")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
+        log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    del trainer, profiled, step_fn
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_parity() -> None:
+    """`tiny` in f32 (save_flash remat on, so the selective checkpoint
+    runs too), 3 SGD steps on the same batches from the same weights: on
+    the card through the kernels, on the CPU through the plain versions.
+    f32 sums in another order over three steps: 1e-4."""
+    import torch
+
+    from tony_tpu_torch.models.llama import get_config, llama_init, llama_loss
+    from tony_tpu_torch.train.data import synthetic_tokens
+    from tony_tpu_torch.train.optim import sgd, tree_leaves
+    from tony_tpu_torch.train.step import make_train_step
+
+    cfg = get_config("tiny", remat=True)
+    with torch.no_grad():
+        init = llama_init(cfg, torch.Generator().manual_seed(0))
+    batches = synthetic_tokens(4, 64, cfg.vocab_size, seed=3)
+    batches = [torch.from_numpy(next(batches)["tokens"]) for _ in range(3)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        params = {k: ({n: w.to(device, copy=True).requires_grad_()
+                       for n, w in v.items()} if isinstance(v, dict)
+                      else v.to(device, copy=True).requires_grad_())
+                  for k, v in init.items()}
+        opt = sgd(0.1)
+        state = opt.init(params)
+        fn = make_train_step(lambda p, b: llama_loss(p, b, cfg), opt)
+        losses = []
+        for tokens in batches:
+            params, state, loss = fn(params, state,
+                                     {"tokens": tokens.to(device)})
+            losses.append(float(loss))
+        results[device] = (losses, [t.detach().cpu()
+                                    for t in tree_leaves(params)])
+    loss_err = max(abs(a - b) for a, b in zip(results["cuda"][0],
+                                              results["cpu"][0]))
+    param_err = max(float((a - b).abs().max()) for a, b in
+                    zip(results["cuda"][1], results["cpu"][1]))
+    log(f"train: tiny 3 SGD steps, card vs cpu: losses "
+        f"{results['cuda'][0]} vs {results['cpu'][0]}, max loss err "
+        f"{loss_err:.3e}, max param err {param_err:.3e} (tol 1e-4)")
+    check(loss_err <= 1e-4 and param_err <= 1e-4,
+          f"tiny training on the card differs from the CPU by "
+          f"{loss_err}, {param_err}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,engine,profile",
+    ap.add_argument("--phases",
+                    default="build,kernels,serve,engine,profile,train",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -586,17 +947,20 @@ def main(argv=None) -> int:
     t_start = time.monotonic()
     try:
         kernels: dict[str, dict] = {}
-        launches: dict[str, int] = {}
+        launches: dict[str, dict[str, int]] = {}
         if "build" in phases:
             phase_build()
         if "kernels" in phases:
             kernels = phase_kernels(peaks)
         if "serve" in phases:
-            launches = phase_serve(SERVE_CONFIG)
+            launches["serve"] = phase_serve(SERVE_CONFIG)
         if "engine" in phases:
             phase_engine()
         if "profile" in phases:
             phase_profile(SERVE_CONFIG)
+        if "train" in phases:
+            launches["train"] = phase_train()
+            phase_train_parity()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -604,14 +968,18 @@ def main(argv=None) -> int:
     entries = []
     for kname, r in kernels.items():
         k = cuda_lib.KERNELS[kname]
+        by_path = {path: counts.get(kname, 0)
+                   for path, counts in launches.items()}
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"tony_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches.get(kname, 0),
+            "replaces": k.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
+            "library_ms": r["library_ms"],
+            "library_call": r.get("library_call"), "shape": r["shape"],
             "dtype": r["dtype"]})
     log(f"chip_smoke: phases {phases} passed in "
         f"{time.monotonic() - t_start:.1f} s")

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from tony_tpu.models import llama as jllama
-from tony_tpu_torch.models import generate, llama
+from tony_tpu_torch.models import convert, generate, llama
 from tony_tpu_torch.models.convert import params_from_jax, tensor_from_numpy
 
 # tony_tpu.models re-exports the function `generate` under the module's name
@@ -79,6 +79,20 @@ def test_params_from_jax_keeps_layout_and_values(tiny):
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(jax.device_get(jparams),
                         llama.get_config("tiny", dim=32), "cpu")
+
+
+def test_params_from_jax_defaults_to_the_card(tiny, monkeypatch):
+    """With no device given it goes to the card; without one it raises
+    before any leaf is placed on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default would use it")
+    _, jparams, cfg, _ = tiny
+    placed = []
+    monkeypatch.setattr(convert, "tensor_from_numpy",
+                        lambda *a: placed.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(jax.device_get(jparams), cfg)
+    assert placed == []
 
 
 def test_bf16_leaves_carry_over_by_their_bits():

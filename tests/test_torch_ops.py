@@ -5,12 +5,15 @@ and the port's counterpart on the CPU, where the port runs the plain
 PyTorch version beside each CUDA kernel (the kernels themselves run only on
 the card: `python3 chip_smoke.py` holds each against its plain version
 there). Tolerances are tests/test_ops.py's: 2e-5 in f32 (same math, sums
-in another order), 3e-2 in bf16 (one bf16 rounding of the output).
+in another order), 3e-2 in bf16 (one bf16 rounding of the output); for
+gradients 5e-4 (`:49`) and, kernel against blockwise backward, 2e-4
+(`:172`).
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -21,6 +24,8 @@ from tony_tpu_torch.ops import attention, cuda_lib, rmsnorm, rope
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+GRAD_TOL = 5e-4
+BWD_TOL = 2e-4
 
 
 def _normal(shape, seed):
@@ -115,6 +120,30 @@ def test_rms_norm_cpu_path_launches_nothing():
     assert rmsnorm.RMSNORM_FWD.launches == before
 
 
+def test_rms_norm_vjp_matches_jax():
+    x = _normal((3, 5, 64), 11) * 2.0
+    w = _normal((64,), 12) + 1.0
+    g = _normal((3, 5, 64), 13)
+    want_y, vjp = jax.vjp(lambda x, w: jrms.rms_norm(x, w, 1e-5),
+                          jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = rmsnorm.rms_norm(xt, wt, 1e-5)
+    dx, dw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(g))
+    for got, want in ((y.detach(), want_y), (dx, want_dx), (dw, want_dw)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_rms_norm_backward_keeps_dtypes():
+    x = torch.randn(2, 3, 8, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.ones(8, requires_grad=True)
+    rmsnorm.rms_norm(x, w, 1e-5).float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    assert w.grad.shape == (8,)
+
+
 def test_rms_norm_refuses_other_devices():
     with pytest.raises(ValueError):
         rmsnorm.rms_norm(torch.ones(2, 8, device="meta"),
@@ -200,6 +229,105 @@ def test_flash_takes_strided_views():
     assert torch.equal(a, b)
 
 
+GRAD_CASES = [  # (h, hk, s, causal)
+    (h, hk, s, causal) for h, hk in ((4, 2), (4, 4)) for s in (64, 100, 128)
+    for causal in (True, False)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "h{}kv{}s{}{}"
+                         .format(*c[:3], "causal" if c[3] else ""))
+def test_flash_gradients_match_jax(case):
+    """jax.grad of JAX's flash_attention (its pad-and-mask path at S=100)
+    against the port's autograd through the flash operator."""
+    h, hk, s, causal = case
+    q, k, v = _qkv(1, h, hk, s, 16, s + h + hk)
+
+    def loss(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, causal) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = attention.flash_attention(qt, kt, vt, causal)
+    got = torch.autograd.grad((out ** 2).sum(), (qt, kt, vt))
+    for name, g_got, g_want in zip("qkv", got, want):
+        assert g_got.shape == g_want.shape, name
+        np.testing.assert_allclose(g_got.numpy(), np.asarray(g_want),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 100])
+def test_blockwise_backward_matches_jax_blockwise_and_pallas(s, causal):
+    """The port's plain backward against JAX's `_blockwise_backward` and
+    the real Pallas backward kernels (interpret mode), on shared
+    (out, lse) and narrow GQA K/V."""
+    q, k, v = _qkv(1, 4, 2, s, 16, 40 + s)
+    g = _normal((1, 4, s, 16), 41 + s)
+    scale = 16 ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    out, lse = jattn._blockwise_forward(jq, jk, jv, causal, scale, s)
+    wants = [jattn._blockwise_backward(jq, jk, jv, out, lse, jg, causal,
+                                       scale, s),
+             jattn._pallas_backward(jq, jk, jv, out, lse, jg, causal, scale,
+                                    s, s, None, interpret=True)]
+    got = attention.blockwise_backward(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(np.array(out)), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(g), causal, scale, block_k=32)
+    for want in wants:
+        for name, g_got, g_want in zip("qkv", got, want):
+            np.testing.assert_allclose(g_got.numpy(), np.asarray(g_want),
+                                       atol=BWD_TOL, rtol=BWD_TOL,
+                                       err_msg=f"d{name}")
+
+
+def test_blockwise_backward_bf16_matches_jax():
+    q, k, v = _qkv(1, 4, 2, 70, 32, 50)
+    g = _normal((1, 4, 70, 32), 51)
+    scale = 32 ** -0.5
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    out, lse = jattn._blockwise_forward(*jargs, True, scale, 70)
+    jg = jnp.asarray(g, jnp.bfloat16)
+    want = jattn._blockwise_backward(*jargs, out, lse, jg, True, scale, 70)
+    bf = [torch.from_numpy(a).bfloat16() for a in (q, k, v, g)]
+    got = attention.blockwise_backward(
+        bf[0], bf[1], bf[2],
+        torch.from_numpy(np.array(out.astype(jnp.float32))).bfloat16(),
+        torch.from_numpy(np.array(lse)), bf[3], True, scale)
+    for name, g_got, g_want in zip("qkv", got, want):
+        assert g_got.dtype == torch.bfloat16
+        np.testing.assert_allclose(g_got.float().numpy(),
+                                   np.asarray(g_want.astype(jnp.float32)),
+                                   atol=BF16_TOL, rtol=BF16_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_backward_cpu_path_launches_nothing():
+    before = (attention.FLASH_BWD_DQ.launches,
+              attention.FLASH_BWD_DKV.launches)
+    q = torch.randn(1, 2, 5, 16, requires_grad=True)
+    attention.flash_attention(q, q.detach(), q.detach(), True).sum() \
+        .backward()
+    assert q.grad.shape == q.shape
+    assert (attention.FLASH_BWD_DQ.launches,
+            attention.FLASH_BWD_DKV.launches) == before
+
+
+def test_flash_forward_is_one_operator_with_bshd_memory():
+    """The forward is the custom op (what the save_flash policy keys on);
+    out is a (B, H, S, D) view of (B, S, H, D) memory."""
+    q = torch.randn(1, 4, 6, 16)
+    buf, lse = torch.ops.tony_tpu_torch.flash_fwd(q, q[:, :2], q[:, :2],
+                                                 True, 0.25)
+    assert buf.shape == (1, 6, 4, 16) and buf.is_contiguous()
+    assert lse.shape == (1, 4, 6) and lse.dtype == torch.float32
+    out = attention.flash_attention(q, q[:, :2], q[:, :2], True, 0.25)
+    assert torch.equal(out, buf.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+
+
 def test_flash_rejects_bad_shapes():
     with pytest.raises(ValueError):
         attention.flash_attention(torch.zeros(1, 3, 4, 8),
@@ -221,6 +349,14 @@ def test_kernel_wrappers_validate_before_launching():
     with pytest.raises(ValueError):                 # strided last dim
         z = torch.zeros(1, 2, 16, 4).transpose(2, 3)
         attention.flash_fwd_cuda(z, z, z, True, 0.25)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(TypeError):                  # dO in another dtype
+        attention.flash_bwd_cuda(q, q, q, q.double(), lse, lse, True, 0.25)
+    with pytest.raises(ValueError):                 # lse of another shape
+        attention.flash_bwd_cuda(q, q, q, q, lse[..., :2], lse, True, 0.25)
+    with pytest.raises(ValueError):                 # bf16 delta
+        attention.flash_bwd_cuda(q, q, q, q, lse, lse.bfloat16(), True,
+                                 0.25)
     with pytest.raises(TypeError):                  # bf16 weight
         rmsnorm.rms_norm_cuda(torch.zeros(2, 8), torch.zeros(8).bfloat16(),
                               1e-5)
@@ -256,7 +392,8 @@ def test_library_path_is_keyed_by_source_content(monkeypatch, tmp_path):
 
 
 def test_every_kernel_is_registered_with_its_source():
-    assert set(cuda_lib.KERNELS) == {"flash_fwd", "rmsnorm_fwd"}
+    assert set(cuda_lib.KERNELS) == {"flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv", "rmsnorm_fwd"}
     for kernel in cuda_lib.KERNELS.values():
         assert (cuda_lib.CSRC_DIR / kernel.source).is_file()
         path, line = kernel.replaces.split(":")

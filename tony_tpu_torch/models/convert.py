@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.llama import LlamaConfig, Params
 
 
@@ -33,9 +34,12 @@ def tensor_from_numpy(a: Any, device: torch.device | str) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, config: LlamaConfig,
-                    device: torch.device | str = "cpu") -> Params:
+                    device: torch.device | str = "cuda") -> Params:
     """`llama_init`'s tree of numpy leaves -> the port's parameters on
-    `device`. Checks every leaf's shape against `config`."""
+    `device` (the card unless the caller asks for the CPU; with no card,
+    the default raises before any leaf is placed). Checks every leaf's
+    shape against `config`."""
+    device = resolve_device(str(device))
     d, f, v = config.dim, config.ffn_dim, config.vocab_size
     L, hd = config.n_layers, config.head_dim
     nh, nkv = config.n_heads, config.n_kv_heads

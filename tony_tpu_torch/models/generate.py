@@ -14,7 +14,7 @@ Counterpart of `tony_tpu/models/generate.py`, bf16/f32 caches only:
 - **Sampling**: greedy, or temperature with optional top-k and top-p; the
   random draws come from a `torch.Generator`.
 
-The logits are f32 (`models/llama.matmul_f32`). The int8 cache and int8
+The logits are f32 (`ops/xent.matmul_f32`). The int8 cache and int8
 weights arrive with the port's quant slice, MoE with its models slice.
 """
 

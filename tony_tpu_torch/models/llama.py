@@ -1,37 +1,61 @@
-"""Llama-family transformer forward, in PyTorch.
+"""Llama-family transformer, forward and training loss, in PyTorch.
 
-Counterpart of `tony_tpu/models/llama.py` for inference:
+Counterpart of `tony_tpu/models/llama.py`:
 
 - **The JAX parameter layout, kept**: a dict with the same tree as
   `llama_init` there. Per-layer weights are stacked on a leading axis as
   (L, in, out) and applied as `x @ w`; the embedding table is (V, D) and
   `output` is (D, V). A JAX parameter tree therefore converts by dtype and
   device alone (`models/convert.py`).
-- **A Python loop over layers** takes the place of `lax.scan`; there is no
-  remat, ring or pipeline path in this slice.
+- **A Python loop over layers** takes the place of `lax.scan`. Under
+  autograd each block runs inside `torch.utils.checkpoint` when
+  `config.remat` is set: `remat_policy="save_flash"` keeps exactly the
+  flash forward's two outputs (a selective-checkpoint policy on that one
+  operator), so the replay never re-runs the flash kernel; `"full"` keeps
+  nothing. There is no ring or pipeline path in this slice.
+- **Stacked weights, per-layer gradients**: the stacked (L, in, out) layout
+  stays (`convert.py` and serving read it), but a differentiable pass does
+  not slice it with `w[i]`: backprop through L such views runs L
+  `select_backward`s, each a full (L, in, out) zero tensor added into the
+  gradient. `layer_params_for_grad` instead hands each layer leaves that
+  view the stacked storage, whose `.grad` is preset to the matching slice
+  of one stacked gradient buffer, so autograd accumulates each layer's
+  gradient in place into its slice.
 - **bf16 weights, f32 statistics**: RMSNorm and attention keep their
   statistics in f32 (the kernels in `ops/`); the logits are f32
-  (`matmul_f32`). The large matrix products stay `torch.matmul`, as the
-  JAX package left them to XLA.
+  (`ops/xent.py`'s `matmul_f32`). The large matrix products stay
+  `torch.matmul`, as the JAX package left them to XLA.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from tony_tpu_torch.ops.xent import fused_cross_entropy, matmul_f32
 
 Params = dict[str, Any]
 
 # The JAX package's MoE presets (tony_tpu/models/moe.py): served there, not
 # yet here.
 MOE_PRESETS = ("moe_tiny", "mixtral_proxy")
+
+
+def _save_flash_policy(ctx, op, *args, **kwargs):
+    """Keep the flash forward's (out, lse); recompute everything else."""
+    if op is torch.ops.tony_tpu_torch.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 @dataclass(frozen=True)
@@ -50,8 +74,7 @@ class LlamaConfig:
     rope_orig_max_seq: int = 0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # training-side fields, kept so a config compares field for field with
-    # the JAX package's; the serving path reads none of them
+    # training-side fields (the serving path reads none of them)
     remat: bool = True
     remat_policy: str = "save_flash"
     sp_mode: str = "ring"
@@ -62,6 +85,15 @@ class LlamaConfig:
             raise ValueError(
                 f"remat_policy must be 'save_flash' or 'full', got "
                 f"{self.remat_policy!r}")
+
+    def checkpoint_policy(self):
+        """The `context_fn` of `torch.utils.checkpoint` for this config
+        (None = save nothing), the counterpart of the JAX config's
+        `save_only_these_names("flash_out", "flash_lse")`."""
+        if self.remat_policy == "save_flash":
+            return partial(create_selective_checkpoint_contexts,
+                           _save_flash_policy)
+        return None
 
     @property
     def head_dim(self) -> int:
@@ -155,6 +187,34 @@ def layer_params(params: Params, i: int) -> Params:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
+def layer_params_for_grad(params: Params) -> list[Params]:
+    """Every layer's weights. A stacked weight that requires grad, with
+    grad mode on, gets a stacked `.grad` buffer (zeros, unless one is
+    there to accumulate into), and each layer gets a leaf that views its
+    slice of the weight with `.grad` preset to the same slice of that
+    buffer: autograd then adds the layer's gradient in place into the
+    slice (AccumulateGrad adds into a defined `.grad`), and nothing is
+    summed over the stack. The stacked weight itself stays out of the
+    graph; its `.grad` is the gradient. Any other weight (inference,
+    frozen weights) hands each layer its plain `w[i]` view."""
+    n = next(iter(params["layers"].values())).shape[0]
+    layers: list[Params] = [{} for _ in range(n)]
+    grad_mode = torch.is_grad_enabled()
+    for name, w in params["layers"].items():
+        if not (grad_mode and w.requires_grad):
+            for i in range(n):
+                layers[i][name] = w[i]
+            continue
+        if w.grad is None:
+            w.grad = torch.zeros_like(w)
+        base = w.detach()
+        for i in range(n):
+            leaf = base[i].requires_grad_()
+            leaf.grad = w.grad[i]
+            layers[i][name] = leaf
+    return layers
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -217,30 +277,27 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return F.embedding(tokens, embed).to(config.dtype)
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with an f32 result, as JAX's preferred_element_type=f32:
-    the operands stay in their dtype, the products accumulate and come out
-    in f32. On the card one cuBLAS call does it (torch.mm's out_dtype);
-    the CPU has no such overload, so there the operands are cast to f32
-    first, which gives the same exact products. f32 operands need
-    neither."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return x @ w
-    if x.device.type == "cuda":
-        flat = x.reshape(-1, x.shape[-1])
-        out = torch.mm(flat, w, out_dtype=torch.float32)
-        return out.view(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
-
-
 def llama_hidden(params: Params, tokens: torch.Tensor,
                  config: LlamaConfig) -> torch.Tensor:
-    """tokens: (B, S) int -> final-normed hidden states (B, S, dim)."""
+    """tokens: (B, S) int -> final-normed hidden states (B, S, dim).
+    Weights that take a gradient get per-layer gradient routing and, with
+    config.remat, each block checkpointed under
+    config.checkpoint_policy()."""
     s = tokens.shape[1]
     cos, sin = rope_tables(config, s, tokens.device)
     x = embed_lookup(params["embed"], tokens, config)
-    for i in range(config.n_layers):
-        x = _block(config, cos, sin, x, layer_params(params, i))
+    block = partial(_block, config, cos, sin)
+    layers = layer_params_for_grad(params)
+    remat_kwargs = None
+    if config.remat and any(w.requires_grad for w in layers[0].values()):
+        context_fn = config.checkpoint_policy()
+        remat_kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    for layer in layers:
+        if remat_kwargs is None:
+            x = block(x, layer)
+        else:
+            x = checkpoint(block, x, layer, use_reentrant=False,
+                           **remat_kwargs)
     return rms_norm(x, params["final_norm"], config.norm_eps)
 
 
@@ -250,3 +307,42 @@ def llama_forward(params: Params, tokens: torch.Tensor,
     with torch.inference_mode():
         x = llama_hidden(params, tokens, config)
         return matmul_f32(x, params["output"])
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+def unpack_lm_batch(batch: dict[str, torch.Tensor]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """{'tokens': (B,S+1)} or {'inputs','targets'} -> (inputs, targets)."""
+    if "tokens" in batch:
+        return batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    return batch["inputs"], batch["targets"]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean next-token CE."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _head_loss(x: torch.Tensor, params: Params, targets: torch.Tensor,
+               config: LlamaConfig) -> torch.Tensor:
+    """LM head + mean CE on final hidden states; fused and chunked when
+    config.xent_chunk > 0 (no full (B, S, V) logits)."""
+    if config.xent_chunk > 0:
+        return fused_cross_entropy(x, params["output"], targets,
+                                   chunk=config.xent_chunk)
+    return cross_entropy(matmul_f32(x, params["output"]), targets)
+
+
+def llama_loss(params: Params, batch: dict[str, torch.Tensor],
+               config: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy. batch: {'tokens': (B, S+1)} or
+    {'inputs': (B,S), 'targets': (B,S)}."""
+    inputs, targets = unpack_lm_batch(batch)
+    x = llama_hidden(params, inputs, config)
+    return _head_loss(x, params, targets, config)

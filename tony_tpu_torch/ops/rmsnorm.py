@@ -60,11 +60,53 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * weight, over the last dim."""
+def rms_norm_backward(x: torch.Tensor, weight: torch.Tensor,
+                      g: torch.Tensor, eps: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_rms_bwd` in plain PyTorch: f32 throughout; dw summed over every
+    leading dim; dx in x's dtype, dw in the weight's."""
+    xf = x.float()
+    gf = g.float()
+    wf = weight.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = xf * rstd
+    dw = torch.sum((gf * xhat).reshape(-1, x.shape[-1]), dim=0)
+    gw = gf * wf
+    # d/dx of x * rsqrt(mean(x^2)+eps): gw*rstd - xhat * mean(gw*xhat) * rstd
+    dx = rstd * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def _rms_norm_forward(x: torch.Tensor, weight: torch.Tensor,
+                      eps: float) -> torch.Tensor:
     if x.device.type == "cuda":
         return rms_norm_cuda(x, weight, eps)
     if x.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
     raise ValueError(f"rms_norm runs on cuda or cpu, not {x.device}")
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The forward on the kernel (CUDA) or the plain version (CPU); the
+    backward `rms_norm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * weight, over the last dim."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return RMSNormFunction.apply(x, weight, eps)
+    return _rms_norm_forward(x, weight, eps)
