@@ -8,8 +8,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
 
 1. build    — compile every hand-written CUDA kernel from `tony_tpu_torch/
               csrc/` (one nvcc per source, all at once); print the build
-              seconds, nvcc's register report and the card's name and
-              power limit.
+              seconds, nvcc's register report per kernel and the card's
+              name and power limit; count the HGMMA (wgmma) instructions
+              in the SASS of each bf16 flash-backward kernel (cuobjdump)
+              and fail if one has none.
 2. kernels  — call each kernel's wrapper at the shapes of the serving
               and training paths and hold it against its plain PyTorch
               version on the same inputs: elementwise (bf16 at 3e-2, f32
@@ -19,7 +21,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
               whole tensor and over each row of D, within 1e-2 (late rows
               are small, so an elementwise 3e-2 alone would pass a kernel
               that dropped their tiles); print the errors, kernel ms,
-              plain ms, the library call's ms and the bound.
+              plain ms, the library call's ms and the bound. At the
+              training shape the flash backward kernels run twice and
+              must agree bit for bit, and print their TFLOP/s and share
+              of the bound.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
@@ -55,11 +60,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 SERVE_CONFIG = "llama3_8b"
 FLASH_SEQS = (1, 37, 512, 513, 2000)     # the last is the timed summary
@@ -80,26 +87,39 @@ NORM_TOL = 1e-2
 LSE_TOL = 1e-4
 # (B, H, Hkv, S, D, causal, dtype) of the flash backward cases: the
 # training shape of llama3_1b_proxy first (timed, and K1 held there too),
-# llama3_8b's head layout (group 4), ragged S, and f32 at D 128 (S 1024)
-# and at small shapes
+# llama3_8b's head layout (group 4), bench_350m's (D 64), ragged S (not a
+# multiple of 64 or 128) at every head dim, a non-causal case, an
+# H == Hkv case, contiguous (B, H, S, D) operands (an eighth field
+# "bhsd"; the others are `qkv_proj`'s (B, S, H, D) views); in bf16 the
+# tensor-core kernels, in f32 (D 128 S 1024 and small shapes) the
+# CUDA-core ones
 BWD_CASES = (
     (4, 16, 8, 4096, 128, True, "bfloat16"),
     (1, 32, 8, 2048, 128, True, "bfloat16"),
     (1, 16, 8, 1000, 128, True, "bfloat16"),
     (1, 16, 8, 37, 128, True, "bfloat16"),
+    (2, 8, 2, 777, 128, True, "bfloat16"),
+    (1, 16, 8, 1000, 128, False, "bfloat16"),
+    (1, 8, 8, 512, 128, True, "bfloat16"),
+    (2, 8, 4, 300, 128, True, "bfloat16", "bhsd"),
+    (1, 4, 2, 129, 64, True, "bfloat16"),
+    (1, 16, 8, 2048, 64, True, "bfloat16"),
+    (1, 4, 2, 100, 32, True, "bfloat16"),
+    (2, 4, 4, 37, 16, True, "bfloat16"),
     (1, 4, 2, 1024, 128, True, "float32"),
     (1, 4, 2, 100, 32, True, "float32"),
     (1, 4, 2, 100, 32, False, "float32"),
     (2, 4, 4, 37, 16, True, "float32"),
 )
+# the bf16 backward kernels' symbols, whose SASS must hold HGMMA (wgmma)
+TC_KERNELS = ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 TRAIN_CONFIG = "llama3_1b_proxy"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
-# peak device memory the train phase may reach, GiB: the reckoning of
-# PERF.md (weights, grads and AdamW moments 9.1 GB, saved block inputs and
-# flash out/lse 2.2 GB, one block's replay and backward ~2 GB, the
-# cross-entropy chunk ~1.8 GB: ~15 GB) plus a margin for the optimizer's
-# per-leaf temporaries
-TRAIN_PEAK_GIB = 20.0
+# peak device memory the train phase may reach, GiB: 12.31 GiB measured
+# (PERF.md: weights, grads and AdamW moments 9.1 GB, saved block inputs and
+# flash out/lse 2.2 GB, one block's replay and backward), which the flash
+# backward kernels must not grow: they allocate no scratch
+TRAIN_PEAK_GIB = 12.5
 PROMPT_LENS = (1, 17, 128, 512, 513, 1000, 1500, 1900)
 MAX_NEW = 16
 N_STREAMED = 2
@@ -255,11 +275,49 @@ def phase_build() -> None:
         entry = ""
         for line in cuda_lib.build_log(source).splitlines():
             if "Compiling entry function" in line:
-                # the mangled kernel name carries its template arguments
-                entry = line.split("'")[1][-60:] if "'" in line else ""
+                entry = kernel_name(line.split("'")[1]) if "'" in line else ""
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {source} {entry}: {line.strip()}")
         cuda_lib.load(source)
+    counts = hgmma_counts(cuda_lib.library_path("flash_bwd.cu"))
+    for kernel in TC_KERNELS:
+        found = {sym: n for sym, n in counts.items() if kernel in sym}
+        for sym, n in sorted(found.items()):
+            log(f"build: {kernel_name(sym)}: {n} HGMMA instructions")
+        check(found and all(n > 0 for n in found.values()),
+              f"no HGMMA (wgmma) in the SASS of {kernel}: {found}")
+
+
+def kernel_name(symbol: str) -> str:
+    """A mangled kernel symbol as `name<template arguments>`, e.g.
+    `flash_bwd_dq_tc<Li128>`: the source name is the one whose length
+    prefix leads to a template argument list."""
+    for m in re.finditer(r"\d+", symbol):
+        digits, end = m.group(), m.end()
+        for k in range(1, len(digits) + 1):
+            length = int(digits[-k:])
+            name, rest = symbol[end:end + length], symbol[end + length:]
+            if name.isidentifier() and rest.startswith("I") and "E" in rest:
+                return f"{name}<{rest[1:rest.index('E')]}>"
+    return symbol[-60:]
+
+
+def hgmma_counts(library) -> dict[str, int]:
+    """{kernel symbol: HGMMA instructions in its SASS}, from cuobjdump."""
+    from tony_tpu_torch.ops import cuda_lib
+    tool = Path(cuda_lib.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts: dict[str, int] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            counts[current] = 0
+        elif current is not None and "HGMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -338,12 +396,13 @@ def _rms_case(rows: int, d: int, dtype, peaks, iters: int) -> dict:
 
 
 def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
-                    dtype_name: str, peaks, timed_case: bool
+                    dtype_name: str, layout: str, peaks, timed_case: bool
                     ) -> tuple[dict, dict, dict | None]:
     """K2 and K3 against `blockwise_backward` on the same (out, lse) and
     dO, in the layouts the training path gives them; at the timed case
     also K1's (out, lse) against `blockwise_forward` (the training shape),
-    and K2's and K3's times, the plain backward's and SDPA's backward's.
+    K2 and K3 run again and compared bit for bit, and K2's and K3's times,
+    the plain backward's and SDPA's backward's.
     Returns the K2 entry, the K3 entry and the K1 entry or None."""
     import torch
     import torch.nn.functional as F
@@ -356,11 +415,12 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     scale = d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(s + h)
 
-    def bshd(heads):
-        return torch.randn((b, s, heads, d), generator=gen,
-                           device="cuda").to(dtype).transpose(1, 2)
+    def operand(heads):
+        x = torch.randn((b, s, heads, d), generator=gen,
+                        device="cuda").to(dtype).transpose(1, 2)
+        return x.contiguous() if layout == "bhsd" else x
 
-    q, k, v, dout = bshd(h), bshd(hk), bshd(hk), bshd(h)
+    q, k, v, dout = operand(h), operand(hk), operand(hk), operand(h)
     out, lse = flash_fwd_cuda(q, k, v, causal, scale)
     delta = attention_delta(dout, out)
     dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale)
@@ -371,7 +431,8 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     bf16 = dtype == torch.bfloat16
     held = [hold(got, w, tol, bf16) for got, w in zip((dq, dk, dv), want)]
     shape = (f"B{b} H{h} Hkv{hk} S{s} D{d}"
-             f"{' causal' if causal else ''}")
+             f"{' causal' if causal else ''}"
+             f"{' bhsd' if layout == 'bhsd' else ''}")
     entries = [{"shape": shape, "dtype": dtype_name, "tol": tol,
                 "summary": timed_case, **verdict}
                for verdict in (held[0], merge(held[1], held[2]))]
@@ -384,6 +445,18 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
            **merge(hold(out, ref_out, TOL[dtype_name], bf16),
                    hold(lse, ref_lse, LSE_TOL, False))}
     del ref_out, ref_lse
+    # the kernels are deterministic: no atomics, a fixed order of sums
+    again_dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale)
+    again_dk, again_dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
+                                            causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b_ in (("dq", dq, again_dq), ("dk", dk, again_dk),
+                        ("dv", dv, again_dv)):
+        same = torch.equal(a, b_)
+        log(f"kernel flash backward {shape}: {name} bitwise equal over two "
+            f"calls: {same}")
+        check(same, f"flash backward {name} differs between two calls")
+    del again_dq, again_dk, again_dv
     iters = 5
     ms_dq, call_dq = timed(lambda: flash_bwd_dq_cuda(
         q, k, v, dout, lse, delta, causal, scale), iters)
@@ -407,11 +480,16 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     product = 2.0 * b * h * pairs * d
     in_bytes = (2 * b * h * s * d + 2 * b * hk * s * d) * item \
         + 2 * 4 * b * h * s
-    for entry, ms, call_ms, n_products, out_bytes in (
-            (entries[0], ms_dq, call_dq, 3, b * h * s * d * item),
-            (entries[1], ms_dkv, call_dkv, 4, 2 * b * hk * s * d * item)):
+    for name, entry, ms, call_ms, n_products, out_bytes in (
+            ("flash_bwd_dq", entries[0], ms_dq, call_dq, 3,
+             b * h * s * d * item),
+            ("flash_bwd_dkv", entries[1], ms_dkv, call_dkv, 4,
+             2 * b * hk * s * d * item)):
         t_ops = n_products * product / peak * 1e3
         t_bytes = (in_bytes + out_bytes) / bw * 1e3
+        log(f"kernel {name} {shape}: "
+            f"{n_products * product / ms / 1e9:.1f} TFLOP/s, "
+            f"{max(t_ops, t_bytes) / ms * 100:.1f}% of its bound")
         entry.update({"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms,
                       "library_call": library_call,
@@ -442,7 +520,9 @@ def phase_kernels(peaks) -> dict[str, dict]:
             cases[RMSNORM_FWD.name].append(
                 _rms_case(rows, d, dtype, peaks, 100))
     for i, case in enumerate(BWD_CASES):
-        dq, dkv, fwd = _flash_bwd_case(*case, peaks, timed_case=i == 0)
+        layout = case[7] if len(case) > 7 else "bshd"
+        dq, dkv, fwd = _flash_bwd_case(*case[:7], layout, peaks,
+                                       timed_case=i == 0)
         cases[FLASH_BWD_DQ.name].append(dq)
         cases[FLASH_BWD_DKV.name].append(dkv)
         if fwd is not None:
@@ -861,9 +941,13 @@ def phase_train() -> dict[str, int]:
     wall = profiled["wall_ms"]
     kernels = device_events(profiled["prof"])
     busy = sum(_device_us(e) for e in kernels) / 1e3
+    copies = [e for e in kernels if "copy" in e.key.lower()
+              or "memcpy" in e.key.lower()]
     log(f"profile: train step {steps}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
-        f"{sum(e.count for e in kernels)} device ops")
+        f"{sum(e.count for e in kernels)} device ops, of which "
+        f"{sum(e.count for e in copies)} copies "
+        f"({sum(_device_us(e) for e in copies) / 1e3:.2f} ms)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")

@@ -304,6 +304,75 @@ def test_blockwise_backward_bf16_matches_jax():
                                    err_msg=f"d{name}")
 
 
+# chip_smoke.py's limits for the bf16 flash backward on the card
+NORM_TOL = 1e-2
+
+
+def _norm_errors(got, want):
+    """chip_smoke.py's `norm_err`: the whole tensor's and the worst row's
+    norm-wise relative error, rows along D, with a floor of 1e-3 of the rms
+    row norm."""
+    g = got.reshape(-1, got.shape[-1]).astype(np.float64)
+    w = want.reshape(-1, want.shape[-1]).astype(np.float64)
+    diff = np.linalg.norm(g - w, axis=-1)
+    rows = np.linalg.norm(w, axis=-1)
+    floor = 1e-3 * np.sqrt(np.mean(rows ** 2))
+    return (np.linalg.norm(diff) / np.linalg.norm(rows),
+            float(np.max(diff / (rows + floor))))
+
+
+def _bf16(x):
+    return torch.from_numpy(np.array(x, np.float32)).bfloat16()
+
+
+def _tensor_core_backward(q, k, v, out, lse, g, scale):
+    """A test-only emulation of the bf16 backward kernels' numerics
+    (csrc/flash_bwd.cu, causal): bf16 operands, f32 scores and sums, P and
+    dS rounded to bf16 before P^T.dO, dS^T.Q and dS.K, results rounded to
+    bf16."""
+    q, k, v, g = (_bf16(a).float() for a in (q, k, v, g))
+    hk = k.shape[1]
+    k, v = attention._gqa_broadcast(q, k, v)
+    s = q.shape[2]
+    scores = (q @ k.transpose(-1, -2)) * scale
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    p = torch.where(mask, torch.exp(scores - torch.from_numpy(lse)[..., None]),
+                    0.0)
+    delta = attention.attention_delta(g, _bf16(out))[..., None]
+    ds = (p * (g @ v.transpose(-1, -2) - delta) * scale).bfloat16().float()
+    p = p.bfloat16().float()
+    dk, dv = attention._gqa_reduce(ds.transpose(-1, -2) @ q,
+                                   p.transpose(-1, -2) @ g, hk)
+    return [t.bfloat16().float().numpy() for t in (ds @ k, dk, dv)]
+
+
+@pytest.mark.parametrize("hk", [2, 4])
+@pytest.mark.parametrize("d", [128, 64])
+def test_tensor_core_rounding_holds_the_card_limits(d, hk):
+    """Before any card run: rounding P and dS to bf16 ahead of their
+    products, with f32 sums, stays within chip_smoke.py's limits against
+    JAX's `_blockwise_backward` on the same bf16-rounded inputs, at
+    B1 H4/Hkv S512, causal: 3e-2 elementwise, 1e-2 by norm over the whole
+    tensor and over the worst row."""
+    b, h, s = 1, 4, 512
+    q, k, v = (np.asarray(_bf16(a).float()) for a in _qkv(b, h, hk, s, d, 60))
+    g = np.asarray(_bf16(_normal((b, h, s, d), 61)).float())
+    scale = d ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    out, lse = jattn._blockwise_forward(jq, jk, jv, True, scale, s)
+    # the backward sees the forward's bf16 out, as on the card
+    out = np.asarray(_bf16(out).float())
+    want = jattn._blockwise_backward(jq, jk, jv, jnp.asarray(out), lse, jg,
+                                     True, scale, s)
+    got = _tensor_core_backward(q, k, v, out, np.array(lse), g, scale)
+    for name, g_got, g_want in zip("qkv", got, want):
+        g_want = np.asarray(_bf16(g_want).float())
+        np.testing.assert_allclose(g_got, g_want, atol=BF16_TOL,
+                                   rtol=BF16_TOL, err_msg=f"d{name}")
+        total, row = _norm_errors(g_got, g_want)
+        assert total <= NORM_TOL and row <= NORM_TOL, (name, total, row)
+
+
 def test_flash_backward_cpu_path_launches_nothing():
     before = (attention.FLASH_BWD_DQ.launches,
               attention.FLASH_BWD_DKV.launches)
@@ -364,6 +433,28 @@ def test_kernel_wrappers_validate_before_launching():
         rmsnorm.rms_norm_cuda(torch.zeros(8, 2).t(), torch.zeros(8), 1e-5)
 
 
+def test_bf16_backward_checks_what_tma_can_load():
+    """The bf16 backward kernels load q, k, v and dO by TMA: a base that is
+    not 16-byte aligned, or a batch, head or sequence stride that is not a
+    multiple of 16 bytes, raises before any launch. float32 takes both."""
+    lse = torch.zeros(1, 2, 4)
+    q = torch.zeros(1, 2, 4, 16, dtype=torch.bfloat16)
+    shifted = torch.zeros(2 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+        1, 2, 4, 16)
+    narrow_rows = torch.zeros(1, 2, 4, 20, dtype=torch.bfloat16)[..., :16]
+    before = attention.FLASH_BWD_DQ.launches
+    for bad in (shifted, narrow_rows):
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.flash_bwd_dq_cuda(q, q, q, bad, lse, lse, True, 0.25)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.flash_bwd_dkv_cuda(bad, q, q, q, lse, lse, True, 0.25)
+    assert attention.FLASH_BWD_DQ.launches == before
+    # f32 operands with the same strides pass the checks (and then need
+    # the card's toolchain)
+    f32 = torch.zeros(1, 2, 4, 20)[..., :16]
+    assert attention._check_bwd_inputs(f32, f32, f32, f32, lse, lse) == 0
+
+
 def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
@@ -387,8 +478,14 @@ def test_library_path_is_keyed_by_source_content(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)
     first = cuda_lib.library_path("k.cu")
     (tmp_path / "k.cu").write_text("// two\n")
-    assert cuda_lib.library_path("k.cu") != first
+    second = cuda_lib.library_path("k.cu")
+    assert second != first
     assert first.parent == cuda_lib.BUILD_DIR
+    # a header the source includes: adding it, then editing it, rebuilds
+    (tmp_path / "helpers.cuh").write_text("// one\n")
+    third = cuda_lib.library_path("k.cu")
+    (tmp_path / "helpers.cuh").write_text("// two\n")
+    assert len({first, second, third, cuda_lib.library_path("k.cu")}) == 4
 
 
 def test_every_kernel_is_registered_with_its_source():

@@ -19,8 +19,10 @@ differentiable.
   kernels, as on the TPU) and launches the two kernels of
   `csrc/flash_bwd.cu`: dQ (replaces `_flash_bwd_dq_kernel`) and the
   group-summed narrow dK/dV (replaces `_flash_bwd_dkv_kernel` and
-  `_gqa_reduce`). The kernels read q, k, v and dO through their strides;
-  only the last dim must be contiguous, and the wrappers raise otherwise.
+  `_gqa_reduce`): in bf16 on the tensor cores (wgmma, TMA), in f32 on the
+  CUDA cores. The kernels read q, k, v and dO through their strides;
+  only the last dim must be contiguous (and, for the bf16 backward's TMA,
+  bases and strides 16-byte aligned), and the wrappers raise otherwise.
   A ragged S is masked inside the kernels; nothing is padded.
 - On a CPU tensor it runs `blockwise_forward` and `blockwise_backward`,
   the same math over key blocks in plain PyTorch.
@@ -250,6 +252,16 @@ def _check_bwd_inputs(q, k, v, g, lse, delta) -> int:
                 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"({b}, {h}, {s}) tensor on {q.device}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernels load q, k, v and dO by TMA
+        for name, t in zip("qkvg", (q, k, v, g)):
+            if t.data_ptr() % 16 or any(
+                    (st * t.element_size()) % 16
+                    for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+                raise ValueError(
+                    f"flash backward kernels: bf16 {name} needs a 16-byte "
+                    f"aligned base and batch, head and sequence strides of "
+                    f"a multiple of 16 bytes, got strides {t.stride()}")
     return code
 
 

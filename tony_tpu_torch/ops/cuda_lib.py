@@ -4,8 +4,9 @@ The sources live in `tony_tpu_torch/csrc/`, one `.cu` file per kernel, each
 with a plain C interface. They are compiled by `nvcc` for Hopper
 (`sm_90a`) into shared libraries under `tony_tpu_torch/_build/` (listed in
 `.gitignore`) at first use, one `nvcc` process per source, all started
-together. A library's file name carries a hash of its source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+together. A library's file name carries a hash of its source, of the
+shared headers in `csrc/` (`*.cuh`) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.
 
 There is no fallback: a missing `nvcc`, a failed build or a non-zero
 launch status raises. The plain PyTorch versions beside each kernel run
@@ -59,10 +60,13 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """Where the library built from `source` lives: keyed by a hash of the
-    source text and the compiler flags."""
-    text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    source text, of every header in `csrc/` (a source may include any of
+    them) and of the compiler flags."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
