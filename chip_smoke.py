@@ -10,8 +10,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
               csrc/` (one nvcc per source, all at once); print the build
               seconds, nvcc's register report per kernel and the card's
               name and power limit; count the HGMMA (wgmma) instructions
-              in the SASS of each bf16 flash-backward kernel (cuobjdump)
-              and fail if one has none.
+              in the SASS of each bf16 flash kernel (forward and
+              backward, cuobjdump) and fail if one has none.
 2. kernels  — call each kernel's wrapper at the shapes of the serving
               and training paths and hold it against its plain PyTorch
               version on the same inputs: elementwise (bf16 at 3e-2, f32
@@ -20,11 +20,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
               flash outputs, by norm: ||got - want|| / ||want|| over the
               whole tensor and over each row of D, within 1e-2 (late rows
               are small, so an elementwise 3e-2 alone would pass a kernel
-              that dropped their tiles); print the errors, kernel ms,
-              plain ms, the library call's ms and the bound. At the
-              training shape the flash backward kernels run twice and
-              must agree bit for bit, and print their TFLOP/s and share
-              of the bound.
+              that dropped their tiles), printing where the worst row is;
+              print the errors, kernel ms, plain ms, the library call's ms
+              and the bound (RMSNorm also with a cold L2). At the training
+              shape the flash kernels run twice and must agree bit for
+              bit, and print their TFLOP/s and share of the bound.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
@@ -69,11 +69,27 @@ import urllib.request
 from pathlib import Path
 
 SERVE_CONFIG = "llama3_8b"
-FLASH_SEQS = (1, 37, 512, 513, 2000)     # the last is the timed summary
-# (rows, D): serving's shapes (2000 x 4096 is the timed summary) and the
-# training path's, B4 x S4096 rows of llama3_1b_proxy's 2048
+# K1 at llama3_8b's head layout (B1 H32/8 D128 causal), at serving's prompt
+# lengths, timed; the last is the timed summary
+FLASH_SEQS = (1, 37, 512, 513, 2000)
+# more bf16 K1 cases, held and not timed, (B, H, Hkv, S, D, causal):
+# bench_350m's D64, D32 and D16, each at a ragged S (not a multiple of the
+# 128-key tile), a non-causal case, an H == Hkv case, a group of 4 at B2
+FLASH_CASES = (
+    (1, 16, 8, 1000, 64, True),
+    (1, 4, 2, 100, 32, True),
+    (2, 4, 4, 37, 16, True),
+    (1, 32, 8, 1000, 128, False),
+    (1, 8, 8, 513, 128, True),
+    (2, 8, 2, 777, 128, True),
+)
+# (rows, D): serving's shapes (2000 x 4096 is the timed summary), the
+# training path's (B4 x S4096 rows of llama3_1b_proxy's 2048), bench_350m's
+# 1024, and two rows that are not a power of two: 1000 (bf16: 125 16-byte
+# vectors, the vector path) and 1001 (not a whole number of 16-byte
+# vectors in either dtype: the scalar path)
 RMS_CASES = ((1, 4096), (4, 4096), (513, 4096), (2000, 4096),
-             (16384, 2048))
+             (16384, 2048), (2000, 1024), (2000, 1000), (2000, 1001))
 RMS_SUMMARY = (2000, 4096)
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
@@ -82,16 +98,17 @@ BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
 # bf16, so they differ by at most one bf16 ulp (2^-7 relative) in a few
 # elements; a dropped or misplaced tile costs its rows O(1).
 NORM_TOL = 1e-2
-# the f32 time K1's lse may differ by: both sides sum in f32, K1 scales q
-# before the product and the plain version after it
+# the limit on K1's lse at the training shape: both sides sum in f32, in
+# another order, and the plain version scales q before the product where
+# the bf16 kernel scales S after it
 LSE_TOL = 1e-4
 # (B, H, Hkv, S, D, causal, dtype) of the flash backward cases: the
-# training shape of llama3_1b_proxy first (timed, and K1 held there too),
-# llama3_8b's head layout (group 4), bench_350m's (D 64), ragged S (not a
-# multiple of 64 or 128) at every head dim, a non-causal case, an
-# H == Hkv case, contiguous (B, H, S, D) operands (an eighth field
-# "bhsd"; the others are `qkv_proj`'s (B, S, H, D) views); in bf16 the
-# tensor-core kernels, in f32 (D 128 S 1024 and small shapes) the
+# training shape of llama3_1b_proxy first (timed, and K1 held and timed
+# there too), llama3_8b's head layout (group 4), bench_350m's (D 64),
+# ragged S (not a multiple of 64 or 128) at every head dim, a non-causal
+# case, an H == Hkv case, contiguous (B, H, S, D) operands (an eighth
+# field "bhsd"; the others are `qkv_proj`'s (B, S, H, D) views); in bf16
+# the tensor-core kernels, in f32 (D 128 S 1024 and small shapes) the
 # CUDA-core ones
 BWD_CASES = (
     (4, 16, 8, 4096, 128, True, "bfloat16"),
@@ -111,8 +128,10 @@ BWD_CASES = (
     (1, 4, 2, 100, 32, False, "float32"),
     (2, 4, 4, 37, 16, True, "float32"),
 )
-# the bf16 backward kernels' symbols, whose SASS must hold HGMMA (wgmma)
-TC_KERNELS = ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+# the bf16 flash kernels' symbols, by source, whose SASS must hold HGMMA
+# (wgmma)
+TC_KERNELS = {"flash_fwd.cu": ("flash_fwd_tc",),
+              "flash_bwd.cu": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")}
 TRAIN_CONFIG = "llama3_1b_proxy"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
 # peak device memory the train phase may reach, GiB: 12.31 GiB measured
@@ -173,6 +192,20 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
+def log_top(kernels: list, n: int) -> None:
+    """The profile's `n` largest device ops, then each of the port's own
+    kernels (by the templates of csrc/: flash_*, rmsnorm_*) that is not
+    among them."""
+    ranked = sorted(kernels, key=_device_us, reverse=True)
+    for e in ranked[:n]:
+        log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    for e in ranked[n:]:
+        if re.search(r"\b(flash_\w+|rmsnorm_\w+)<", e.key):
+            log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
+                f"{e.key[:90]} (a port kernel)")
+
+
 def _events_ms(fn, iters: int, sleep_cycles: int = 0) -> float:
     """CUDA-event time of `iters` back-to-back fn() calls, over `iters`,
     optionally queued behind a sleep kernel of `sleep_cycles`."""
@@ -201,9 +234,45 @@ def timed(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
         fn()
     torch.cuda.synchronize()
     call_ms = _events_ms(fn, iters)
+    return _events_ms(fn, iters, _sleep_cycles(call_ms * iters)), call_ms
+
+
+def _sleep_cycles(host_ms: float) -> int:
+    """Cycles of a sleep kernel that outlasts twice `host_ms` of host
+    launch time (and 5 ms at least)."""
+    import torch
     cycles_per_ms = 1e6 / _events_ms(lambda: torch.cuda._sleep(1_000_000), 1)
-    cycles = int(cycles_per_ms * max(5.0, 2 * call_ms * iters))
-    return _events_ms(fn, iters, sleep_cycles=cycles), call_ms
+    return int(cycles_per_ms * max(5.0, 2 * host_ms))
+
+
+def timed_cold(fn, iters: int, flush) -> float:
+    """Device ms of one fn() call that finds the L2 cold: before each call,
+    outside the CUDA events that bracket fn() alone, `flush` (twice the
+    L2) is written and then read back, so fn()'s inputs are evicted and the
+    write-back of the flush's own dirty lines is done before fn() starts
+    (written alone, it would land inside the timed call). The calls queue
+    behind a sleep kernel, so the host's cost stays hidden."""
+    import torch
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+
+    def run(sleep_cycles: int) -> float:
+        torch.cuda.synchronize()
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
+        t0 = time.monotonic()
+        for start, end in pairs:
+            flush.zero_().sum()
+            start.record()
+            fn()
+            end.record()
+        host_ms = (time.monotonic() - t0) * 1e3
+        torch.cuda.synchronize()
+        return host_ms
+
+    host_ms = run(0)                         # warm-up, and the host's pace
+    run(_sleep_cycles(host_ms))
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 def max_err(got, want, tol: float) -> tuple[float, bool]:
@@ -217,39 +286,51 @@ def max_err(got, want, tol: float) -> tuple[float, bool]:
     return float(diff.max().item()), ok
 
 
-def norm_err(got, want) -> tuple[float, float]:
+def norm_err(got, want) -> tuple[float, float, tuple[int, ...]]:
     """(||got - want|| / ||want||, the worst row's ||got_r - want_r|| /
-    (||want_r|| + 1e-3 * rms_r ||want_r||)), rows along the last dim. The
-    floor keeps rows whose exact value is 0 (causal dQ of row 0) from
-    dividing rounding noise by nothing."""
+    (||want_r|| + 1e-3 * rms_r ||want_r||), that row's index over the
+    leading dims, e.g. (b, h, s)), rows along the last dim. The floor keeps
+    rows whose exact value is 0 (causal dQ of row 0) from dividing
+    rounding noise by nothing."""
     g = got.float().reshape(-1, got.shape[-1])
     w = want.float().reshape(-1, want.shape[-1])
     diff = (g - w).norm(dim=-1)
     rows = w.norm(dim=-1)
     floor = 1e-3 * rows.square().mean().sqrt()
     total = float(diff.norm() / rows.norm().clamp_min(1e-30))
-    return total, float((diff / (rows + floor).clamp_min(1e-30)).max())
+    ratio = diff / (rows + floor).clamp_min(1e-30)
+    flat = int(ratio.argmax())
+    where = []
+    for n in reversed(got.shape[:-1]):
+        where.append(flat % n)
+        flat //= n
+    return total, float(ratio.max()), tuple(reversed(where))
 
 
-def hold(got, want, tol: float, by_norm: bool) -> dict:
+def hold(got, want, tol: float, by_norm: bool, name: str = "") -> dict:
     """The case's verdict: elementwise within `tol`, and with `by_norm` the
-    norm-wise errors within NORM_TOL."""
+    norm-wise errors within NORM_TOL (and where the worst row is, as
+    `name` (b, h, s))."""
     err, ok = max_err(got, want, tol)
     r = {"max_abs_err": err, "ok": ok}
     if by_norm:
-        total, row = norm_err(got, want)
+        total, row, where = norm_err(got, want)
         r.update(norm_err=total, row_err=row,
+                 worst_row=f"{name} {where}".strip(),
                  ok=ok and total <= NORM_TOL and row <= NORM_TOL)
     return r
 
 
 def merge(*held: dict) -> dict:
     """One verdict for several outputs of a kernel: the worst of each
-    error, ok only if every output is."""
+    error (and the worst row's place), ok only if every output is."""
     r = {"ok": all(h["ok"] for h in held)}
     for key in ("max_abs_err", "norm_err", "row_err"):
         if any(key in h for h in held):
             r[key] = max(h.get(key, 0.0) for h in held)
+    if "row_err" in r:
+        r["worst_row"] = max((h for h in held if "row_err" in h),
+                             key=lambda h: h["row_err"])["worst_row"]
     return r
 
 
@@ -279,13 +360,14 @@ def phase_build() -> None:
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {source} {entry}: {line.strip()}")
         cuda_lib.load(source)
-    counts = hgmma_counts(cuda_lib.library_path("flash_bwd.cu"))
-    for kernel in TC_KERNELS:
-        found = {sym: n for sym, n in counts.items() if kernel in sym}
-        for sym, n in sorted(found.items()):
-            log(f"build: {kernel_name(sym)}: {n} HGMMA instructions")
-        check(found and all(n > 0 for n in found.values()),
-              f"no HGMMA (wgmma) in the SASS of {kernel}: {found}")
+    for source, tc_kernels in TC_KERNELS.items():
+        counts = hgmma_counts(cuda_lib.library_path(source))
+        for kernel in tc_kernels:
+            found = {sym: n for sym, n in counts.items() if kernel in sym}
+            for sym, n in sorted(found.items()):
+                log(f"build: {kernel_name(sym)}: {n} HGMMA instructions")
+            check(found and all(n > 0 for n in found.values()),
+                  f"no HGMMA (wgmma) in the SASS of {kernel}: {found}")
 
 
 def kernel_name(symbol: str) -> str:
@@ -324,16 +406,53 @@ def hgmma_counts(library) -> dict[str, int]:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _flash_case(s: int, dtype, peaks, iters: int) -> dict:
+def _flash_fwd_times(q, k, v, causal: bool, scale: float, peaks,
+                     iters: int, plain_iters: int, label: str) -> dict:
+    """K1's device ms (and call ms) beside `blockwise_forward`'s, SDPA's
+    forward on the same q, k, v and the bound, with its TFLOP/s and share
+    of the bound logged."""
     import torch
     import torch.nn.functional as F
 
     from tony_tpu_torch.ops.attention import (
         blockwise_forward, flash_fwd_cuda,
     )
-    b, h, hk, d = 1, 32, 8, 128
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    ms, call_ms = timed(lambda: flash_fwd_cuda(q, k, v, causal, scale),
+                        iters)
+    plain_ms, _ = timed(lambda: blockwise_forward(q, k, v, causal, scale),
+                        plain_iters, warmup=1)
+    library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale, enable_gqa=True), iters)
+    bw, bf16_peak, f32_peak = peaks
+    itemsize = q.element_size()
+    nbytes = 2 * b * h * s * d * itemsize + 2 * b * hk * s * d * itemsize \
+        + 4 * b * h * s
+    # two products of 2 * D per (query, key) pair; causal keeps half
+    flops = 4.0 * b * h * (s * s / 2 if causal else s * s) * d
+    peak = bf16_peak if q.dtype == torch.bfloat16 else f32_peak
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"kernel flash_fwd {label}: {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound / ms * 100:.1f}% of its bound; SDPA forward "
+        f"{library_ms:.4f} ms")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _flash_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
+                dtype, peaks, iters: int) -> dict:
+    """K1 against `blockwise_forward` on the same inputs; timed when
+    `iters` is not 0."""
+    import torch
+
+    from tony_tpu_torch.ops.attention import (
+        blockwise_forward, flash_fwd_cuda,
+    )
     scale = d ** -0.5
-    g = torch.Generator(device="cuda").manual_seed(s)
+    g = torch.Generator(device="cuda").manual_seed(s + 1000 * d + h)
     # the layout qkv_proj hands the kernel: (B, S, H, D) products viewed
     # as (B, H, S, D)
     q = torch.randn((b, s, h, d), generator=g, device="cuda").to(
@@ -342,39 +461,30 @@ def _flash_case(s: int, dtype, peaks, iters: int) -> dict:
         dtype).transpose(1, 2)
     v = torch.randn((b, s, hk, d), generator=g, device="cuda").to(
         dtype).transpose(1, 2)
-    out, lse = flash_fwd_cuda(q, k, v, True, scale)
-    ref_out, ref_lse = blockwise_forward(q, k, v, True, scale)
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    ref_out, ref_lse = blockwise_forward(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    tol = TOL[str(dtype).split(".")[-1]]
-    verdict = merge(hold(out, ref_out, tol, dtype == torch.bfloat16),
-                    hold(lse, ref_lse, tol, False))
-    ms, call_ms = timed(lambda: flash_fwd_cuda(q, k, v, True, scale), iters)
-    plain_ms, _ = timed(lambda: blockwise_forward(q, k, v, True, scale),
-                        max(1, iters // 4))
-    library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale, enable_gqa=True), iters)
-    bw, bf16_peak, f32_peak = peaks
-    itemsize = q.element_size()
-    nbytes = 2 * b * h * s * d * itemsize + 2 * b * hk * s * d * itemsize \
-        + 4 * b * h * s
-    flops = 2.0 * b * h * s * s * d          # causal: half of 4 * S^2 * D
-    peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-    return {"shape": f"B{b} H{h} Hkv{hk} S{s} D{d} causal",
-            "dtype": str(dtype).split(".")[-1], **verdict, "tol": tol,
-            "summary": s == FLASH_SEQS[-1], "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    dtype_name = str(dtype).split(".")[-1]
+    tol = TOL[dtype_name]
+    shape = f"B{b} H{h} Hkv{hk} S{s} D{d}{' causal' if causal else ''}"
+    r = {"shape": shape, "dtype": dtype_name, "tol": tol,
+         "summary": (b, h, hk, s, d, causal) == (1, 32, 8, FLASH_SEQS[-1],
+                                                 128, True),
+         **merge(hold(out, ref_out, tol, dtype == torch.bfloat16, "out"),
+                 hold(lse, ref_lse, tol, False))}
+    if iters:
+        r.update(_flash_fwd_times(q, k, v, causal, scale, peaks, iters,
+                                  max(1, iters // 4), f"{dtype_name} {shape}"))
+    return r
 
 
-def _rms_case(rows: int, d: int, dtype, peaks, iters: int) -> dict:
+def _rms_case(rows: int, d: int, dtype, peaks, iters: int, flush) -> dict:
     import torch
     import torch.nn.functional as F
 
     from tony_tpu_torch.ops.rmsnorm import rms_norm_cuda, rms_norm_reference
     eps = 1e-5
-    g = torch.Generator(device="cuda").manual_seed(rows)
+    g = torch.Generator(device="cuda").manual_seed(rows + d)
     x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
     w = torch.randn((d,), generator=g, device="cuda") * 0.1 + 1.0
     out = rms_norm_cuda(x, w, eps)
@@ -386,12 +496,21 @@ def _rms_case(rows: int, d: int, dtype, peaks, iters: int) -> dict:
     plain_ms, _ = timed(lambda: rms_norm_reference(x, w, eps), iters)
     w_x = w.to(dtype)
     library_ms, _ = timed(lambda: F.rms_norm(x, (d,), w_x, eps), iters)
+    # as the path finds x between layers: not in the L2
+    cold_ms = timed_cold(lambda: rms_norm_cuda(x, w, eps), iters, flush)
+    cold_library_ms = timed_cold(lambda: F.rms_norm(x, (d,), w_x, eps),
+                                 iters, flush)
     bw = peaks[0]
     nbytes = 2 * rows * d * x.element_size() + 4 * d
-    return {"shape": f"rows{rows} D{d}", "dtype": str(dtype).split(".")[-1],
+    # the kernel's dispatch on shape: 16-byte vectors where a row is a
+    # whole number of them (x is aligned here)
+    path = "vector" if d * x.element_size() % 16 == 0 else "scalar"
+    return {"shape": f"rows{rows} D{d} ({path})",
+            "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "ok": ok, "tol": tol,
             "summary": (rows, d) == RMS_SUMMARY, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "cold_ms": cold_ms, "cold_library_ms": cold_library_ms,
             "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes"}
 
 
@@ -400,9 +519,9 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
                     ) -> tuple[dict, dict, dict | None]:
     """K2 and K3 against `blockwise_backward` on the same (out, lse) and
     dO, in the layouts the training path gives them; at the timed case
-    also K1's (out, lse) against `blockwise_forward` (the training shape),
-    K2 and K3 run again and compared bit for bit, and K2's and K3's times,
-    the plain backward's and SDPA's backward's.
+    (the training shape) also K1's (out, lse) against `blockwise_forward`,
+    K1, K2 and K3 run again and compared bit for bit, and their times
+    beside the plain versions', SDPA's forward and SDPA's backward.
     Returns the K2 entry, the K3 entry and the K1 entry or None."""
     import torch
     import torch.nn.functional as F
@@ -429,7 +548,8 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype_name]
     bf16 = dtype == torch.bfloat16
-    held = [hold(got, w, tol, bf16) for got, w in zip((dq, dk, dv), want)]
+    held = [hold(got, w, tol, bf16, name)
+            for got, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv"))]
     shape = (f"B{b} H{h} Hkv{hk} S{s} D{d}"
              f"{' causal' if causal else ''}"
              f"{' bhsd' if layout == 'bhsd' else ''}")
@@ -442,22 +562,26 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     ref_out, ref_lse = blockwise_forward(q, k, v, causal, scale)
     fwd = {"shape": shape, "dtype": dtype_name, "tol": TOL[dtype_name],
            "summary": False,
-           **merge(hold(out, ref_out, TOL[dtype_name], bf16),
+           **merge(hold(out, ref_out, TOL[dtype_name], bf16, "out"),
                    hold(lse, ref_lse, LSE_TOL, False))}
     del ref_out, ref_lse
     # the kernels are deterministic: no atomics, a fixed order of sums
+    again = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    again_out, again_lse = flash_fwd_cuda(q, k, v, causal, scale)
     again_dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale)
     again_dk, again_dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
                                             causal, scale)
     torch.cuda.synchronize()
-    for name, a, b_ in (("dq", dq, again_dq), ("dk", dk, again_dk),
-                        ("dv", dv, again_dv)):
-        same = torch.equal(a, b_)
-        log(f"kernel flash backward {shape}: {name} bitwise equal over two "
-            f"calls: {same}")
-        check(same, f"flash backward {name} differs between two calls")
-    del again_dq, again_dk, again_dv
+    for name, b_ in zip(again, (again_out, again_lse, again_dq, again_dk,
+                                again_dv)):
+        same = torch.equal(again[name], b_)
+        log(f"kernel flash {shape}: {name} bitwise equal over two calls: "
+            f"{same}")
+        check(same, f"flash {name} differs between two calls")
+    del again, again_out, again_lse, again_dq, again_dk, again_dv
     iters = 5
+    fwd.update(_flash_fwd_times(q, k, v, causal, scale, peaks, iters, 1,
+                                f"{dtype_name} {shape}"))
     ms_dq, call_dq = timed(lambda: flash_bwd_dq_cuda(
         q, k, v, dout, lse, delta, causal, scale), iters)
     ms_dkv, call_dkv = timed(lambda: flash_bwd_dkv_cuda(
@@ -499,6 +623,33 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     return entries[0], entries[1], fwd
 
 
+def _report(name: str, r: dict) -> None:
+    """Log one case of a kernel: its errors, times and bound."""
+    line = (f"kernel {name} {r['dtype']} {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']:.3e} (tol {r['tol']})")
+    if "norm_err" in r:
+        line += (f" norm_err {r['norm_err']:.3e} row_err "
+                 f"{r['row_err']:.3e} at {r['worst_row']} "
+                 f"(tol {NORM_TOL})")
+    if "ms" in r:
+        lib, call = r["library_ms"], r.get("library_call")
+        line += (f" ms {r['ms']:.4f} call_ms {r['call_ms']:.4f} "
+                 f"plain_ms {r['plain_ms']:.4f} library_ms "
+                 f"{'null' if lib is None else f'{lib:.4f}'}"
+                 f"{f' ({call})' if call else ''}"
+                 f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    if "cold_ms" in r:
+        line += (f" cold L2: ms {r['cold_ms']:.4f} library_ms "
+                 f"{r['cold_library_ms']:.4f}")
+    log(line + ("" if r["ok"] else "  <-- OUT OF TOLERANCE"))
+
+
+def _hold_all(name: str, results: list[dict]) -> None:
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"{name} disagrees with its plain version at "
+                   + ", ".join(f"{r['dtype']} {r['shape']}" for r in bad))
+
+
 def phase_kernels(peaks) -> dict[str, dict]:
     """Every kernel at every listed shape and dtype. Returns, per kernel,
     its timed bf16 summary entry (serving's largest shape for K1 and K4,
@@ -512,41 +663,40 @@ def phase_kernels(peaks) -> dict[str, dict]:
 
     cases = {FLASH_FWD.name: [], FLASH_BWD_DQ.name: [],
              FLASH_BWD_DKV.name: [], RMSNORM_FWD.name: []}
+    # written and read back between RMSNorm launches timed with a cold L2:
+    # twice the L2
+    flush = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size
+                        // 4, device="cuda")
+    def add(name: str, r: dict) -> None:
+        _report(name, r)
+        cases[name].append(r)
+
     for dtype in (torch.bfloat16, torch.float32):
         for s in FLASH_SEQS:
-            cases[FLASH_FWD.name].append(
-                _flash_case(s, dtype, peaks, 20 if s >= 512 else 50))
+            add(FLASH_FWD.name, _flash_case(1, 32, 8, s, 128, True, dtype,
+                                            peaks, 20 if s >= 512 else 50))
         for rows, d in RMS_CASES:
-            cases[RMSNORM_FWD.name].append(
-                _rms_case(rows, d, dtype, peaks, 100))
+            add(RMSNORM_FWD.name,
+                _rms_case(rows, d, dtype, peaks, 100, flush))
+    del flush
+    for case in FLASH_CASES:
+        add(FLASH_FWD.name, _flash_case(*case, torch.bfloat16, peaks, 0))
+    # the backward cases run on K1's (out, lse): a wrong forward fails here,
+    # under its own name
+    for name in (FLASH_FWD.name, RMSNORM_FWD.name):
+        _hold_all(name, cases[name])
     for i, case in enumerate(BWD_CASES):
         layout = case[7] if len(case) > 7 else "bshd"
         dq, dkv, fwd = _flash_bwd_case(*case[:7], layout, peaks,
                                        timed_case=i == 0)
-        cases[FLASH_BWD_DQ.name].append(dq)
-        cases[FLASH_BWD_DKV.name].append(dkv)
+        add(FLASH_BWD_DQ.name, dq)
+        add(FLASH_BWD_DKV.name, dkv)
         if fwd is not None:
-            cases[FLASH_FWD.name].append(fwd)
+            add(FLASH_FWD.name, fwd)
         torch.cuda.empty_cache()
     summary = {}
     for name, results in cases.items():
-        for r in results:
-            line = (f"kernel {name} {r['dtype']} {r['shape']}: max_abs_err "
-                    f"{r['max_abs_err']:.3e} (tol {r['tol']})")
-            if "norm_err" in r:
-                line += (f" norm_err {r['norm_err']:.3e} row_err "
-                         f"{r['row_err']:.3e} (tol {NORM_TOL})")
-            if "ms" in r:
-                lib = r["library_ms"]
-                line += (f" ms {r['ms']:.4f} call_ms {r['call_ms']:.4f} "
-                         f"plain_ms {r['plain_ms']:.4f} library_ms "
-                         f"{'null' if lib is None else f'{lib:.4f}'}"
-                         f"{' (' + r['library_call'] + ')' if 'library_call' in r else ''}"
-                         f" bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
-            log(line + ("" if r["ok"] else "  <-- OUT OF TOLERANCE"))
-        bad = [r for r in results if not r["ok"]]
-        check(not bad, f"{name} disagrees with its plain version at "
-                       + ", ".join(f"{r['dtype']} {r['shape']}" for r in bad))
+        _hold_all(name, results)
         bf16 = [r for r in results if r["dtype"] == "bfloat16"]
         top = dict(next(r for r in bf16 if r["summary"]))
         top["max_abs_err"] = max(r["max_abs_err"] for r in bf16)
@@ -827,9 +977,7 @@ def phase_profile(config_name: str) -> None:
             log(f"profile: {label}: wall {wall:.2f} ms (median of 5), "
                 f"device busy {busy:.2f} ms, idle share "
                 f"{max(0.0, 1 - busy / wall):.3f}, {n_launch} device ops")
-            for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
-                log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  "
-                    f"x{e.count:<5d} {e.key[:90]}")
+            log_top(kernels, 10)
     del params, cache
     torch.cuda.empty_cache()
 
@@ -948,9 +1096,7 @@ def phase_train() -> dict[str, int]:
         f"{sum(e.count for e in kernels)} device ops, of which "
         f"{sum(e.count for e in copies)} copies "
         f"({sum(_device_us(e) for e in copies) / 1e3:.2f} ms)")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
-        log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
-            f"{e.key[:90]}")
+    log_top(kernels, 12)
     del trainer, profiled, step_fn
     torch.cuda.empty_cache()
     return total

@@ -373,6 +373,64 @@ def test_tensor_core_rounding_holds_the_card_limits(d, hk):
         assert total <= NORM_TOL and row <= NORM_TOL, (name, total, row)
 
 
+def _tensor_core_forward(q, k, v, causal, scale, block_k):
+    """A test-only emulation of the bf16 forward kernel's numerics
+    (csrc/flash_fwd.cu): bf16 q, k and v; S = q.k in f32 with the scale
+    applied after the product; an online softmax over key tiles of
+    `block_k`; P rounded to bf16 before P.V; l summed from the f32 P; out
+    rounded to bf16. Returns out (as f32) and lse."""
+    q, k, v = (_bf16(a).float() for a in (q, k, v))
+    k, v = attention._gqa_broadcast(q, k, v)
+    b, h, s, d = q.shape
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), attention.NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, block_k):
+        scores = (q @ k[:, :, k0:k0 + block_k].transpose(-1, -2)) * scale
+        if causal:
+            cols = k0 + torch.arange(scores.shape[-1])
+            scores = torch.where(rows >= cols, scores, attention.NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        p = torch.exp(scores - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ v[:, :, k0:k0 + block_k]
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return ((acc / l).bfloat16().float().numpy(),
+            (m + torch.log(l))[..., 0].numpy())
+
+
+# the card's limit on K1's lse at the training shape (chip_smoke.LSE_TOL)
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("d,hk,causal,block_k", [
+    (128, 2, True, 128), (64, 2, True, 128), (128, 4, False, 128),
+    (128, 2, True, 64)], ids=lambda c: str(c))
+def test_tensor_core_forward_rounding_holds_the_card_limits(d, hk, causal,
+                                                            block_k):
+    """Before any card run: bf16 operands for q.k and P rounded to bf16
+    before P.V, with f32 sums (the kernel's 128-key tiles, and 64-key ones),
+    stay within chip_smoke.py's limits against JAX's `_blockwise_forward`
+    on the same bf16-rounded inputs at B1 H4/Hkv S512: 3e-2 elementwise,
+    1e-2 by norm over the whole tensor and over the worst row, and lse
+    within 1e-4."""
+    b, h, s = 1, 4, 512
+    q, k, v = (np.asarray(_bf16(a).float()) for a in _qkv(b, h, hk, s, d, 70))
+    scale = d ** -0.5
+    out, lse = jattn._blockwise_forward(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal, scale, s)
+    want = np.asarray(_bf16(out).float())     # the plain version's bf16 out
+    got, got_lse = _tensor_core_forward(q, k, v, causal, scale, block_k)
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+    total, row = _norm_errors(got, want)
+    assert total <= NORM_TOL and row <= NORM_TOL, (total, row)
+    np.testing.assert_allclose(got_lse, np.asarray(lse), atol=LSE_TOL,
+                               rtol=LSE_TOL)
+
+
 def test_flash_backward_cpu_path_launches_nothing():
     before = (attention.FLASH_BWD_DQ.launches,
               attention.FLASH_BWD_DKV.launches)
@@ -453,6 +511,33 @@ def test_bf16_backward_checks_what_tma_can_load():
     # the card's toolchain)
     f32 = torch.zeros(1, 2, 4, 20)[..., :16]
     assert attention._check_bwd_inputs(f32, f32, f32, f32, lse, lse) == 0
+
+
+def _tma_breaking(kind: str, dtype) -> torch.Tensor:
+    """A (1, 2, 4, 16) view that TMA cannot load: its base one element
+    past a 16-byte boundary, or its rows 20 elements apart."""
+    if kind == "shifted_base":
+        return torch.zeros(2 * 4 * 16 + 1, dtype=dtype)[1:].view(1, 2, 4, 16)
+    return torch.zeros(1, 2, 4, 20, dtype=dtype)[..., :16]
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("bad", ["shifted_base", "narrow_rows"])
+def test_bf16_forward_checks_what_tma_can_load(operand, bad):
+    """The bf16 forward kernel loads q, k and v by TMA, through the same
+    check as the backward: a misaligned base or a 16-byte-breaking stride
+    raises before any launch; f32 operands with the same strides pass."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = {name: torch.zeros(1, 2, 4, 16, dtype=dtype) for name in "qkv"}
+        args[operand] = _tma_breaking(bad, dtype)
+        if dtype == torch.float32:
+            assert attention._check_fwd_inputs(*args.values()) == 0
+            continue
+        before = attention.FLASH_FWD.launches
+        with pytest.raises(ValueError,
+                           match=f"bf16 {operand} needs a 16-byte"):
+            attention.flash_fwd_cuda(*args.values(), True, 0.25)
+        assert attention.FLASH_FWD.launches == before
 
 
 def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):

@@ -75,7 +75,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;     // query rows (dq) or keys (dkv)
 constexpr int kTStride = 65;        // padded row of a transposed tile
-constexpr float kNegInf = -1e30f;   // the TPU kernels' NEG_INF
 
 static_assert(kBlockQ == kWarps * kRowsPerWarp, "a warp owns 8 rows");
 static_assert(kBlockK == kWarps * kRowsPerWarp, "a warp owns 8 keys");
@@ -459,7 +458,7 @@ constexpr int kTcRows = 128;      // the resident tile: 64 rows per warpgroup
 constexpr int kTcStream = 64;     // a streamed tile
 constexpr int kStages = 2;        // the streamed tiles' ring
 static_assert(kStages == 2, "the loops below alternate two stages");
-constexpr float kLog2e = 1.4426950408889634f;
+using hopper::kLog2e;
 
 template <int D>
 struct TcSmem {
@@ -472,24 +471,8 @@ struct TcSmem {
   static constexpr int kBytes = kBars + 3 * 8 + 1024;
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
-// Loads one tile of `rows` rows of head `h`, batch `b` from `row0`, panel
-// by panel, completing on `bar`.
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int rows, int row0,
-                                          int h, int b) {
-  using L = hopper::Swizzle<D>;
-#pragma unroll
-  for (int p = 0; p < L::kPanels; ++p) {
-    hopper::tma_load_4d(dst + p * rows * L::kRowBytes, map, bar,
-                        p * L::kBoxCols, row0, h, b);
-  }
-}
+using hopper::align_1024;
+using hopper::load_tile;
 
 // acc (64 x 64) = rows [64 wg, 64 wg + 64) of the resident tile `a` times
 // the streamed tile `b`, transposed, over the 16-column steps [kk0, kk1)

@@ -7,43 +7,76 @@
 // Computes, per (batch, query head), softmax(q k^T * scale) v with an online
 // softmax over key tiles: the running max m, the running sum l and the output
 // accumulator stay in f32, and the (S, S) score matrix never reaches device
-// memory. Outputs: `out` in the input dtype and lse = m + log(l) in f32.
-// Grouped-query attention reads the narrow K/V directly: query head h uses
-// KV head h / (H / Hkv); K and V are never repeated in memory. Causal key
-// tiles past the diagonal are skipped; a sequence length that is not a
-// multiple of the tile is masked on load (keys at or past S score -1e30,
-// query rows at or past S are never written), where the TPU path padded to
-// a multiple of the block instead.
+// memory. Outputs: `out` in the input dtype and lse = m + log(l) in f32
+// (natural log; l clamped at 1e-30, as the TPU kernel does). Grouped-query
+// attention reads the narrow K/V directly: query head h uses KV head
+// h / (H / Hkv); K and V are never repeated in memory. Causal key tiles past
+// the diagonal are never loaded; a sequence length that is not a multiple of
+// the tile is masked inside the kernel (keys at or past S score -1e30, query
+// rows at or past S are never written), where the TPU path padded to a
+// multiple of the block instead.
 //
-// What bounds it on this card: operations. Causal attention at S tokens does
-// about 2 * S^2 * D multiply-adds per head against 4 * S * D input bytes per
-// head, so above a few hundred tokens the arithmetic is the limit. This
-// first version does that arithmetic in f32 on the CUDA cores (as the TPU
-// kernel upcast every block to f32 before its dots), not on the tensor
-// cores, so it runs far below the bf16 bound. wgmma, TMA and warp
-// specialisation are left to a later change.
+// What bounds it on this card: operations. Two products of 2 * S^2 * D per
+// head, halved by the causal mask, against 4 * S * D input bytes per head:
+// above a few hundred tokens the arithmetic, not the memory, is the limit.
+// At B1 H32/8 S2000 D128 causal that is 3.3e10 FLOP, 0.033 ms at the H100's
+// dense bf16 989 TFLOP/s; at the training shape B4 H16/8 S4096, 0.28 ms.
 //
-// What the design does about it: one block of 8 warps per (b*h, 64-row query
-// tile). The query tile is loaded once, pre-scaled, into shared memory; each
-// 64-key tile of K (stored transposed, padded against bank conflicts) and V
-// is staged once in shared memory and reused by all 64 query rows. Each warp
-// owns 8 query rows: a lane computes the scores of 2 keys for those 8 rows,
-// reading the query values as 16-byte broadcasts, so one shared-memory load
-// feeds 4 to 8 multiply-adds. The probabilities go through a per-warp
-// shared-memory scratch into the P.V product, where each lane owns D/32
-// output columns of its warp's 8 rows, held in registers.
+// The dtype picks the kernel, before any launch (nothing is tried and
+// abandoned):
+// - bfloat16 runs on the tensor cores (`flash_fwd_tc`), at every head dim the
+//   wrapper takes (16, 32, 64, 128). One block per (b, h, 128-row query
+//   tile), the last (longest, under the causal mask) tiles launched first.
+//   Two consumer warpgroups own 64 query rows each; the Q tile is loaded
+//   once by TMA into swizzled shared memory (the tile convention of
+//   hopper.cuh) and stays. A producer warp streams 128-key K and V tiles of
+//   the KV head through a two-stage ring of TMA loads with mbarrier
+//   completion; it refills a stage as soon as both warpgroups have released
+//   it (a second mbarrier per stage), so the copies run ahead of the
+//   products and the two warpgroups never wait for each other. Per key tile
+//   a warpgroup computes S = Q.K^T (wgmma m64n128, both operands K-major in
+//   shared memory), runs the online softmax on the accumulator's registers
+//   (the scale applied to S in f32 after the product, exp2 with log2(e)
+//   folded into it; the row max and sum reduced across the four threads
+//   that share a row), rescales O in registers, and rounds P to bf16 as the
+//   A fragments of O += P.V (wgmma, V read MN-major): S and P never touch
+//   shared memory. Only the diagonal and ragged tiles are masked. The one
+//   change in arithmetic against the TPU kernel, which upcast q, k and v to
+//   f32 before both products: q.k takes bf16 operands with f32 sums, and P
+//   is rounded to bf16 before P.V, as FlashAttention and cuDNN do; l sums
+//   the f32 P. At D 128 a block holds ~161 KB of shared memory (Q 32 KB, two
+//   stages of K and V 64 KB each): one block per SM.
+// - float32 runs on the CUDA cores (`flash_fwd_kernel`): the tensor cores
+//   have no full-f32 product, and TF32 would not hold the f32 forward to its
+//   2e-5. One block of 8 warps per (b * h, 64-row query tile); the query
+//   tile is loaded once, pre-scaled, into shared memory; each 64-key tile of
+//   K (stored transposed, padded against bank conflicts) and V is staged in
+//   shared memory and reused by all 64 rows. Each warp owns 8 rows: a lane
+//   scores 2 keys for those rows, reading the queries as 16-byte
+//   broadcasts; the probabilities go through a per-warp scratch into the
+//   P.V product, where a lane owns D/32 output columns, in registers.
 //
 // Interface: plain C, loaded with ctypes. q, k and v are read through their
-// strides (the last dimension must be contiguous), `out` is written through
-// its strides, and lse is a contiguous (B, H, S) f32 array. The function
-// launches on the given stream, allocates nothing, and returns
-// cudaGetLastError() after the launch.
+// batch, head and sequence strides (the last dimension must be contiguous;
+// in bf16 TMA also needs 16-byte aligned bases and strides, which the
+// wrapper checks), `out` is written through its strides, and lse is a
+// contiguous (B, H, S) f32 array. The function launches on the given
+// stream, allocates nothing, and returns cudaGetLastError() after the launch
+// (or the tensor-map encoder's refusal).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -51,21 +84,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;
 constexpr int kKtStride = kBlockK + 1;  // padded row of the transposed K tile
-constexpr float kNegInf = -1e30f;        // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -91,10 +109,10 @@ struct Smem {
   static constexpr int kBytes = 4 * (kQ + kKt + kV + kP);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int H, int Hkv, int S,
                      int64_t q_sb, int64_t q_sh, int64_t q_ss,
                      int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -119,15 +137,15 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + hk * k_sh;
+  const float* vb = v + b * v_sb + hk * v_sh;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     const int row = q0 + r;
-    q_s[i] = row < S ? to_f32(qb[row * q_ss + c]) * sm_scale : 0.f;
+    q_s[i] = row < S ? qb[row * q_ss + c] * sm_scale : 0.f;
   }
 
   float m[kRowsPerWarp];
@@ -156,8 +174,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = i - r * D;
       const int key = k0 + r;
       const bool live = key < S;
-      kt_s[c * kKtStride + r] = live ? to_f32(kb[key * k_ss + c]) : 0.f;
-      v_s[i] = live ? to_f32(vb[key * v_ss + c]) : 0.f;
+      kt_s[c * kKtStride + r] = live ? kb[key * k_ss + c] : 0.f;
+      v_s[i] = live ? vb[key * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -231,54 +249,282 @@ __global__ void __launch_bounds__(kThreads)
     const int row = row0 + r;
     if (row >= S) continue;
     const float lr = fmaxf(l[r], 1e-30f);  // the TPU kernel's clamp
-    T* o_row = out + b * o_sb + h * o_sh + row * o_ss;
+    float* o_row = out + b * o_sb + h * o_sh + row * o_ss;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < D) o_row[col] = from_f32<T>(acc[r][c] / lr);
+      if (col < D) o_row[col] = acc[r][c] / lr;
     }
     if (lane == 0) lse[static_cast<int64_t>(bh) * S + row] = m[r] + logf(lr);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int H, int Hkv, int S,
-                   const long long* st, float sm_scale, int causal,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;                 // query rows: 64 per warpgroup
+constexpr int kTcKeys = 128;                 // keys of a streamed tile
+constexpr int kStages = 2;                   // the K/V ring
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kTcThreads = kConsumers + 32;  // and the producer warp
+
+template <int D>
+struct TcSmem {
+  static constexpr int kQ = kTcRows * D * 2;     // bytes of the Q tile
+  static constexpr int kKv = kTcKeys * D * 2;    // of one K or V tile
+  // the Q tile, the ring (stage s: K then V), then the barriers: Q's,
+  // full[kStages], empty[kStages]; 1024 bytes to align the base
+  static constexpr int kBars = kQ + kStages * 2 * kKv;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// One block per (b, q-head, 128-row query tile), the latest tiles first;
+// warpgroup w owns rows 64w .. 64w + 63 and warp 8 is the producer.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int H, int Hkv, int S, int64_t o_sb, int64_t o_sh,
+                 int64_t o_ss, float sm_scale, int causal) {
+  using M = TcSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = hopper::align_1024(smem_raw);
+  uint8_t* ring = q_s + M::kQ;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(q_s + M::kBars);
+  uint64_t* full = bar_q + 1;         // a stage's K and V have landed
+  uint64_t* empty = full + kStages;   // every consumer is done with a stage
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;
+  const int tid = threadIdx.x;
+  // causal: keys past the tile's last query row contribute nothing
+  const int kv_end = causal ? min(S, q0 + kTcRows) : S;
+  const int n_kt = (kv_end + kTcKeys - 1) / kTcKeys;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the producer: one thread starts every copy; a stage is refilled once
+    // its previous tile's empty phase completes
+    if (tid == kConsumers) {
+      hopper::mbar_expect_tx(bar_q, M::kQ);
+      hopper::load_tile<D>(q_s, &tm_q, bar_q, kTcRows, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) {
+          hopper::mbar_wait(&empty[st], (kt / kStages - 1) & 1);
+        }
+        uint8_t* dst = ring + st * 2 * M::kKv;
+        hopper::mbar_expect_tx(&full[st], 2 * M::kKv);
+        hopper::load_tile<D>(dst, &tm_k, &full[st], kTcKeys, kt * kTcKeys, hk,
+                             b);
+        hopper::load_tile<D>(dst + M::kKv, &tm_v, &full[st], kTcKeys,
+                             kt * kTcKeys, hk, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int wg_r0 = q0 + 64 * wg;
+  // this thread's two rows of the accumulators: r_lo and r_lo + 8
+  const int r_lo = wg_r0 + 16 * (t / 32) + lane / 4;
+  const bool rows_live = wg_r0 < S;
+  const float scale_log2 = sm_scale * hopper::kLog2e;
+  float m[2] = {kNegInf, kNegInf};  // the rows' running max of q.k
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    hopper::mbar_wait(&full[st], (kt / kStages) & 1);
+    const uint8_t* k_s = ring + st * 2 * M::kKv;
+    const uint8_t* v_s = k_s + M::kKv;
+    const int k0 = kt * kTcKeys;
+    // causal: a key tile past this warpgroup's last row adds nothing
+    if (rows_live && !(causal && k0 > wg_r0 + 63)) {
+      float s[kTcKeys / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hopper::wgmma_ss_n128(
+            s, hopper::desc_k_major<D, kTcRows>(q_s, 64 * wg, kk),
+            hopper::desc_k_major<D, kTcKeys>(k_s, 0, kk), kk);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::pin(s);
+      // only a tile on the diagonal or the ragged edge is masked
+      if ((causal && k0 + kTcKeys - 1 > wg_r0) || k0 + kTcKeys > S) {
+#pragma unroll
+        for (int i = 0; i < kTcKeys / 2; ++i) {
+          const int row = r_lo + 8 * ((i >> 1) & 1);
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          if (key >= S || (causal && key > row)) s[i] = kNegInf;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kTcKeys / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2], shift[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // the four threads of a row are lanes 4r .. 4r + 3
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+        alpha[j] = exp2f((m[j] - mx[j]) * scale_log2);
+        m[j] = mx[j];
+        shift[j] = mx[j] * scale_log2;
+        l[j] *= alpha[j];
+      }
+      // P = exp(s * scale - m * scale), rounded to bf16 as the A fragments
+      // of P.V: k16 step c takes the accumulator's indices 8c .. 8c + 7
+      uint32_t pf[kTcKeys / 16][4];
+#pragma unroll
+      for (int i = 0; i < kTcKeys / 2; i += 2) {
+        const int j = (i >> 1) & 1;
+        const float p0 = exp2f(fmaf(s[i], scale_log2, -shift[j]));
+        const float p1 = exp2f(fmaf(s[i + 1], scale_log2, -shift[j]));
+        l[j] += p0 + p1;
+        pf[i / 8][(i % 8) / 2] = hopper::pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      hopper::pin(pf);
+      hopper::pin(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kTcKeys / 16; ++c) {
+        hopper::wgmma_rs<D>(acc, pf[c],
+                            hopper::desc_mn_major<D, kTcKeys>(v_s, c));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::pin(acc);
+    }
+    hopper::mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+    l[j] = fmaxf(l[j], 1e-30f);  // the TPU kernel's clamp
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int j = (i >> 1) & 1;
+    const int row = r_lo + 8 * j;
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < S) {
+      *reinterpret_cast<__nv_bfloat162*>(out + b * o_sb + h * o_sh +
+                                         row * o_ss + col) =
+          __floats2bfloat162_rn(acc[i] / l[j], acc[i + 1] / l[j]);
+    }
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = r_lo + 8 * j;
+      if (row < S) {
+        lse[static_cast<int64_t>(bh) * S + row] = m[j] * sm_scale + logf(l[j]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* lse;
+  int B, H, Hkv, S;
+  const long long* st;  // q, k, v, out: batch, head and sequence strides
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  auto kernel = flash_fwd_kernel<D>;
   const int smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Hkv, S, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], sm_scale,
-      causal);
+  const dim3 grid(a.B * a.H, (a.S + kBlockQ - 1) / kBlockQ);
+  const long long* st = a.st;
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.H,
+      a.Hkv, a.S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], a.sm_scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int B, int H, int Hkv, int S,
-                     const long long* st, float sm_scale, int causal,
-                     cudaStream_t stream) {
+template <int D>
+cudaError_t launch_tc(const Args& a) {
+  const long long* st = a.st;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      hopper::make_map<D>(&tq, a.q, a.S, a.H, a.B, st, kTcRows);
+  if (err == cudaSuccess) {
+    err = hopper::make_map<D>(&tk, a.k, a.S, a.Hkv, a.B, st + 3, kTcKeys);
+  }
+  if (err == cudaSuccess) {
+    err = hopper::make_map<D>(&tv, a.v, a.S, a.Hkv, a.B, st + 6, kTcKeys);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_tc<D>;
+  const int smem = TcSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // blockIdx.y counts query tiles from the last: the longest launch first
+  const dim3 grid(a.B * a.H, (a.S + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.lse, a.H, a.Hkv,
+      a.S, st[9], st[10], st[11], a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <bool kTc>
+cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, out, lse, B, H, Hkv, S, st, sm_scale,
-                           causal, stream);
+      return kTc ? launch_tc<16>(a) : launch_f32<16>(a);
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, H, Hkv, S, st, sm_scale,
-                           causal, stream);
+      return kTc ? launch_tc<32>(a) : launch_f32<32>(a);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, H, Hkv, S, st, sm_scale,
-                           causal, stream);
+      return kTc ? launch_tc<64>(a) : launch_f32<64>(a);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, H, Hkv, S, st, sm_scale,
-                            causal, stream);
+      return kTc ? launch_tc<128>(a) : launch_f32<128>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -298,15 +544,13 @@ extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || Hkv <= 0 || S <= 0 || H % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, out, static_cast<float*>(lse), B, H, Hkv, S, strides,
+               sm_scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_d<float>(D, q, k, v, out, lse, B, H,
-                                              Hkv, S, strides, sm_scale,
-                                              causal, s));
+      return static_cast<int>(launch_d<false>(D, a));
     case 1:
-      return static_cast<int>(launch_d<__nv_bfloat16>(
-          D, q, k, v, out, lse, B, H, Hkv, S, strides, sm_scale, causal, s));
+      return static_cast<int>(launch_d<true>(D, a));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,11 +19,12 @@ differentiable.
   kernels, as on the TPU) and launches the two kernels of
   `csrc/flash_bwd.cu`: dQ (replaces `_flash_bwd_dq_kernel`) and the
   group-summed narrow dK/dV (replaces `_flash_bwd_dkv_kernel` and
-  `_gqa_reduce`): in bf16 on the tensor cores (wgmma, TMA), in f32 on the
-  CUDA cores. The kernels read q, k, v and dO through their strides;
-  only the last dim must be contiguous (and, for the bf16 backward's TMA,
-  bases and strides 16-byte aligned), and the wrappers raise otherwise.
-  A ragged S is masked inside the kernels; nothing is padded.
+  `_gqa_reduce`). Every kernel runs bf16 on the tensor cores (wgmma,
+  TMA) and f32 on the CUDA cores. The kernels read q, k, v and dO through
+  their strides; only the last dim must be contiguous (and, for the bf16
+  kernels' TMA, bases and strides 16-byte aligned), and the wrappers
+  raise otherwise. A ragged S is masked inside the kernels; nothing is
+  padded.
 - On a CPU tensor it runs `blockwise_forward` and `blockwise_backward`,
   the same math over key blocks in plain PyTorch.
 
@@ -201,6 +202,21 @@ def _check_kernel_inputs(what: str, ref: torch.Tensor,
     return code
 
 
+def _check_tma_operands(what: str, named: dict[str, torch.Tensor]) -> None:
+    """The bf16 kernels load their operands by TMA, which needs a 16-byte
+    aligned base and batch, head and sequence strides of a multiple of 16
+    bytes (a dimension of extent 1 is never stepped over). Raises before
+    any launch otherwise."""
+    for name, t in named.items():
+        if t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16
+                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(
+                f"{what}: bf16 {name} needs a 16-byte aligned base and "
+                f"batch, head and sequence strides of a multiple of 16 "
+                f"bytes, got strides {t.stride()}")
+
+
 def _strides(*tensors: torch.Tensor):
     """The batch, head and sequence strides of each tensor, as the C array
     the kernels take."""
@@ -213,6 +229,14 @@ def _ptrs(*tensors: torch.Tensor):
     return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
 
 
+def _check_fwd_inputs(q, k, v) -> int:
+    code = _check_kernel_inputs("flash kernel", q, (q, k, v))
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel loads q, k and v by TMA
+        _check_tma_operands("flash kernel", {"q": q, "k": k, "v": v})
+    return code
+
+
 def _flash_fwd_cuda_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, sm_scale: float
                          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -220,7 +244,7 @@ def _flash_fwd_cuda_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     buffer, lse as (B, H, S) f32."""
     b, h, s, d = q.shape
     hk = k.shape[1]
-    code = _check_kernel_inputs("flash kernel", q, (q, k, v))
+    code = _check_fwd_inputs(q, k, v)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if s == 0:
@@ -235,7 +259,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, sm_scale: float
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel. q, k, v: f32 or bf16 on one card, last
-    dim contiguous, head_dim in KERNEL_HEAD_DIMS. `out` comes back as a
+    dim contiguous (in bf16 also 16-byte aligned bases and strides),
+    head_dim in KERNEL_HEAD_DIMS. `out` comes back as a
     (B, H, S, D) view of a (B, S, H, D) buffer, so the caller's
     transpose(1, 2).reshape(B, S, H * D) is free."""
     out, lse = _flash_fwd_cuda_bshd(q, k, v, causal, sm_scale)
@@ -254,14 +279,8 @@ def _check_bwd_inputs(q, k, v, g, lse, delta) -> int:
                              f"({b}, {h}, {s}) tensor on {q.device}")
     if q.dtype == torch.bfloat16:
         # the tensor-core kernels load q, k, v and dO by TMA
-        for name, t in zip("qkvg", (q, k, v, g)):
-            if t.data_ptr() % 16 or any(
-                    (st * t.element_size()) % 16
-                    for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-                raise ValueError(
-                    f"flash backward kernels: bf16 {name} needs a 16-byte "
-                    f"aligned base and batch, head and sequence strides of "
-                    f"a multiple of 16 bytes, got strides {t.stride()}")
+        _check_tma_operands("flash backward kernels",
+                            {"q": q, "k": k, "v": v, "g": g})
     return code
 
 

@@ -3,10 +3,12 @@
 Counterpart of `tony_tpu/ops/rmsnorm.py`. y = x * rsqrt(mean(x^2) + eps) *
 weight over the last dim, with the statistics and the weight in f32 and
 the result in x's dtype. The kernel (`csrc/rmsnorm.cu`) replaces the
-Pallas `_rms_kernel`; `rms_norm_reference` is the same math in plain
-PyTorch. Dispatch is on the tensor's device: a CUDA tensor goes to the
-kernel (or raises), a CPU tensor to the plain version. Forward only: the
-backward arrives with the training slice.
+Pallas `_rms_kernel`: it reads x once in 16-byte vectors where a row is a
+whole number of them, and element by element otherwise (the same
+arithmetic); `rms_norm_reference` is the same math in plain PyTorch.
+Dispatch is on the tensor's device: a CUDA tensor goes to the kernel (or
+raises), a CPU tensor to the plain version. The backward is
+`rms_norm_backward`, in plain PyTorch on both devices.
 """
 
 from __future__ import annotations
