@@ -46,6 +46,24 @@ Phases (any failure exits non-zero, and the result line is not printed):
               tokens/s and MFU (its metrics_history) and where a step's
               time goes. Then `tiny` f32 trains 3 SGD steps on the
               card and on the CPU: the same losses and parameters.
+7. ckpt     — the training state's lifecycle at the train phase's full
+              width and depth (llama3_1b_proxy, bf16, B4 x S4096), in a
+              temporary directory that must hold three copies of the
+              state: run A (2 steps, held-out eval, the final save),
+              run C (4 steps, no checkpoint, the same init and data) and
+              run B (a new Trainer resuming A's step 2 on the next
+              batches, checkpoint_every 1, keep 1). Checks the restore bit
+              for bit (every leaf and the lr), B against C (bitwise when
+              A matches C bitwise, else within 4x A's gap or 1e-3
+              relative), the eval loss against `llama_loss`, each step's
+              and the eval's exact launches, the retained steps {2, 4},
+              the server on B's checkpoint against `generate`, 3 steps
+              with f32 master weights (params equal the cast master,
+              peak memory), and SIGTERM on `python -m
+              tony_tpu_torch.train` (exit 12, then resume). Prints the
+              state's size, snapshot, commit and restore times, a
+              checkpointed step against an unchecked one, and the
+              master-weights step time, tokens/s, MFU and peak memory.
 
 `--phases build,kernels` (for instance) runs a subset.
 
@@ -60,9 +78,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -139,6 +161,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
 # flash out/lse 2.2 GB, one block's replay and backward), which the flash
 # backward kernels must not grow: they allocate no scratch
 TRAIN_PEAK_GIB = 12.5
+# the ckpt phase: run A's steps (run B resumes to twice as many), the
+# copies of the state its directory must hold at once (B's pinned step 2,
+# its last commit and the next step's .tmp), the serve-from-checkpoint
+# prompts (two of one length, one slot, a budget of exactly prompt + new
+# tokens: the engine then runs `generate`'s shapes), and the steps with
+# f32 master weights
+CKPT_STEPS = 2
+CKPT_DISK_COPIES = 3
+CKPT_PROMPT, CKPT_NEW = 64, 8
+MASTER_STEPS = 3
+# peak device memory with f32 master weights, GiB: 23.53 GiB measured
+# (PERF.md: bf16 params, f32 masters and f32 AdamW moments 14.8 GiB, then
+# the train phase's activations and bf16 grads, and the f32 gradients of
+# the update)
+MASTER_PEAK_GIB = 24.0
 PROMPT_LENS = (1, 17, 128, 512, 513, 1000, 1500, 1900)
 MAX_NEW = 16
 N_STREAMED = 2
@@ -995,6 +1032,14 @@ def _step_launches(n_layers: int) -> dict[str, int]:
             "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers + 1}
 
 
+def _forward_launches(n_layers: int) -> dict[str, int]:
+    """The kernel launches of one forward without a graph (the eval step):
+    the flash forward once per layer, RMSNorm twice per layer plus the
+    final norm."""
+    return {"flash_fwd": n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "rmsnorm_fwd": 2 * n_layers + 1}
+
+
 def phase_train() -> dict[str, int]:
     """One `Trainer.run()` of TRAIN_STEPS steps and a profiled last one.
     Its step is wrapped to count each step's kernel launches (counts set to
@@ -1147,10 +1192,401 @@ def phase_train_parity() -> None:
           f"{loss_err}, {param_err}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: checkpoint, resume, eval, master weights and preemption
+# ---------------------------------------------------------------------------
+
+class _Timings:
+    """Wall seconds of the checkpoint module's snapshot and file write and
+    of the Trainer's restore, by wrapping them for the phase (the writes
+    of an async save run on its thread)."""
+
+    def __init__(self):
+        from tony_tpu_torch.train import checkpoint, trainer
+        self.seconds: dict[str, list[float]] = {
+            "snapshot": [], "write": [], "restore": []}
+        self._patched = []
+        for module, attr, key in ((checkpoint, "_snapshot", "snapshot"),
+                                  (checkpoint, "_write_snapshot", "write"),
+                                  (trainer, "restore_checkpoint", "restore")):
+            self._patched.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, self._timed(getattr(module, attr), key))
+
+    def _timed(self, fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            self.seconds[key].append(time.monotonic() - t0)
+            return out
+        return wrapped
+
+    def close(self) -> None:
+        for module, attr, fn in self._patched:
+            setattr(module, attr, fn)
+
+
+def _count_calls(fn, names, per_call: list, after=None):
+    """`fn` with each call's kernel launches recorded in `per_call` (the
+    counts set to 0 just before the call, read just after); `after(out)`
+    runs after the read."""
+    from tony_tpu_torch.ops import cuda_lib
+
+    def wrapped(*args, **kwargs):
+        cuda_lib.reset_launches()
+        out = fn(*args, **kwargs)
+        per_call.append({n: cuda_lib.launches()[n] for n in names})
+        if after is not None:
+            after(out)
+        return out
+    return wrapped
+
+
+def _ckpt_trainer(flags: list[str], skip: int = 0):
+    """(Trainer, model config) as the entry point builds them for
+    llama3_1b_proxy at B4 x S4096 with `flags`, its training data advanced
+    `skip` batches."""
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+    args = build_arg_parser().parse_args(
+        ["--config", TRAIN_CONFIG, "--device", "cuda", "--batch-size",
+         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--log-every", "1",
+         *flags])
+    trainer, cfg = build_trainer(args)
+    for _ in range(skip):
+        next(trainer.data_iter)
+    return trainer, cfg
+
+
+def _arm(trainer, cfg, steps: list, evals: list | None = None,
+         after_step=None) -> None:
+    """Count the set-up Trainer's step (and eval step) launches, per
+    call, into `steps` (and `evals`)."""
+    want = _step_launches(cfg.n_layers)
+    trainer.train_step = _count_calls(trainer.train_step, want, steps,
+                                      after_step)
+    if evals is not None:
+        trainer.eval_step = _count_calls(trainer.eval_step, want, evals)
+
+
+def _losses(trainer) -> list[float]:
+    return [e["loss"] for e in trainer.metrics_history if "loss" in e]
+
+
+def _interval_s(trainer, step: int) -> float:
+    """Host seconds of the log interval that ends at `step` (log_every 1:
+    the previous step's device time and this step's issue)."""
+    entry = next(e for e in trainer.metrics_history
+                 if e.get("step") == step and "tokens_per_s" in e)
+    return TRAIN_BATCH * (TRAIN_SEQ + 1) / entry["tokens_per_s"]
+
+
+def _rel_gap(got: list[float], want: list[float]) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _leaves(trainer) -> list:
+    from tony_tpu_torch.train.checkpoint import flatten_with_paths
+    return [(path, leaf.detach() if hasattr(leaf, "detach") else leaf)
+            for path, leaf in flatten_with_paths(trainer._state())]
+
+
+def _serve_from_checkpoint(ckpt_dir: str, params, cfg) -> dict[str, int]:
+    """`build_server --checkpoint-dir` on the latest step: the served
+    parameters equal `params` bit for bit, two prompts' greedy tokens equal
+    `generate` on `params`, and the burst's launches are exact. Returns
+    them."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
+    from tony_tpu_torch.train.optim import tree_leaves
+
+    args = build_arg_parser().parse_args(
+        ["--config", TRAIN_CONFIG, "--device", "cuda", "--checkpoint-dir",
+         ckpt_dir, "--slots", "1", "--token-budget",
+         str(CKPT_PROMPT + CKPT_NEW), "--port", "0", "--host", "127.0.0.1"])
+    server = build_server(args)
+    engine = server.engine
+    try:
+        same = all(torch.equal(a, b.detach()) for a, b in zip(
+            tree_leaves(engine.params), tree_leaves(params)))
+        check(same, "the served parameters differ from the trained ones")
+        rng = np.random.RandomState(7)
+        prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                 size=CKPT_PROMPT)]
+                   for _ in range(2)]
+        before = dict(engine.snapshot())
+        cuda_lib.reset_launches()
+        got = [_post(server.url, {"prompt": p, "max_new_tokens": CKPT_NEW},
+                     stream=False)["tokens"] for p in prompts]
+        launches = cuda_lib.launches()
+        after = dict(engine.snapshot())
+    finally:
+        server.stop(drain_timeout=0)
+    admissions = after["admissions"] - before["admissions"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    want_launches = {"flash_fwd": cfg.n_layers * admissions,
+                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                     "rmsnorm_fwd": (2 * cfg.n_layers + 1)
+                     * (admissions + steps)}
+    log(f"ckpt: served {len(prompts)} prompts of {CKPT_PROMPT} tokens from "
+        f"the checkpoint: launches {launches}, expected {want_launches}")
+    check(launches == want_launches,
+          f"serve-from-checkpoint launches {launches} != {want_launches}")
+    for p, tokens in zip(prompts, got):
+        want = generate(params, cfg, torch.tensor(
+            [p], device=params["embed"].device), CKPT_NEW)[0].tolist()
+        log(f"ckpt: served {tokens}, generate {want}")
+        check(tokens == want, f"served tokens {tokens} != generate {want}")
+    del server, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _preemption(root: str) -> None:
+    """SIGTERM on `python -m tony_tpu_torch.train` (tiny, on the card)
+    after its first step line: exit 12 with the step committed; a rerun
+    with two more steps resumes there and exits 0."""
+    from tony_tpu_torch.train.checkpoint import latest_step
+    repo = str(Path(__file__).resolve().parent)
+    d = os.path.join(root, "preempt")
+    cmd = [sys.executable, "-m", "tony_tpu_torch.train", "--config", "tiny",
+           "--device", "cuda", "--checkpoint-dir", d, "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(cmd + ["--steps", "100000"], cwd=repo, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    timer = threading.Timer(300, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stderr:
+            if re.search(r"step \d+ loss", line):
+                break
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=300)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    found = re.search(r"preempted at step (\d+)", err)
+    log(f"ckpt: SIGTERM after the first step line: exit {proc.returncode}, "
+        f"{found.group(0) if found else 'no preemption line'}, latest step "
+        f"{latest_step(d)}")
+    check(proc.returncode == 12 and found is not None,
+          f"preempted trainer exited {proc.returncode}: {err[-2000:]}")
+    stopped = int(found.group(1))
+    check(latest_step(d) == stopped,
+          f"latest step {latest_step(d)} != the step stopped at {stopped}")
+    out = subprocess.run(cmd + ["--steps", str(stopped + 2)], cwd=repo,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    log(f"ckpt: rerun to step {stopped + 2}: exit {out.returncode}, {last!r}")
+    check(out.returncode == 0 and last.startswith("final loss ")
+          and f"resuming from checkpoint step {stopped}" in out.stderr
+          and latest_step(d) == stopped + 2,
+          f"resumed trainer exited {out.returncode}: {out.stderr[-2000:]}")
+
+
+def phase_ckpt() -> dict[str, int]:
+    """Returns each kernel's launches over the phase's training steps,
+    evals and served requests."""
+    import torch
+
+    from tony_tpu_torch.device import peak_flops
+    from tony_tpu_torch.models.llama import llama_loss
+    from tony_tpu_torch.train.checkpoint import committed_steps
+    from tony_tpu_torch.train.optim import tree_leaves
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    timings = _Timings()
+    steps: list[dict] = []
+    evals: list[dict] = []
+    served: dict[str, int] = {}
+    try:
+        d = os.path.join(root, "run")
+        # run A: 2 steps, one held-out batch at step 2, the final save
+        a, cfg = _ckpt_trainer(["--steps", str(CKPT_STEPS),
+                                "--checkpoint-dir", d, "--eval-every",
+                                str(CKPT_STEPS)])
+        a.setup()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for _, t in _leaves(a)
+                          if isinstance(t, torch.Tensor))
+        free = shutil.disk_usage(root).free
+        log(f"ckpt: state {state_bytes / 1e9:.3f} GB (params, AdamW mu and "
+            f"nu, counts); {free / 1e9:.1f} GB free under {root}")
+        check(free >= CKPT_DISK_COPIES * state_bytes,
+              f"{free / 1e9:.1f} GB free under {root}, less than "
+              f"{CKPT_DISK_COPIES} x the {state_bytes / 1e9:.2f} GB state "
+              f"the phase writes")
+        _arm(a, cfg, steps, evals)
+        a.run()
+        a_losses = _losses(a)
+        batch = a._eval_set[0]
+        with torch.no_grad():
+            direct = float(llama_loss(a.params, batch, cfg))
+        eval_gap = abs(a.last_eval_loss - direct) / abs(direct)
+        log(f"ckpt: run A losses {a_losses}, eval loss {a.last_eval_loss:.6f}"
+            f" vs llama_loss {direct:.6f} (rel {eval_gap:.2e}, tol 1e-3)")
+        check(eval_gap <= 1e-3, f"eval loss {a.last_eval_loss} vs {direct}")
+        check(committed_steps(d) == [CKPT_STEPS],
+              f"run A left steps {committed_steps(d)}")
+        saved = _leaves(a)
+        saved_lr = a.opt_state.optimizer.param_groups[0]["lr"]
+        a_params = [t.detach() for t in tree_leaves(a.params)]
+        del a
+        torch.cuda.empty_cache()
+
+        # run C: 4 steps uninterrupted; its params after step 2 kept
+        c_params2: list = []
+
+        def keep_step2(out):
+            if len(c_steps) == CKPT_STEPS:
+                c_params2.extend(t.detach().clone()
+                                 for t in tree_leaves(out[0]))
+        c_steps: list[dict] = []
+        c, _ = _ckpt_trainer(["--steps", str(2 * CKPT_STEPS)])
+        c.setup()
+        _arm(c, cfg, c_steps, after_step=keep_step2)
+        c.run()
+        steps.extend(c_steps)
+        c_losses = _losses(c)
+        c_params = [t.detach() for t in tree_leaves(c.params)]
+        c_interval = _interval_s(c, 2 * CKPT_STEPS)
+        del c
+        torch.cuda.empty_cache()
+        a_gap = _rel_gap(a_losses, c_losses[:CKPT_STEPS])
+        a_param_gap = max(float((x.float() - y.float()).abs().max())
+                          for x, y in zip(a_params, c_params2))
+        bitwise = a_gap == 0.0 and all(torch.equal(x, y) for x, y in
+                                       zip(a_params, c_params2))
+        del c_params2, a_params
+        log(f"ckpt: run C losses {c_losses}; A vs C at steps 1-"
+            f"{CKPT_STEPS}: loss gap {a_gap:.3e} (relative), param gap "
+            f"{a_param_gap:.3e}: {'bitwise' if bitwise else 'not bitwise'}")
+
+        # run B: resume A's step 2 on the next batches, save every step
+        b, _ = _ckpt_trainer(["--steps", str(2 * CKPT_STEPS),
+                              "--checkpoint-dir", d, "--checkpoint-every",
+                              "1"], skip=CKPT_STEPS)
+        b.config.checkpoint_keep = 1
+        b.setup()
+        restored = _leaves(b)
+        check([p for p, _ in restored] == [p for p, _ in saved],
+              "restored tree differs from the saved one")
+        differ = [("/".join(p), None) for (p, x), (_, y) in
+                  zip(restored, saved)
+                  if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                          else x == y)]
+        lr = b.opt_state.optimizer.param_groups[0]["lr"]
+        per_param_step = {float(s["step"]) for s in
+                          b.opt_state.optimizer.state.values()}
+        log(f"ckpt: restore of step {b.step}: {len(restored)} leaves, "
+            f"{len(differ)} differ from what A saved; lr {lr!r} (A's "
+            f"{saved_lr!r}); torch step {per_param_step}")
+        check(not differ and lr == saved_lr and b.step == CKPT_STEPS
+              and per_param_step == {float(CKPT_STEPS)},
+              f"restore not bitwise: {differ[:5]}, lr {lr} vs {saved_lr}")
+        del saved, restored
+        _arm(b, cfg, steps)
+        b.run()
+        b_losses = _losses(b)
+        b_params = [t.detach() for t in tree_leaves(b.params)]
+        b_gap = _rel_gap(b_losses, c_losses[CKPT_STEPS:])
+        b_param_gap = max(float((x.float() - y.float()).abs().max())
+                          for x, y in zip(b_params, c_params))
+        log(f"ckpt: run B losses {b_losses} vs C {c_losses[CKPT_STEPS:]}: "
+            f"loss gap {b_gap:.3e} (relative), final param gap "
+            f"{b_param_gap:.3e}")
+        if bitwise:
+            check(b_losses == c_losses[CKPT_STEPS:]
+                  and all(torch.equal(x, y)
+                          for x, y in zip(b_params, c_params)),
+                  "A matches C bit for bit, but B does not")
+        else:
+            limit = max(4 * a_gap, 1e-3)
+            check(b_gap <= limit, f"B's gap {b_gap} > {limit}")
+        check(committed_steps(d) == [CKPT_STEPS, 2 * CKPT_STEPS],
+              f"run B left steps {committed_steps(d)}")
+        b_interval = _interval_s(b, 2 * CKPT_STEPS)
+        t = timings.seconds
+        log(f"ckpt: snapshot {', '.join(f'{x * 1e3:.1f}' for x in t['snapshot'])}"
+            f" ms; commit (file writes and rename) "
+            f"{', '.join(f'{x:.2f}' for x in t['write'])} s; restore "
+            f"{', '.join(f'{x:.2f}' for x in t['restore'])} s; the interval "
+            f"ending at step {2 * CKPT_STEPS}: {b_interval:.4f} s with a "
+            f"save every step, {c_interval:.4f} s without")
+        del c_params
+
+        served = _serve_from_checkpoint(d, b.params, cfg)
+        del b, b_params
+        torch.cuda.empty_cache()
+
+        # f32 master weights: params are the cast master after every step
+        m_steps: list[dict] = []
+        cast_ok: list[bool] = []
+        m, _ = _ckpt_trainer(["--steps", str(MASTER_STEPS),
+                              "--master-weights"])
+        m.setup()
+
+        def cast_equal(out):
+            params, opt_state, _ = out
+            cast_ok.append(all(
+                torch.equal(p.detach(), w.detach().to(p.dtype))
+                for p, w in zip(tree_leaves(params),
+                                tree_leaves(opt_state.master))))
+        _arm(m, cfg, m_steps, after_step=cast_equal)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m.run()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steps.extend(m_steps)
+        m_losses = _losses(m)
+        entry = m.metrics_history[-1]
+        step_s = _interval_s(m, MASTER_STEPS)
+        mfu = entry.get("mfu_pct", 0.0)
+        log(f"ckpt: master weights losses {m_losses}; params == cast "
+            f"master after each step: {cast_ok}; interval ending at step "
+            f"{MASTER_STEPS}: {step_s:.4f} s = {entry['tokens_per_s']:.1f} "
+            f"tokens/s, MFU {mfu:.2f}% of "
+            f"{peak_flops(torch.device('cuda')) / 1e12:.0f} TFLOP/s; peak "
+            f"memory allocated {peak_gib:.2f} GiB (limit {MASTER_PEAK_GIB})")
+        check(cast_ok == [True] * MASTER_STEPS,
+              f"bf16 params differ from the cast master: {cast_ok}")
+        check(all(math.isfinite(x) for x in m_losses), f"losses {m_losses}")
+        check(peak_gib <= MASTER_PEAK_GIB,
+              f"peak memory {peak_gib:.2f} GiB > {MASTER_PEAK_GIB} GiB")
+        del m
+        torch.cuda.empty_cache()
+
+        _preemption(root)
+    finally:
+        timings.close()
+        shutil.rmtree(root, ignore_errors=True)
+    want = _step_launches(cfg.n_layers)
+    eval_want = _forward_launches(cfg.n_layers)
+    log(f"ckpt: {len(steps)} steps, launches per step "
+        f"{sorted({json.dumps(x, sort_keys=True) for x in steps})} "
+        f"(expected {want}); evals {evals} (expected {eval_want})")
+    check(all(x == want for x in steps),
+          f"a step's launches differ from {want}")
+    check(len(evals) == 1 and evals[0] == eval_want,
+          f"eval launches {evals} != [{eval_want}]")
+    total = dict(served)
+    for x in steps + evals:
+        for name, n in x.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,engine,profile,train",
+                    default="build,kernels,serve,engine,profile,train,"
+                            "ckpt",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -1191,6 +1627,8 @@ def main(argv=None) -> int:
         if "train" in phases:
             launches["train"] = phase_train()
             phase_train_parity()
+        if "ckpt" in phases:
+            launches["ckpt"] = phase_ckpt()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

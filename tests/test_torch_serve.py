@@ -231,7 +231,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quant", "int8"], ["--quant-cache"], ["--checkpoint-dir", "/x"],
+    ["--quant", "int8"], ["--quant-cache"],
     ["--prefix-sharing", "on"], ["--role", "prefill"],
     ["--migrate-to", "http://h:1"], ["--kv-pages", "64"],
     ["--config", "moe_tiny"],
@@ -240,6 +240,47 @@ def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         build_server(build_arg_parser().parse_args(["--device", "cpu",
                                                     *flags]))
+
+
+def test_serve_from_a_jax_checkpoint_matches_jax_generate(tmp_path):
+    """--checkpoint-dir on a trainer checkpoint the JAX package wrote from
+    its 8-device mesh (params sharded, AdamW state beside them, no
+    tree.json): the server's greedy tokens are JAX `generate`'s on the
+    same parameters."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from tony_tpu.models.generate import generate as jax_generate
+    from tony_tpu.models import llama as jllama
+    from tony_tpu.parallel import make_mesh, plan_mesh, shard_pytree
+    from tony_tpu.train.checkpoint import save_checkpoint
+
+    jcfg = jllama.get_config("tiny")
+    jparams = jllama.llama_init(jcfg, jax.random.PRNGKey(3))
+    sharded = shard_pytree(jparams, jllama.llama_param_axes(jcfg),
+                           make_mesh(plan_mesh(8, tp=2)))
+    save_checkpoint(str(tmp_path), 7, {
+        "params": sharded, "opt_state": optax.adamw(1e-3).init(jparams),
+        "step": 7})
+    prompt = [5, 17, 3, 250, 9]
+    want = np.asarray(jax_generate(jparams, jcfg, jnp.asarray([prompt]),
+                                 6))[0].tolist()
+    server = build_server(build_arg_parser().parse_args(
+        ["--device", "cpu", "--checkpoint-dir", str(tmp_path), "--slots",
+         "1", "--token-budget", "32", "--port", "0", "--host",
+         "127.0.0.1"]))
+    try:
+        [out] = _post(server.url, {"prompt": prompt, "max_new_tokens": 6})
+        assert out["tokens"] == want
+    finally:
+        server.stop(drain_timeout=5)
+
+
+def test_checkpoint_dir_without_a_step_exits(tmp_path):
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        build_server(build_arg_parser().parse_args(
+            ["--device", "cpu", "--checkpoint-dir", str(tmp_path)]))
 
 
 def test_serve_main_up_and_sigterm():
@@ -281,7 +322,7 @@ import chip_smoke
 # "tony_tpu", though it starts with it
 bad = sorted({n.split(".")[0] for n in sys.modules}
              & {"jax", "jaxlib", "tony_tpu"})
-print(len(names), ",".join(bad))
+print(",".join(names), ",".join(bad))
 """
 
 
@@ -290,8 +331,12 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
-    n_modules, _, bad = out.stdout.strip().partition(" ")
-    assert int(n_modules) >= 12
+    names, _, bad = out.stdout.strip().partition(" ")
+    names = names.split(",")
+    assert len(names) >= 15
+    for module in ("constants", "train.checkpoint", "train.precision",
+                   "train.trainer", "models.convert"):
+        assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 
 

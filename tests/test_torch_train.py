@@ -8,11 +8,17 @@ and the fused cross-entropy (tests/test_ops.py:33, same math, sums in
 another order), 5e-4 for gradients through the whole model
 (tests/test_ops.py:49), rtol 2e-5 / atol 1e-6 for parameters after a step
 (tests/test_models.py:199-202), 2e-5 between the remat policies (the same
-operations in the same order; only what is kept differs).
+operations in the same order; only what is kept differs). The Trainer's
+state lifecycle (resume, eval, a caller-given optimizer, SIGTERM on the
+entry point, the AM's retry) is held bit for bit where both runs are the
+port's on the CPU; f32 master weights against JAX's as their test says.
 """
 
 import dataclasses
+import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import threading
@@ -29,11 +35,14 @@ import torch
 from tony_tpu.models import llama as jllama
 from tony_tpu.ops import xent as jxent
 from tony_tpu.train import data as jdata
+from tony_tpu.train import precision as jprecision
 from tony_tpu.train import step as jstep
 from tony_tpu_torch.models import llama
 from tony_tpu_torch.models.convert import params_from_jax
 from tony_tpu_torch.ops import attention, xent
-from tony_tpu_torch.train import data, optim, step, trainer
+from tony_tpu_torch.train import (
+    checkpoint, data, optim, precision, step, trainer,
+)
 from tony_tpu_torch.train.__main__ import main as train_main
 
 F32_TOL = 2e-5
@@ -308,6 +317,74 @@ def test_adamw_matches_optax_over_four_updates():
     assert state.count == 4
 
 
+def _quadratic_loss_jax(params, batch):
+    pred = batch["x"] @ params["w"].astype(jnp.float32) * params["n"]
+    return jnp.mean(jnp.square(pred - batch["y"]))
+
+
+def _quadratic_loss_port(params, batch):
+    pred = batch["x"] @ params["w"].float() * params["n"]
+    return torch.mean(torch.square(pred - batch["y"]))
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_f32_master_adamw_matches_jax(grad_accum):
+    """with_f32_master(adamw) on a bf16 and an f32 leaf, 4 updates of the
+    same f32 loss on the same batches in both packages (grad_accum 2: the
+    f32 mean reaches the master unrounded, as JAX's `emit_accum_dtype`
+    gives it). After
+    every update the port's bf16 parameter is exactly its cast master; the
+    masters and the f32 moments agree with JAX's within 1e-6 (f32 math in
+    another order; the Adam step is lr-sized), the bf16 parameters within
+    one bf16 ulp (the cast of masters that close); the state has JAX's
+    {"inner", "master"} layout."""
+    sched = dict(init_value=0.0, peak_value=1e-2, warmup_steps=2,
+                 decay_steps=6)
+    init = {"w": _normal((3, 4), 50), "n": np.ones(4, np.float32)}
+    batches = [{"x": _normal((4, 3), 60 + i), "y": _normal((4, 4), 70 + i)}
+               for i in range(4)]
+    jopt = jprecision.with_f32_master(optax.adamw(
+        optax.warmup_cosine_decay_schedule(**sched), weight_decay=0.01))
+    jparams = {"w": jnp.asarray(init["w"]).astype(jnp.bfloat16),
+               "n": jnp.asarray(init["n"])}
+    jstate = jopt.init(jparams)
+    jfn = jstep.make_train_step(_quadratic_loss_jax, jopt, jit=False,
+                                grad_accum=grad_accum,
+                                emit_accum_dtype=True)
+    params = {"w": torch.from_numpy(init["w"]).to(torch.bfloat16)
+              .requires_grad_(),
+              "n": torch.from_numpy(init["n"].copy()).requires_grad_()}
+    opt = precision.with_f32_master(optim.adamw(
+        optim.warmup_cosine_decay_schedule(**sched), weight_decay=0.01))
+    state = opt.init(params)
+    fn = step.make_train_step(_quadratic_loss_port, opt,
+                              grad_accum=grad_accum)
+    for i, batch in enumerate(batches):
+        jparams, jstate, jloss = jfn(
+            jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        params, state, loss = fn(
+            params, state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
+        w = params["w"].detach()
+        assert w.dtype == torch.bfloat16
+        assert torch.equal(w, state.master["w"].detach().to(torch.bfloat16))
+        jflat = jax.tree_util.tree_flatten_with_path(
+            jax.device_get(jstate))[0]
+        pflat = checkpoint.flatten_with_paths(state.tree())
+        assert len(pflat) == len(jflat)
+        for (path, got), (_, want) in zip(pflat, jflat):
+            np.testing.assert_allclose(
+                got.detach().float().numpy(), np.asarray(want, np.float32),
+                rtol=1e-6, atol=1e-6, err_msg=f"update {i} {path}")
+        np.testing.assert_allclose(
+            w.float().numpy(), np.asarray(jparams["w"], np.float32),
+            rtol=2.0 ** -8, atol=0, err_msg=f"update {i}")
+    paths = [p for p, _ in checkpoint.flatten_with_paths(state.tree())]
+    assert paths[0] == ("inner", "0", "count")
+    assert paths[-1] == ("master", "w")
+    assert state.count == 4
+
+
 # ---------------------------------------------------------------------------
 # data
 # ---------------------------------------------------------------------------
@@ -391,23 +468,7 @@ def test_trainer_loss_falls_on_tiny_cpu():
     assert t.opt_state.count == 30
 
 
-@pytest.mark.parametrize("field,value", [
-    ("checkpoint_dir", "/nonexistent"), ("checkpoint_every", 5),
-    ("eval_every", 5), ("master_weights", True),
-    ("optimizer", optim.sgd(0.1))])
-def test_trainer_refuses_unported_options(field, value):
-    cfg = trainer.TrainerConfig(**{field: value})
-    t = trainer.Trainer(lambda p, b: None, lambda g: {}, iter(()), cfg,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        t.setup()
-
-
-@pytest.mark.parametrize("flag", [["--data", "x.bin"],
-                                  ["--checkpoint-dir", "/tmp/c"],
-                                  ["--checkpoint-every", "2"],
-                                  ["--eval-every", "2"],
-                                  ["--master-weights"], ["--pp-micro", "2"],
+@pytest.mark.parametrize("flag", [["--data", "x.bin"], ["--pp-micro", "2"],
                                   ["--pp-virtual", "2"]])
 def test_entry_point_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -431,3 +492,203 @@ def test_entry_point_prints_final_loss():
     assert out.returncode == 0, out.stderr
     last = out.stdout.strip().splitlines()[-1]
     assert last.startswith("final loss ") and np.isfinite(float(last[11:]))
+
+
+# ---------------------------------------------------------------------------
+# the Trainer's state lifecycle
+# ---------------------------------------------------------------------------
+
+def _tiny_trainer(num_steps, data_iter, **config):
+    cfg = llama.get_config("tiny")
+    return trainer.Trainer(
+        partial(llama.llama_loss, config=cfg), partial(llama.llama_init, cfg),
+        data_iter,
+        trainer.TrainerConfig(num_steps=num_steps, log_every=1,
+                              learning_rate=1e-2, warmup_steps=5,
+                              prefetch_depth=0, **config),
+        device="cpu")
+
+
+def _stream(skip=0):
+    it = data.synthetic_tokens(2, 16, 256)
+    for _ in range(skip):
+        next(it)
+    return it
+
+
+@pytest.mark.parametrize("master_weights", [False, True])
+def test_resume_continues_bit_for_bit(tmp_path, master_weights):
+    """2 steps, the final checkpoint, a new Trainer resuming to step 4 on
+    the next batches: the same losses and parameters, bit for bit, as 4
+    steps in one run (the moments, the update count and the schedule's
+    position all come back)."""
+    whole = _tiny_trainer(4, _stream(), master_weights=master_weights)
+    whole.run()
+    d = str(tmp_path / "ck")
+    _tiny_trainer(2, _stream(), master_weights=master_weights,
+                  checkpoint_dir=d).run()
+    resumed = _tiny_trainer(4, _stream(skip=2),
+                            master_weights=master_weights, checkpoint_dir=d)
+    resumed.run()
+    want = [m["loss"] for m in whole.metrics_history[2:]]
+    assert [m["loss"] for m in resumed.metrics_history] == want
+    for (path, a), b in zip(_flat(resumed.params).items(),
+                            _flat(whole.params).values()):
+        assert torch.equal(a, b), path
+    assert resumed.opt_state.count == whole.opt_state.count == 4
+    assert checkpoint.committed_steps(d) == [2, 4]
+
+
+def test_eval_loss_on_a_fixed_set_across_resetup():
+    """The held-out set is drawn once (eval_batches from the eval
+    iterator, no more) and kept across a re-setup(); the eval loss is the
+    mean of the loss on it, logged every eval_every steps."""
+    eval_iter = data.synthetic_tokens(2, 16, 256, seed=1)
+    t = _tiny_trainer(2, _stream(), eval_every=1, eval_batches=2)
+    t.eval_data_iter = eval_iter
+    t.run()
+    evals = [m for m in t.metrics_history if "eval_loss" in m]
+    assert [m["step"] for m in evals] == [1, 2]
+    cfg = llama.get_config("tiny")
+    fresh = data.synthetic_tokens(2, 16, 256, seed=1)
+    held = [torch.from_numpy(next(fresh)["tokens"]) for _ in range(2)]
+    with torch.no_grad():
+        want = np.mean([llama.llama_loss(t.params, {"tokens": b}, cfg).item()
+                        for b in held])
+    np.testing.assert_allclose(t.last_eval_loss, want, rtol=2e-5)
+    kept = t._eval_set
+    t.setup()
+    assert t._eval_set is kept
+    # the iterator gave exactly eval_batches batches
+    np.testing.assert_array_equal(next(eval_iter)["tokens"],
+                                  next(fresh)["tokens"])
+
+
+def test_trainer_takes_a_caller_given_optimizer(tmp_path):
+    """TrainerConfig.optimizer (here sgd, as optax.sgd) replaces the
+    default AdamW; its checkpoint holds no optimizer leaves, as optax's
+    sgd state has none, and resumes."""
+    d = str(tmp_path / "ck")
+    t = _tiny_trainer(2, _stream(), optimizer=optim.sgd(0.1),
+                      checkpoint_dir=d)
+    t.run()
+    assert t.opt_state.kind == "sgd"
+    assert len(jax.tree.leaves(optax.sgd(0.1).init({"w": jnp.zeros(2)}))) == 0
+    with open(os.path.join(d, "step_2", "index.json")) as f:
+        assert len(json.load(f)["leaves"]) == len(_flat(t.params)) + 1
+    resumed = _tiny_trainer(3, _stream(skip=2), optimizer=optim.sgd(0.1),
+                            checkpoint_dir=d)
+    resumed.setup()
+    assert resumed.step == 2
+    for (path, a), b in zip(_flat(resumed.params).items(),
+                            _flat(t.params).values()):
+        assert torch.equal(a, b), path
+
+
+def test_checkpoint_dir_refuses_an_optimizer_without_an_optax_layout(
+        tmp_path):
+    """A custom Optimizer has no optax layout to save: with a
+    checkpoint_dir, setup() refuses it before any step; without one, it
+    trains."""
+    custom = optim.Optimizer(
+        lambda leaves: (torch.optim.SGD(leaves, lr=0.1), None))
+    t = _tiny_trainer(2, _stream(), optimizer=custom,
+                      checkpoint_dir=str(tmp_path / "ck"))
+    with pytest.raises(NotImplementedError, match="optax layout"):
+        t.setup()
+    assert not os.path.exists(str(tmp_path / "ck"))
+    assert np.isfinite(_tiny_trainer(1, _stream(), optimizer=custom).run())
+
+
+def _run_until_step_line(cmd, env):
+    """Start `cmd`, read its log until the first step line; returns the
+    process."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=env)
+    timer = threading.Timer(120, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stderr:
+            if re.search(r"step \d+ loss", line):
+                return proc
+    finally:
+        timer.cancel()
+    raise AssertionError(f"no step line; exit {proc.wait()}")
+
+
+def test_entry_point_sigterm_exits_12_then_resumes(tmp_path):
+    """python -m tony_tpu_torch.train under SIGTERM after its first step
+    line: exit 12 with the step it stopped at committed; a rerun with 2
+    more steps resumes there, exits 0 and prints the final loss."""
+    d = str(tmp_path / "ck")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "tony_tpu_torch.train", "--device", "cpu",
+           "--config", "tiny", "--batch-size", "2", "--seq-len", "16",
+           "--log-every", "1", "--checkpoint-dir", d]
+    proc = _run_until_step_line(cmd + ["--steps", "100000"], env)
+    proc.send_signal(signal.SIGTERM)
+    _, err = proc.communicate(timeout=120)
+    assert proc.returncode == 12, err[-2000:]
+    stopped = int(re.search(r"preempted at step (\d+)", err).group(1))
+    assert checkpoint.latest_step(d) == stopped >= 1
+    out = subprocess.run(cmd + ["--steps", str(stopped + 2)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"resuming from checkpoint step {stopped}" in out.stderr
+    assert out.stdout.strip().splitlines()[-1].startswith("final loss ")
+    assert checkpoint.latest_step(d) == stopped + 2
+
+
+RETRY_SCRIPT = """
+import json, os, sys
+from functools import partial
+sys.path.insert(0, os.environ["TONY_REPO_ROOT"])
+from tony_tpu_torch.models.llama import get_config, llama_init, llama_loss
+from tony_tpu_torch.train.data import synthetic_tokens
+from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+ckpt_dir = os.environ["CKPT_DIR"]
+attempt = int(os.environ.get("ATTEMPT_NUMBER", "0"))
+cfg = get_config("tiny")
+trainer = Trainer(
+    partial(llama_loss, config=cfg), partial(llama_init, cfg),
+    synthetic_tokens(2, 16, cfg.vocab_size),
+    TrainerConfig(num_steps=3 if attempt == 0 else 6, log_every=1,
+                  checkpoint_every=1, checkpoint_dir=ckpt_dir,
+                  learning_rate=1e-2, warmup_steps=1),
+    device="cpu")
+trainer.setup()
+resumed_from = trainer.step
+trainer.run()
+if attempt == 0:
+    print(f"attempt 0 dying at step {trainer.step}", flush=True)
+    os._exit(1)
+with open(os.path.join(ckpt_dir, "resume_report.json"), "w") as f:
+    json.dump({"attempt": attempt, "resumed_from": resumed_from,
+               "finished_at": trainer.step}, f)
+sys.exit(0)
+"""
+
+
+def test_am_retry_resumes_the_port_trainer(tmp_path):
+    """TonY's own retry loop around the port's Trainer: attempt 0 dies
+    after its step-3 checkpoint, the AM's retry resumes from 3 and
+    finishes at 6."""
+    from test_e2e import _dump_logs, run_job
+
+    script = tmp_path / "train_port_crash_resume.py"
+    script.write_text(RETRY_SCRIPT)
+    ckpt_dir = str(tmp_path / "ckpts")
+    client = run_job(
+        tmp_path,
+        ["--executes", str(script),
+         "--conf", "tony.worker.instances=1",
+         "--conf", "tony.am.retry-count=2",
+         "--conf", f"tony.execution.env=CKPT_DIR={ckpt_dir}",
+         "--conf", f"tony.execution.env=TONY_REPO_ROOT={REPO}"])
+    assert client.final_status == "SUCCEEDED", _dump_logs(client)
+    with open(os.path.join(ckpt_dir, "resume_report.json")) as f:
+        report = json.load(f)
+    assert report == {"attempt": 1, "resumed_from": 3, "finished_at": 6}

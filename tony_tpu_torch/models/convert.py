@@ -9,6 +9,9 @@ bf16 leaves arrive from numpy as `ml_dtypes.bfloat16`, which torch does not
 know. They are carried over by their bits: the array is viewed as int16
 and the tensor viewed back as torch.bfloat16, so every value is kept
 exactly and nothing passes through f32.
+
+`empty_params` allocates the parameter tree on a device, for a restore
+(`train/checkpoint.restore_params`) to fill in place.
 """
 
 from __future__ import annotations
@@ -33,17 +36,12 @@ def tensor_from_numpy(a: Any, device: torch.device | str) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree: dict, config: LlamaConfig,
-                    device: torch.device | str = "cuda") -> Params:
-    """`llama_init`'s tree of numpy leaves -> the port's parameters on
-    `device` (the card unless the caller asks for the CPU; with no card,
-    the default raises before any leaf is placed). Checks every leaf's
-    shape against `config`."""
-    device = resolve_device(str(device))
+def param_shapes(config: LlamaConfig) -> dict[str, tuple[int, ...]]:
+    """{"embed": shape, "layers/wq": shape, ...}: `llama_init`'s leaves."""
     d, f, v = config.dim, config.ffn_dim, config.vocab_size
     L, hd = config.n_layers, config.head_dim
     nh, nkv = config.n_heads, config.n_kv_heads
-    want = {
+    return {
         "embed": (v, d), "final_norm": (d,), "output": (d, v),
         "layers/wq": (L, d, nh * hd), "layers/wk": (L, d, nkv * hd),
         "layers/wv": (L, d, nkv * hd), "layers/wo": (L, nh * hd, d),
@@ -51,6 +49,16 @@ def params_from_jax(tree: dict, config: LlamaConfig,
         "layers/w_down": (L, f, d), "layers/attn_norm": (L, d),
         "layers/mlp_norm": (L, d),
     }
+
+
+def params_from_jax(tree: dict, config: LlamaConfig,
+                    device: torch.device | str = "cuda") -> Params:
+    """`llama_init`'s tree of numpy leaves -> the port's parameters on
+    `device` (the card unless the caller asks for the CPU; with no card,
+    the default raises before any leaf is placed). Checks every leaf's
+    shape against `config`."""
+    device = resolve_device(str(device))
+    want = param_shapes(config)
 
     def leaf(path: str) -> torch.Tensor:
         node = tree
@@ -68,4 +76,24 @@ def params_from_jax(tree: dict, config: LlamaConfig,
                    for name in want if name.startswith("layers/")},
         "final_norm": leaf("final_norm"),
         "output": leaf("output"),
+    }
+
+
+def empty_params(config: LlamaConfig,
+                 device: torch.device | str = "cuda") -> Params:
+    """The parameter tree of `config`, uninitialised, on `device`, in
+    `llama_init`'s layout and dtypes (norms f32, the rest config.dtype)."""
+    device = resolve_device(str(device))
+    want = param_shapes(config)
+
+    def empty(path: str) -> torch.Tensor:
+        dtype = torch.float32 if path.endswith("norm") else config.dtype
+        return torch.empty(want[path], dtype=dtype, device=device)
+
+    return {
+        "embed": empty("embed"),
+        "layers": {name.split("/")[1]: empty(name)
+                   for name in want if name.startswith("layers/")},
+        "final_norm": empty("final_norm"),
+        "output": empty("output"),
     }

@@ -35,6 +35,22 @@ def scale_rope_frequencies(inv_freq: torch.Tensor, factor: float,
                                    interpolated))
 
 
+def inverse_frequencies(head_dim: int, theta: float = 10_000.0,
+                        scaling_factor: float = 0.0,
+                        orig_max_seq: int = 8192,
+                        device: Optional[torch.device] = None
+                        ) -> torch.Tensor:
+    """The (head_dim // 2,) f32 rotation rates the tables are built from,
+    rescaled when scaling_factor > 1."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    if scaling_factor and scaling_factor > 1.0:
+        inv_freq = scale_rope_frequencies(inv_freq, scaling_factor,
+                                          orig_max_seq)
+    return inv_freq
+
+
 def rope_frequencies(head_dim: int, max_seq: int,
                      theta: float = 10_000.0,
                      scaling_factor: float = 0.0,
@@ -44,12 +60,8 @@ def rope_frequencies(head_dim: int, max_seq: int,
     """(cos, sin) tables of shape (max_seq, head_dim // 2), f32.
     scaling_factor > 1 applies the Llama-3.1 long-context rescale against
     `orig_max_seq` (0 = off)."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=device) / head_dim
-    inv_freq = 1.0 / (theta ** exponent)
-    if scaling_factor and scaling_factor > 1.0:
-        inv_freq = scale_rope_frequencies(inv_freq, scaling_factor,
-                                          orig_max_seq)
+    inv_freq = inverse_frequencies(head_dim, theta, scaling_factor,
+                                   orig_max_seq, device)
     t = torch.arange(max_seq, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)                 # (S, D/2)
     return torch.cos(freqs), torch.sin(freqs)

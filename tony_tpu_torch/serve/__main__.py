@@ -1,15 +1,17 @@
 """Serving entry point: ``python -m tony_tpu_torch.serve``.
 
 Counterpart of ``python -m tony_tpu.serve`` as a standalone server: it
-builds the model (random weights from a fixed seed), a
+builds the model (random weights from a fixed seed, or a checkpoint's), a
 ``ContinuousBatchingEngine`` and a ``ServeFrontend``, prints
 ``SERVING_UP <url>`` on stdout, and on SIGTERM or SIGINT drains in-flight
 requests, then stops the frontend and the engine.
 
 The flags are the JAX entry point's, plus ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch versions of the kernels). Flags
-for what this slice does not port raise NotImplementedError naming the
-slice that brings it: ``--checkpoint-dir`` (trainer and checkpoint),
+``--device cpu`` runs the plain PyTorch versions of the kernels).
+``--checkpoint-dir`` serves the parameters of the latest step there, as
+the port's or the JAX package's Trainer wrote it, loaded onto the serving
+device. Flags for what this slice does not port raise
+NotImplementedError naming the slice that brings it:
 ``--quant``/``--quant-cache`` (quant), prefix sharing, the prefill/decode
 roles, ``--migrate-to`` and the KV page knobs (kvcache), MoE presets
 (models). Orchestrator wiring (AM endpoint registration, the metrics
@@ -49,7 +51,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda or cpu)")
     p.add_argument("--checkpoint-dir", default="",
-                   help="restore params from a checkpoint (not yet ported)")
+                   help="serve the params of the latest checkpoint step "
+                        "there")
     p.add_argument("--quant", default="", choices=("", "int8"),
                    help="int8 weight-only decode (not yet ported)")
     p.add_argument("--quant-cache", action="store_true",
@@ -96,8 +99,6 @@ def _refuse_unported(args) -> None:
     """Raise NotImplementedError for every flag this slice does not port."""
     role = args.role or os.environ.get("TONY_SERVING_ROLE", "") or "both"
     unported = [
-        (bool(args.checkpoint_dir), "--checkpoint-dir",
-         "the trainer and checkpoint slice"),
         (args.quant == "int8", "--quant int8", "the quant slice"),
         (args.quant_cache, "--quant-cache", "the quant slice"),
         (args.prefix_sharing == "on", "--prefix-sharing on",
@@ -120,6 +121,21 @@ def _load_model(args, device):
     from tony_tpu_torch.models.llama import get_config, llama_init
 
     config = get_config(args.config)
+    if args.checkpoint_dir:
+        from tony_tpu_torch.models.convert import empty_params
+        from tony_tpu_torch.train.checkpoint import (
+            latest_step, restore_params,
+        )
+        step = latest_step(args.checkpoint_dir)
+        if step is None:
+            raise SystemExit(f"no checkpoint in {args.checkpoint_dir}")
+        # filled leaf by leaf on the serving device, whatever optimizer
+        # state lies beside the params (a checkpoint of either package)
+        params = restore_params(args.checkpoint_dir, step,
+                                empty_params(config, device))
+        LOG.info("restored checkpoint step %d from %s", step,
+                 args.checkpoint_dir)
+        return params, config
     generator = torch.Generator(device=device).manual_seed(INIT_SEED)
     with torch.inference_mode():
         params = llama_init(config, generator)

@@ -6,11 +6,14 @@ builds the Llama config from a preset, a `Trainer` running
 prints ``final loss X``.
 
 The flags are the JAX script's, plus ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch versions of the kernels). Flags
-for what this slice does not port raise NotImplementedError naming the
-slice that brings it: ``--data`` (a token shard, with the data slice),
-``--checkpoint-dir``, ``--checkpoint-every``, ``--eval-every`` and
-``--master-weights`` (the trainer slice), ``--pp-micro`` and
+``--device cpu`` runs the plain PyTorch versions of the kernels) and
+``--log-every``. ``--checkpoint-dir`` resumes from the latest step there
+and checkpoints at the end (and every ``--checkpoint-every`` steps);
+``--eval-every`` scores a fixed held-out batch of ``synthetic_tokens`` with
+seed 1, as the JAX script does; ``--master-weights`` keeps f32 masters. A
+SIGTERM commits an emergency checkpoint and exits 12. Flags for what this
+slice does not port raise NotImplementedError naming the slice that brings
+it: ``--data`` (a token shard, with the data slice), ``--pp-micro`` and
 ``--pp-virtual`` (the parallel slice). MoE presets raise in `get_config`.
 """
 
@@ -23,6 +26,7 @@ import sys
 from functools import partial
 
 DATA_SEED = 0
+EVAL_SEED = 1
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -42,13 +46,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="microbatch gradient-accumulation steps")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--eval-every", type=int, default=0,
-                   help="held-out eval cadence (not yet ported)")
+                   help="held-out eval cadence in steps (0 = off)")
     p.add_argument("--master-weights", action="store_true",
-                   help="f32 master copy for bf16 params (not yet ported)")
+                   help="f32 master copy for bf16 params")
     p.add_argument("--checkpoint-dir", default="",
-                   help="checkpoint directory (not yet ported)")
+                   help="checkpoint directory: resume from its latest "
+                        "step, save at the end")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="checkpoint cadence (not yet ported)")
+                   help="checkpoint cadence in steps (0 = only at the "
+                        "end)")
     p.add_argument("--data", default="",
                    help="raw int32 token shard (not yet ported)")
     p.add_argument("--pp-micro", type=int, default=0,
@@ -63,11 +69,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (bool(args.data), "--data", "the data slice (a token shard in the "
                                     "repository)"),
-        (bool(args.checkpoint_dir), "--checkpoint-dir", "the trainer slice"),
-        (args.checkpoint_every > 0, "--checkpoint-every",
-         "the trainer slice"),
-        (args.eval_every > 0, "--eval-every", "the trainer slice"),
-        (args.master_weights, "--master-weights", "the trainer slice"),
         (args.pp_micro > 0, "--pp-micro", "the parallel slice"),
         (args.pp_virtual != 1, "--pp-virtual", "the parallel slice"),
     ]
@@ -96,9 +97,18 @@ def build_trainer(args):
                                    seed=DATA_SEED,
                                    process_index=process_index),
         config=TrainerConfig(num_steps=args.steps, log_every=args.log_every,
+                             checkpoint_dir=args.checkpoint_dir,
+                             checkpoint_every=args.checkpoint_every,
                              grad_accum=args.grad_accum,
+                             eval_every=args.eval_every,
+                             master_weights=args.master_weights,
                              flops_per_token=config.flops_per_token(seq)),
-        device=args.device)
+        device=args.device,
+        # held-out batches from a disjoint seed of the same stream
+        eval_data_iter=(synthetic_tokens(args.batch_size, seq,
+                                         config.vocab_size, seed=EVAL_SEED,
+                                         process_index=process_index)
+                        if args.eval_every else None))
     return trainer, config
 
 

@@ -11,10 +11,12 @@ reads it on the host.
 STRIDED microbatches (microbatch i = rows i, i + grad_accum, ...), runs
 forward and backward on each in turn (peak activation memory is one
 microbatch's), sums the gradients in f32, and applies one update with the
-mean, cast back to the parameter dtype. The loss is the mean over
-microbatches. (The JAX step's `emit_accum_dtype`, which hands the
-optimizer the f32 mean itself, serves f32 master weights and comes back
-with them: ROADMAP queue 1 item 2.)
+mean. The loss is the mean over microbatches. The f32 mean goes to the
+optimizer as it is, `opt_state.step(grads)`: a plain one casts it to the
+parameter dtype, and an f32 master (`train/precision.py`) takes it
+unrounded.
+
+`make_eval_step` is the loss alone, under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
 
     def train_step(params: Any, opt_state: OptState, batch: Any):
         leaves = tree_leaves(params)
+        grads = None
         if grad_accum <= 1:
             loss = backward(params, batch)
         else:
@@ -87,12 +90,21 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
                 for a, p in zip(acc, leaves):
                     a.add_(p.grad)
                     p.grad = None
-            for a, p in zip(acc, leaves):
-                p.grad = a.div_(grad_accum).to(p.dtype)
             loss = loss_sum / grad_accum
-        opt_state.step()
+            grads = [a.div_(grad_accum) for a in acc]
+        opt_state.step(grads)
         for p in leaves:
             p.grad = None
         return params, opt_state, loss
 
     return AnnotatedStep(train_step) if annotate else train_step
+
+
+def make_eval_step(loss_fn: Callable[..., torch.Tensor]) -> Callable:
+    """eval_step(params, batch) -> the loss, with no graph built."""
+
+    def eval_step(params: Any, batch: Any) -> torch.Tensor:
+        with torch.no_grad():
+            return loss_fn(params, batch)
+
+    return eval_step

@@ -1,46 +1,79 @@
-"""Trainer: the single-device training loop.
+"""Trainer: the single-device training loop and its state lifecycle.
 
-Counterpart of the core of `tony_tpu/train/trainer.py`: `TrainerConfig`
-keeps its field names and defaults, and `Trainer.setup()`/`run()` keep its
-hot loop: prefetch, step, `log_every`, and one-interval-latent loss
-logging (the loss stays on the device between updates; at each log
-boundary the PREVIOUS boundary's loss is read, by when the device is
-`log_every` steps past it). `metrics_history` also carries tokens/s over
-each log interval and, on a card whose peak is known, MFU from
-`flops_per_token`.
+Counterpart of `tony_tpu/train/trainer.py`: `TrainerConfig` keeps its
+field names and defaults, and `Trainer.setup()`/`run()` keep its hot loop:
+prefetch, step, `log_every`, and one-interval-latent loss logging (the
+loss stays on the device between updates; at each log boundary the
+PREVIOUS boundary's loss is read, by when the device is `log_every` steps
+past it). `metrics_history` also carries tokens/s over each log interval
+and, on a card whose peak is known, MFU from `flops_per_token`.
 
-The optimizer is the JAX Trainer's default, `adamw` under
-`warmup_cosine_decay_schedule(0, lr, max(1, warmup_steps),
-max(num_steps, warmup_steps + 1))` with the Trainer's weight decay.
+The state lifecycle is the JAX Trainer's:
+- **Resume**: `setup()` restores the latest committed step under
+  `checkpoint_dir` (written by this package or by the JAX one) into the
+  freshly built parameters and optimizer state, in place, and pins that
+  step against retention GC while it is the only rollback target.
+- **Checkpoints**: every `checkpoint_every` steps through
+  `AsyncCheckpointer` (synchronous snapshot, file IO on a thread), and a
+  final synchronous one at the end; `checkpoint_keep` (else the
+  TONY_CHECKPOINT_KEEP env, else 3) committed steps are kept.
+- **Held-out eval**: every `eval_every` steps, the mean loss over a fixed
+  set of `eval_batches` batches from `eval_data_iter`, drawn once and kept
+  across a re-`setup()`, the losses summed on the device and read once.
+- **Precision and optimizer**: `optimizer` (an `Optimizer`, the
+  counterpart of an optax transformation) else the JAX Trainer's default,
+  `adamw` under `warmup_cosine_decay_schedule(0, lr, max(1,
+  warmup_steps), max(num_steps, warmup_steps + 1))`; `master_weights`
+  wraps it in `with_f32_master`.
+- **Preemption**: SIGTERM raises `TrainerPreempted` in the main thread,
+  at a step boundary: the step updates parameters and moments in place
+  over many Python statements, so a SIGTERM that lands inside it is held
+  until the update is whole. `run()` then commits one emergency checkpoint
+  (after the in-flight async save, skipped when the step is already
+  committed) and exits `EXIT_PREEMPTED`. Any other error mid-run also gets
+  the emergency save, and is re-raised: the save never masks it. An error
+  that escapes the step itself may have left it half applied, so that
+  state is never committed: the last committed step stands.
 
-Not in this slice (ROADMAP queue 1 item 2): checkpointing and resume,
-held-out evaluation, f32 master weights, a custom optimizer, the profiler
-server, the metrics reporter, the goodput ledger and SIGTERM/emergency
-checkpointing. The first five are TrainerConfig fields and raise
-NotImplementedError when set; the last four have no switch here.
-Sharded parameters wait for the parallel slice.
+Not in this slice: the profiler server, the metrics reporter, the goodput
+ledger and lifecycle spans (they report to the orchestrator: ROADMAP queue
+1 item 4). Sharded parameters wait for the parallel slice.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from tony_tpu_torch import constants as C
 from tony_tpu_torch.device import peak_flops, resolve_device
+from tony_tpu_torch.train.checkpoint import (
+    AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint,
+    trainer_state,
+)
 from tony_tpu_torch.train.data import PrefetchIterator, global_batch_iterator
 from tony_tpu_torch.train.optim import (
-    adamw, tree_leaves, warmup_cosine_decay_schedule,
+    Optimizer, adamw, tree_leaves, warmup_cosine_decay_schedule,
 )
-from tony_tpu_torch.train.step import make_train_step
+from tony_tpu_torch.train.precision import with_f32_master
+from tony_tpu_torch.train.step import make_eval_step, make_train_step
 
 LOG = logging.getLogger(__name__)
 
-UNPORTED = "the port's trainer slice (ROADMAP queue 1 item 2)"
+
+class TrainerPreempted(BaseException):
+    """Raised by the Trainer's SIGTERM handler in the main thread. A
+    BaseException, so user code's `except Exception` cannot swallow the
+    drain; run() turns it into an emergency checkpoint and
+    SystemExit(EXIT_PREEMPTED)."""
 
 
 @dataclass
@@ -53,9 +86,12 @@ class TrainerConfig:
     warmup_steps: int = 10
     weight_decay: float = 0.01
     seed: int = 0
-    optimizer: Optional[Any] = None
+    optimizer: Optional[Optimizer] = None
     grad_accum: int = 1
+    # f32 master weights for bf16 params (train/precision.py)
     master_weights: bool = False
+    # held-out eval every N steps over eval_batches batches (0 = none;
+    # needs eval_data_iter on the Trainer)
     eval_every: int = 0
     eval_batches: int = 1
     # depth of the background prefetch queue. None = TONY_PREFETCH_DEPTH
@@ -64,6 +100,8 @@ class TrainerConfig:
     # training FLOPs per token for MFU (the model config's
     # flops_per_token(seq); 0 = MFU not reported)
     flops_per_token: float = 0.0
+    # committed steps kept after each commit (never the restored one).
+    # None = the TONY_CHECKPOINT_KEEP env (default 3); 0 = keep all
     checkpoint_keep: Optional[int] = None
     extra: dict = field(default_factory=dict)
 
@@ -78,31 +116,21 @@ def tokens_in_batch(batch) -> int:
     return 0
 
 
-def _refuse_unported(cfg: TrainerConfig) -> None:
-    asked = [name for name, value in (
-        ("checkpoint_dir", cfg.checkpoint_dir),
-        ("checkpoint_every", cfg.checkpoint_every),
-        ("checkpoint_keep", cfg.checkpoint_keep is not None),
-        ("eval_every", cfg.eval_every),
-        ("master_weights", cfg.master_weights),
-        ("optimizer", cfg.optimizer is not None)) if value]
-    if asked:
-        raise NotImplementedError(
-            f"TrainerConfig {', '.join(asked)}: not in this slice; they "
-            f"arrive with {UNPORTED}")
-
-
 class Trainer:
     """loss_fn(params, batch) -> scalar; init_fn(generator) -> params on
-    the generator's device; data_iter yields host batches (numpy)."""
+    the generator's device; data_iter (and eval_data_iter) yield host
+    batches (numpy)."""
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor],
                  init_fn: Callable[[torch.Generator], Any],
                  data_iter: Iterator[Any], config: TrainerConfig,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 eval_data_iter: Optional[Iterator[Any]] = None):
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.data_iter = data_iter
+        self.eval_data_iter = eval_data_iter
+        self.last_eval_loss: Optional[float] = None
         self.config = config
         self.device_name = device
         self.device: Optional[torch.device] = None
@@ -112,19 +140,38 @@ class Trainer:
         self.last_loss: Optional[float] = None
         self.metrics_history: list[dict] = []
         self._global_data_iter = None
+        self._eval_set: Optional[list] = None
+        self._checkpointer: Optional[AsyncCheckpointer] = None
+        # the step this run restored from, pinned against retention GC
+        self._restore_pinned: Optional[int] = None
+        # set by the SIGTERM-driven emergency path
+        self.preempted = False
+        # True while a train step runs (and after one that raised): its
+        # in-place update may be part way
+        self._updating = False
+        # a SIGTERM that arrived mid-step, raised at the step's end
+        self._preempt_requested = False
 
     # ------------------------------------------------------------------
     def setup(self) -> None:
+        # armed first: a SIGTERM during setup or restore still drains
+        self._install_sigterm_handler()
         cfg = self.config
-        _refuse_unported(cfg)
         self.device = resolve_device(str(self.device_name))
-        schedule = warmup_cosine_decay_schedule(
-            0.0, cfg.learning_rate, max(1, cfg.warmup_steps),
-            max(cfg.num_steps, cfg.warmup_steps + 1))
-        self.optimizer = adamw(schedule, weight_decay=cfg.weight_decay)
+        if cfg.optimizer is not None:
+            self.optimizer = cfg.optimizer
+        else:
+            schedule = warmup_cosine_decay_schedule(
+                0.0, cfg.learning_rate, max(1, cfg.warmup_steps),
+                max(cfg.num_steps, cfg.warmup_steps + 1))
+            self.optimizer = adamw(schedule, weight_decay=cfg.weight_decay)
+        if cfg.master_weights:
+            self.optimizer = with_f32_master(self.optimizer)
         self.train_step = make_train_step(
             self.loss_fn, self.optimizer, grad_accum=cfg.grad_accum,
             annotate=True)
+        resume = (latest_step(cfg.checkpoint_dir)
+                  if cfg.checkpoint_dir else None)
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         with torch.no_grad():
             params = self.init_fn(generator)
@@ -132,6 +179,19 @@ class Trainer:
             leaf.requires_grad_(True)
         self.params = params
         self.opt_state = self.optimizer.init(params)
+        self._updating = False
+        # a state with no optax layout (a custom Optimizer) cannot be
+        # saved: refuse now, not at the first save
+        template = self._state(step=0) if cfg.checkpoint_dir else None
+        if resume is not None:
+            LOG.info("resuming from checkpoint step %d", resume)
+            self._restore_pinned = resume
+            # in place into the state just built: leaf by leaf, on the
+            # device, mmap-backed reads
+            state = restore_checkpoint(cfg.checkpoint_dir, resume,
+                                       template=template)
+            self.opt_state.load_tree(state["opt_state"])
+            self.step = int(state["step"])
         self.train_step.step_num = self.step
         # a second setup() carries the old prefetcher's undelivered
         # batches into the new one: they were already pulled from the
@@ -158,12 +218,39 @@ class Trainer:
                                                  self.device)
 
             self._global_data_iter = _sync_with_carry()
+        if cfg.eval_every and self.eval_data_iter is not None:
+            self.eval_step = make_eval_step(self.loss_fn)
+            # a FIXED held-out set, drawn once: eval losses compare across
+            # steps and across resumes, and a re-setup() must not draw the
+            # next batches of the partly consumed iterator. islice caps the
+            # pull at exactly n.
+            if self._eval_set is None:
+                n = max(1, cfg.eval_batches)
+                with PrefetchIterator(
+                        itertools.islice(self.eval_data_iter, n),
+                        self.device, depth=n) as stream:
+                    self._eval_set = [next(stream) for _ in range(n)]
+
+    def _state(self, step: Optional[int] = None) -> dict:
+        """What a checkpoint holds, as the JAX Trainer saves it."""
+        return trainer_state(self.params, self.opt_state.tree(),
+                             self.step if step is None else step)
+
+    def _evaluate(self) -> float:
+        """Mean loss over the fixed held-out set (params only). The losses
+        add up on the device; one host read at the end."""
+        total = None
+        for batch in self._eval_set:
+            loss = self.eval_step(self.params, batch).float()
+            total = loss if total is None else total + loss
+        return float(total) / len(self._eval_set)
 
     # ------------------------------------------------------------------
     def run(self) -> float:
         """Train to num_steps; returns the final loss."""
         if self.params is None:
             self.setup()
+        self._install_sigterm_handler()
         it = self._global_data_iter
         if (isinstance(it, PrefetchIterator) and it.closed
                 and self.step < self.config.num_steps):
@@ -174,6 +261,7 @@ class Trainer:
                 initial=it.leftover)
         cfg = self.config
         peak = peak_flops(self.device)
+        self._preempt_requested = False
         loss = None
         pending = None      # (step, device loss, elapsed_s, interval)
         tokens_per_batch = 0
@@ -192,9 +280,13 @@ class Trainer:
         try:
             while self.step < cfg.num_steps:
                 batch = next(self._global_data_iter)
+                self._updating = True
                 self.params, self.opt_state, loss = self.train_step(
                     self.params, self.opt_state, batch)
                 self.step += 1
+                self._updating = False
+                if self._preempt_requested:
+                    raise TrainerPreempted()
                 if not tokens_per_batch:
                     tokens_per_batch = tokens_in_batch(batch)
                 if cfg.log_every and self.step % cfg.log_every == 0:
@@ -215,11 +307,40 @@ class Trainer:
                                                    / peak)
                     last_t, last_step = now, self.step
                     pending = (self.step, loss, now - t0, interval)
+                if (cfg.eval_every and self.eval_data_iter is not None
+                        and self.step % cfg.eval_every == 0):
+                    self.last_eval_loss = self._evaluate()
+                    self.metrics_history.append(
+                        {"step": self.step, "eval_loss": self.last_eval_loss})
+                    LOG.info("step %d eval_loss %.4f", self.step,
+                             self.last_eval_loss)
+                if (cfg.checkpoint_dir and cfg.checkpoint_every
+                        and self.step % cfg.checkpoint_every == 0):
+                    self._checkpoint()
             if pending is not None:
                 _flush(pending)
                 pending = None
-            if loss is not None:
+            if loss is not None:    # the loop may not run on exact resume
                 self.last_loss = float(loss)
+            if cfg.checkpoint_dir and loss is not None:
+                self._checkpoint(final=True)
+            elif self._checkpointer is not None:
+                self._checkpointer.close()
+                self._checkpointer = None
+        except BaseException as e:
+            # the SIGTERM drain and any unhandled error mid-run: commit the
+            # current step on the way out, then exit EXIT_PREEMPTED or
+            # re-raise
+            preempting = isinstance(e, TrainerPreempted)
+            self._emergency_checkpoint(
+                reason="preemption" if preempting else type(e).__name__)
+            if preempting:
+                self.preempted = True
+                LOG.warning("preempted at step %d — emergency checkpoint "
+                            "committed; exiting %d", self.step,
+                            C.EXIT_PREEMPTED)
+                raise SystemExit(C.EXIT_PREEMPTED) from e
+            raise
         finally:
             if pending is not None:
                 try:
@@ -230,3 +351,85 @@ class Trainer:
             if isinstance(self._global_data_iter, PrefetchIterator):
                 self._global_data_iter.close()
         return self.last_loss
+
+    # ------------------------------------------------------------------
+    def _checkpoint_keep(self) -> int:
+        """Retention count: config wins, else TONY_CHECKPOINT_KEEP, else
+        3."""
+        keep = self.config.checkpoint_keep
+        if keep is None:
+            try:
+                keep = int(os.environ.get(C.CHECKPOINT_KEEP, "") or 3)
+            except ValueError:
+                keep = 3
+        return max(0, keep)
+
+    def _install_sigterm_handler(self) -> None:
+        """SIGTERM raises TrainerPreempted in the main thread (handlers
+        install only there; elsewhere the process default stays)."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        try:
+            signal.signal(signal.SIGTERM, self._on_sigterm)
+        except (ValueError, OSError):
+            LOG.debug("could not install SIGTERM handler", exc_info=True)
+
+    def _on_sigterm(self, signum, frame) -> None:
+        LOG.warning("SIGTERM — draining for emergency checkpoint at step %d",
+                    self.step)
+        if self._updating:
+            # mid-step: the loop raises once the update is whole
+            self._preempt_requested = True
+            return
+        raise TrainerPreempted()
+
+    def _emergency_checkpoint(self, reason: str = "") -> None:
+        """One synchronous save of the current state: wait out the
+        in-flight async write, then commit this step unless it is on disk
+        already. Every failure is logged and swallowed: this runs on the
+        way out and must never mask the original error. A step that raised
+        part way may have updated some tensors and not others: that state
+        is not committed."""
+        cfg = self.config
+        if not cfg.checkpoint_dir or self.params is None or self.step <= 0:
+            return
+        try:
+            if self._checkpointer is not None:
+                try:
+                    self._checkpointer.wait()
+                except Exception:  # noqa: BLE001 — a prior async failure
+                    LOG.exception("in-flight async checkpoint failed "
+                                  "during emergency drain")
+            if self._updating:
+                LOG.error("step %d raised part way through its update; "
+                          "not committing that state (the last committed "
+                          "step stands)", self.step + 1)
+                return
+            if latest_step(cfg.checkpoint_dir) == self.step:
+                LOG.info("emergency checkpoint: step %d already committed",
+                         self.step)
+                return
+            save_checkpoint(cfg.checkpoint_dir, self.step, self._state(),
+                            keep=self._checkpoint_keep(),
+                            pinned=self._restore_pinned)
+            LOG.warning("emergency checkpoint committed at step %d (%s)",
+                        self.step, reason or "unhandled error")
+        except BaseException:  # noqa: BLE001 — never mask the real error
+            LOG.exception("emergency checkpoint failed")
+
+    def _checkpoint(self, final: bool = False) -> None:
+        """Cadence saves are async (the snapshot is synchronous, the file
+        IO overlaps the next steps); the final one commits before it
+        returns. A final save of a step the cadence just saved waits for
+        that commit instead of writing the step again."""
+        if self._checkpointer is None:
+            self._checkpointer = AsyncCheckpointer(
+                self.config.checkpoint_dir, keep=self._checkpoint_keep(),
+                pinned=self._restore_pinned)
+        if not (final and self._checkpointer.last_step == self.step):
+            self._checkpointer.save(self.step, self._state())
+        if final:
+            self._checkpointer.close()
+            self._checkpointer = None
+        LOG.info("checkpointed step %d%s", self.step,
+                 " (final)" if final else " (async)")
