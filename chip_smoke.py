@@ -24,7 +24,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
               print the errors, kernel ms, plain ms, the library call's ms
               and the bound (RMSNorm also with a cold L2). At the training
               shape the flash kernels run twice and must agree bit for
-              bit, and print their TFLOP/s and share of the bound.
+              bit, and print their TFLOP/s and share of the bound. K5
+              (the W8A16 int8-weight product) at llama3_8b's decode
+              products for 1 and 4 rows (bf16 at 3e-2 and by norm, twice
+              and bit for bit), the sum over one decode step's products,
+              and the tiny f32 path's shapes at 2e-5.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
@@ -36,6 +40,23 @@ Phases (any failure exits non-zero, and the result line is not printed):
               forward on the card agrees with the forward on the CPU.
 5. profile  — where a full-width prefill's and decode step's time goes
               (host wall, device busy time, idle share, top kernels).
+   quant    — llama3_8b bf16 random weights quantized on the card:
+              int8-weight, int8-cache and combined logits within a 5%
+              normalized RMSE of bf16's (prefill and a decode step), the
+              decode step's device time in the three modes, then the
+              serve phase's burst on a `--quant int8 --quant-cache` server
+              with exact K1, K4 and K5 launches.
+   kvcache  — llama3_8b bf16: 8 prompts sharing a 1024-token prefix,
+              one after another through an engine with prefix sharing on
+              and one with it off: pool hits exact, K1 only for the
+              unmatched admission, TTFT on against off, streams compared
+              (divergences printed), first-token logits through sealed and
+              gathered pages bit for bit those of the same suffix prefill
+              on the prefix rows themselves (against the full K1 prefill
+              printed), the suffix and full prefill profiled; a
+              prefill-role and a decode-role server relaying over
+              HTTP, bit-identical to local decode; tiny f32 on equal to
+              off.
 6. train    — the training path at full width: the Trainer that
               `python -m tony_tpu_torch.train` builds, on llama3_1b_proxy
               (full depth, bf16, random weights from a fixed seed) at
@@ -68,9 +89,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
 `--phases build,kernels` (for instance) runs a subset.
 
 Two lines before the last is a JSON object with one entry per kernel
-(`launches`: its launches on the serve and train paths together, split
-in `launches_by_path`), then the card's name and power limit from
-nvidia-smi; the last line is {"ok": true, "device": {...}}.
+(`launches`: its launches on the serve, quant, kvcache, train and ckpt
+paths together, split in `launches_by_path`), then the card's name and
+power limit from nvidia-smi; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -179,6 +201,33 @@ MASTER_PEAK_GIB = 24.0
 PROMPT_LENS = (1, 17, 128, 512, 513, 1000, 1500, 1900)
 MAX_NEW = 16
 N_STREAMED = 2
+# K5 at llama3_8b's decode products, (label, K, N, LM head: f32 out), each
+# at M 1 and 4 rows (4: the serving slots); wq and wo, wk and wv, w_gate
+# and w_up share their shapes. The timed summary is w_gate/w_up at M 4.
+INT8_CASES = (("wq/wo", 4096, 4096, False), ("wk/wv", 4096, 1024, False),
+              ("w_gate/w_up", 4096, 14336, False),
+              ("w_down", 14336, 4096, False), ("output", 4096, 128256, True))
+INT8_ROWS = (1, 4)
+INT8_SUMMARY = "w_gate/w_up M4"
+# held and not timed: row blocks past one (M 5: a partial block of 8; M 16:
+# two) in bf16, and the tiny f32 path's products in f32
+INT8_EXTRA = (("wk/wv", 4096, 1024, False, 5, "bfloat16"),
+              ("wk/wv", 4096, 1024, False, 16, "bfloat16"),
+              ("output", 4096, 128256, True, 16, "bfloat16"),
+              ("wk/wv", 4096, 1024, False, 4, "float32"),
+              ("tiny w_gate", 64, 128, False, 3, "float32"),
+              ("tiny output", 64, 256, True, 1, "float32"))
+# the quant phase: the normalized RMSE of int8 logits against bf16's
+# (tests/test_quant.py:55-113), its prompts (B, P), and its decode step's
+# slots and positions (the profile phase's)
+QUANT_NRMSE = 0.05
+QUANT_PROMPTS = (2, 128)
+DECODE_SLOTS, DECODE_BUDGET = 4, 2048
+DECODE_POS = (1900, 700, 300, 20)
+# the kvcache phase: a shared 1024-token prefix (64 pages of 16) and 8
+# distinct suffixes
+KV_PREFIX, KV_PAGE = 1024, 16
+KV_SUFFIXES = (5, 16, 40, 63, 77, 100, 128, 200)
 
 
 class SmokeFailure(RuntimeError):
@@ -231,14 +280,15 @@ def device_events(prof) -> list:
 
 def log_top(kernels: list, n: int) -> None:
     """The profile's `n` largest device ops, then each of the port's own
-    kernels (by the templates of csrc/: flash_*, rmsnorm_*) that is not
-    among them."""
+    kernels (by the templates of csrc/: flash_*, rmsnorm_*, w8a16,
+    add_splits) that is not among them."""
     ranked = sorted(kernels, key=_device_us, reverse=True)
     for e in ranked[:n]:
         log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for e in ranked[n:]:
-        if re.search(r"\b(flash_\w+|rmsnorm_\w+)<", e.key):
+        if re.search(r"\b(flash_\w+|rmsnorm_\w+|w8a16|add_splits)<",
+                     e.key):
             log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
                 f"{e.key[:90]} (a port kernel)")
 
@@ -376,7 +426,9 @@ def merge(*held: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
-    from tony_tpu_torch.ops import attention, rmsnorm  # noqa: F401 (register)
+    from tony_tpu_torch.ops import (  # noqa: F401 (register)
+        attention, int8_matmul, rmsnorm,
+    )
     from tony_tpu_torch.ops import cuda_lib
 
     sources = sorted({k.source for k in cuda_lib.KERNELS.values()})
@@ -660,6 +712,70 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     return entries[0], entries[1], fwd
 
 
+def _int8_case(label: str, k: int, n: int, out_f32: bool, m: int,
+               dtype_name: str, peaks, iters: int) -> dict:
+    """K5 against its plain version on one random int8 weight (a bf16
+    weight quantized on the card) and x; run twice and compared bit for
+    bit. Timed when `iters`: the plain version, and torch.matmul on the
+    weight dequantized to bf16 beforehand (the library yardstick)."""
+    import torch
+
+    from tony_tpu_torch.models.quant import dequantize, quantize
+    from tony_tpu_torch.ops.int8_matmul import (
+        int8_matmul_cuda, int8_matmul_reference, splits_for,
+    )
+    from tony_tpu_torch.ops.xent import matmul_f32
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(7 * k + n + m)
+    t = quantize((torch.randn((k, n), generator=g, device="cuda")
+                  * k ** -0.5).to(torch.bfloat16))
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    out = int8_matmul_cuda(x, t, out_f32)
+    again = int8_matmul_cuda(x, t, out_f32)
+    ref = int8_matmul_reference(x, t, out_f32)
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    r = hold(out, ref, tol, by_norm=dtype_name == "bfloat16", name=label)
+    r["bitwise"] = bool(torch.equal(out, again))
+    r["ok"] = r["ok"] and r["bitwise"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r.update(shape=f"{label} M{m} K{k} N{n} (splits "
+                   f"{splits_for(m, k, n, sms)})",
+             dtype=dtype_name, tol=tol, summary=False)
+    if iters:
+        r["ms"], r["call_ms"] = timed(
+            lambda: int8_matmul_cuda(x, t, out_f32), iters)
+        r["plain_ms"], _ = timed(
+            lambda: int8_matmul_reference(x, t, out_f32), max(3, iters // 10))
+        w = dequantize(t)
+        r["library_ms"], _ = timed(
+            (lambda: matmul_f32(x, w)) if out_f32 else (lambda: x @ w), iters)
+        r["library_call"] = "torch.matmul on the dequantized bf16 weight"
+        # each input read once, the output written once; the multiply-adds
+        # run on the CUDA cores in f32
+        nbytes = (k * n + 4 * n + m * k * x.element_size()
+                  + m * n * out.element_size())
+        bytes_ms = nbytes / peaks[0] * 1e3
+        ops_ms = 2 * m * k * n / peaks[2] * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        r["summary"] = f"{label} M{m}" == INT8_SUMMARY
+    del t, x, out, again, ref
+    torch.cuda.empty_cache()
+    return r
+
+
+def _k5_step_ms(results: list[dict], key: str) -> float:
+    """The sum, over one llama3_8b decode step's products (32 layers of
+    wq, wk, wv, wo, w_gate, w_up, w_down, then the LM head), of the M 4
+    cases' `key` (ms or bound_ms)."""
+    by = {r["shape"].split(" M")[0]: r[key] for r in results
+          if r["dtype"] == "bfloat16" and " M4 " in r["shape"] and key in r}
+    layer = (2 * by["wq/wo"] + 2 * by["wk/wv"] + 2 * by["w_gate/w_up"]
+             + by["w_down"])
+    return 32 * layer + by["output"]
+
+
 def _report(name: str, r: dict) -> None:
     """Log one case of a kernel: its errors, times and bound."""
     line = (f"kernel {name} {r['dtype']} {r['shape']}: max_abs_err "
@@ -668,6 +784,8 @@ def _report(name: str, r: dict) -> None:
         line += (f" norm_err {r['norm_err']:.3e} row_err "
                  f"{r['row_err']:.3e} at {r['worst_row']} "
                  f"(tol {NORM_TOL})")
+    if "bitwise" in r:
+        line += f" bitwise over two calls {r['bitwise']}"
     if "ms" in r:
         lib, call = r["library_ms"], r.get("library_call")
         line += (f" ms {r['ms']:.4f} call_ms {r['call_ms']:.4f} "
@@ -696,10 +814,12 @@ def phase_kernels(peaks) -> dict[str, dict]:
     from tony_tpu_torch.ops.attention import (
         FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
     )
+    from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
 
     cases = {FLASH_FWD.name: [], FLASH_BWD_DQ.name: [],
-             FLASH_BWD_DKV.name: [], RMSNORM_FWD.name: []}
+             FLASH_BWD_DKV.name: [], RMSNORM_FWD.name: [],
+             INT8_MATMUL.name: []}
     # written and read back between RMSNorm launches timed with a cold L2:
     # twice the L2
     flush = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size
@@ -718,9 +838,21 @@ def phase_kernels(peaks) -> dict[str, dict]:
     del flush
     for case in FLASH_CASES:
         add(FLASH_FWD.name, _flash_case(*case, torch.bfloat16, peaks, 0))
+    for label, k, n, out_f32 in INT8_CASES:
+        for m in INT8_ROWS:
+            add(INT8_MATMUL.name, _int8_case(label, k, n, out_f32, m,
+                                             "bfloat16", peaks, 50))
+    for case in INT8_EXTRA:
+        add(INT8_MATMUL.name, _int8_case(*case, peaks, 0))
+    k5 = cases[INT8_MATMUL.name]
+    log(f"kernel {INT8_MATMUL.name}: one llama3_8b decode step's products "
+        f"at M 4 (32 x 7 and the LM head): {_k5_step_ms(k5, 'ms'):.4f} ms, "
+        f"bound {_k5_step_ms(k5, 'bound_ms'):.4f} ms, plain "
+        f"{_k5_step_ms(k5, 'plain_ms'):.4f} ms, torch.matmul on bf16 "
+        f"{_k5_step_ms(k5, 'library_ms'):.4f} ms")
     # the backward cases run on K1's (out, lse): a wrong forward fails here,
     # under its own name
-    for name in (FLASH_FWD.name, RMSNORM_FWD.name):
+    for name in (FLASH_FWD.name, RMSNORM_FWD.name, INT8_MATMUL.name):
         _hold_all(name, cases[name])
     for i, case in enumerate(BWD_CASES):
         layout = case[7] if len(case) > 7 else "bshd"
@@ -777,8 +909,22 @@ def _post(url: str, body: dict, stream: bool, timeout: float = 600.0
             "wall_s": time.monotonic() - t0, "first_s": first}
 
 
-def phase_serve(config_name: str) -> dict[str, int]:
-    """Returns each kernel's launch count over the burst."""
+def _k5_launches(n_layers: int, prompt_lens, steps: int) -> int:
+    """K5's launches over a burst with int8 weights: the decode step's 7
+    products per layer and the LM head, and in each admission the LM head
+    (its last row), or all of the products where the prompt has at most
+    KERNEL_MAX_ROWS tokens."""
+    from tony_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
+    per_pass = 7 * n_layers + 1
+    return steps * per_pass + sum(
+        per_pass if n <= KERNEL_MAX_ROWS else 1 for n in prompt_lens)
+
+
+def phase_serve(config_name: str, flags: tuple = (),
+                tag: str = "serve") -> dict[str, int]:
+    """Returns each kernel's launch count over the burst. `flags` are
+    added to the server's (the quant phase's `--quant int8
+    --quant-cache`)."""
     import numpy as np
     import torch
 
@@ -786,16 +932,19 @@ def phase_serve(config_name: str) -> dict[str, int]:
     from tony_tpu_torch.ops.attention import (
         FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
     )
+    from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
     from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
 
     args = build_arg_parser().parse_args(
         ["--config", config_name, "--device", "cuda", "--slots", "4",
-         "--token-budget", "2048", "--port", "0", "--host", "127.0.0.1"])
+         "--token-budget", "2048", "--port", "0", "--host", "127.0.0.1",
+         *flags])
     t0 = time.monotonic()
     server = build_server(args)
     engine, cfg = server.engine, server.engine.config
-    log(f"serve: {config_name} (dim {cfg.dim}, {cfg.n_layers} layers, "
+    log(f"{tag}: {' '.join(flags) or 'bf16'} server: "
+        f"{config_name} (dim {cfg.dim}, {cfg.n_layers} layers, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, "
         f"{str(cfg.dtype).split('.')[-1]}) built in "
         f"{time.monotonic() - t0:.1f} s; {engine.n_slots} slots, budget "
@@ -856,8 +1005,11 @@ def phase_serve(config_name: str) -> dict[str, int]:
         want = {FLASH_FWD.name: cfg.n_layers * len(PROMPT_LENS),
                 FLASH_BWD_DQ.name: 0, FLASH_BWD_DKV.name: 0,
                 RMSNORM_FWD.name: (2 * cfg.n_layers + 1)
-                * (admissions + steps)}
-        log(f"serve: launches {launches}, expected {want} "
+                * (admissions + steps),
+                INT8_MATMUL.name: (_k5_launches(cfg.n_layers, PROMPT_LENS,
+                                                steps)
+                                   if "int8" in flags else 0)}
+        log(f"{tag}: launches {launches}, expected {want} "
             f"({admissions} admissions, {steps} decode steps)")
         check(launches == want, f"launch counts {launches} != {want}")
 
@@ -865,13 +1017,13 @@ def phase_serve(config_name: str) -> dict[str, int]:
         for i, n in enumerate(PROMPT_LENS):
             h = by_len[n]
             per_tok = h.decode_s / (len(h.tokens) - 1) * 1e3
-            log(f"serve: request {i} prompt {n} "
+            log(f"{tag}: request {i} prompt {n} "
                 f"{'stream' if i < N_STREAMED else 'blocking'}: ttft "
                 f"{h.ttft_s * 1e3:.1f} ms (queue {h.queue_wait_s * 1e3:.1f}"
                 f" ms, prefill {h.prefill_s * 1e3:.1f} ms), decode "
                 f"{per_tok:.2f} ms/token, wall {results[i]['wall_s']:.3f} s")
         total = len(PROMPT_LENS) * MAX_NEW
-        log(f"serve: {total} tokens in {burst_s:.3f} s = "
+        log(f"{tag}: {total} tokens in {burst_s:.3f} s = "
             f"{total / burst_s:.1f} tokens/s; decode p50 "
             f"{metrics['decode_ms_per_token_p50']:.2f} ms/token; peak "
             f"memory allocated {peak_gib:.2f} GiB")
@@ -1019,6 +1171,387 @@ def phase_profile(config_name: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _nrmse(got, want) -> float:
+    """||got - want||_rms / ||want||_rms, as tests/test_quant.py holds
+    int8 logits to bf16's."""
+    g, w = got.float(), want.float()
+    return float((g - w).square().mean().sqrt() / w.square().mean().sqrt())
+
+
+def _profile_step(label: str, fn, tag: str) -> dict:
+    """Host wall (median of 5, CUDA-synchronised, profiler off), device
+    busy time and idle share of fn(), K5's share of the busy time, and the
+    top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    wall = sorted(walls)[len(walls) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_events(prof)
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    k5 = sum(_device_us(e) for e in kernels
+             if re.search(r"\b(w8a16|add_splits)<", e.key)) / 1e3
+    n_ops = sum(e.count for e in kernels)
+    log(f"{tag}: {label}: wall {wall:.2f} ms (median of 5), device busy "
+        f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+        f"{n_ops} device ops, K5 {k5:.3f} ms")
+    log_top(kernels, 6)
+    return {"wall_ms": wall, "busy_ms": busy, "k5_ms": k5}
+
+
+def phase_quant(config_name: str) -> dict[str, int]:
+    """llama3_8b with bf16 random weights from the fixed seed, quantized
+    on the card: int8-weight and int8-cache logits against bf16's
+    (prefill and a decode step), the decode step profiled in the three
+    modes, then the `--quant int8 --quant-cache` server's burst with exact
+    K1, K4 and K5 launches. Returns the burst's launches."""
+    import torch
+
+    from tony_tpu_torch.models.generate import (
+        decode_step, empty_cache, prefill,
+    )
+    from tony_tpu_torch.models.quant import quantize_params, quantized_bytes
+    from tony_tpu_torch.serve.__main__ import _load_model, build_arg_parser
+
+    device = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg = _load_model(build_arg_parser().parse_args(
+        ["--config", config_name]), device)
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    now, full = quantized_bytes(qparams)
+    log(f"quant: {config_name} quantized on the card in "
+        f"{time.monotonic() - t0:.1f} s: {now / 1e9:.3f} GB of int8 weights "
+        f"and scales where bf16 holds {full / 1e9:.3f} GB")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, p = QUANT_PROMPTS
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda")
+    errs = {}
+    with torch.inference_mode():
+        ref, ref_cache = prefill(params, tokens, cfg, p + 8)
+        tok = torch.argmax(ref, dim=-1)
+        d_ref, _ = decode_step(params, cfg, ref_cache, tok, p)
+        for mode, (w, qc) in {"int8 weights": (qparams, False),
+                              "int8 cache": (params, True),
+                              "both": (qparams, True)}.items():
+            logits, cache = prefill(w, tokens, cfg, p + 8, quant_cache=qc)
+            if mode == "int8 cache":
+                check(torch.equal(logits, ref),
+                      "int8-cache prefill logits differ from bf16's (the "
+                      "cache is written after them)")
+            d, _ = decode_step(w, cfg, cache, tok, p)
+            errs[mode] = (_nrmse(logits, ref), _nrmse(d, d_ref))
+            check(bool(torch.isfinite(d).all()), f"{mode}: decode logits")
+    for mode, (e_pre, e_dec) in errs.items():
+        log(f"quant: {mode}: normalized RMSE against bf16: prefill "
+            f"{e_pre:.4f}, decode {e_dec:.4f} (limit {QUANT_NRMSE})")
+        check(e_pre < QUANT_NRMSE and e_dec < QUANT_NRMSE,
+              f"{mode} logits: normalized RMSE {e_pre}, {e_dec}")
+
+    steps = {}
+    with torch.inference_mode():
+        caches = {qc: empty_cache(cfg, DECODE_SLOTS, DECODE_BUDGET, device,
+                                  quant_cache=qc) for qc in (False, True)}
+        tok = torch.randint(0, cfg.vocab_size, (DECODE_SLOTS,), generator=g,
+                            device="cuda")
+        pos = torch.tensor(DECODE_POS, device="cuda")
+        for label, w, qc in (("bf16", params, False),
+                             ("int8 weights", qparams, False),
+                             ("int8 weights + int8 cache", qparams, True)):
+            steps[label] = _profile_step(
+                f"decode step, {DECODE_SLOTS} slots, {label}",
+                lambda w=w, qc=qc: decode_step(w, cfg, caches[qc], tok, pos),
+                "quant")
+    log(f"quant: decode step device busy bf16 "
+        f"{steps['bf16']['busy_ms']:.2f} ms, int8 weights "
+        f"{steps['int8 weights']['busy_ms']:.2f} ms, + int8 cache "
+        f"{steps['int8 weights + int8 cache']['busy_ms']:.2f} ms; peak "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (bf16 and int8 weights resident together)")
+    del params, qparams, caches, ref_cache
+    torch.cuda.empty_cache()
+    return phase_serve(config_name, ("--quant", "int8", "--quant-cache"),
+                       "quant")
+
+
+def _kv_prompts(cfg) -> list[list[int]]:
+    import numpy as np
+    rng = np.random.RandomState(3)
+    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size, KV_PREFIX)]
+    return [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+            for n in KV_SUFFIXES]
+
+
+def _kv_run(engine, prompts, tag: str) -> dict:
+    """The prompts one after another through the engine's loop (each
+    waits for the last, so a TTFT holds no queueing): tokens, TTFT and
+    prefill seconds per request, and the launches and admissions of the
+    run."""
+    import torch
+
+    from tony_tpu_torch.ops import cuda_lib
+
+    before = dict(engine.snapshot())
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    handles = []
+    for p in prompts:
+        h = engine.submit(p, MAX_NEW)
+        h.result(timeout=600)
+        check(h.finish_reason == "length" and len(h.tokens) == MAX_NEW,
+              f"{tag}: request {h.request_id}: {h.finish_reason}")
+        handles.append(h)
+    torch.cuda.synchronize()
+    launches = cuda_lib.launches()
+    after = dict(engine.snapshot())
+    return {"tokens": [h.tokens for h in handles],
+            "wall_s": [h.finished_at - h.submitted_at for h in handles],
+            "ttft_s": [h.ttft_s for h in handles],
+            "prefill_s": [h.prefill_s for h in handles],
+            "matched": [h.kv_matched_tokens for h in handles],
+            "launches": launches,
+            "admissions": after["admissions"] - before["admissions"],
+            "steps": after["decode_steps"] - before["decode_steps"]}
+
+
+def _kv_logits(params, cfg, prompt) -> None:
+    """The first token's logits through the page pool: the prefix
+    prefilled into slot 0, sealed into pages, gathered into slot 1, the
+    suffix prefilled there; equal bit for bit to the same suffix prefill
+    on slot 0's own prefix rows (the paging moves bytes and nothing
+    else). Printed beside the full prefill of the prompt (sharing off,
+    K1) and the suffix prefill of the whole prompt from position 0 (the
+    JAX package's sharing-on path for a prompt that matches nothing),
+    against bf16's 3e-2 and by norm 1e-2; then the suffix prefill and the
+    full prefill profiled."""
+    import torch
+
+    from tony_tpu_torch.models.generate import empty_cache, prefill
+    from tony_tpu_torch.serve import kvcache as kvc
+
+    device = torch.device("cuda")
+    pool = kvc.KVPagePool(cfg, DECODE_BUDGET, KV_PAGE, n_slots=1,
+                          device=device)
+    cache = empty_cache(cfg, 3, DECODE_BUDGET, device)
+    n_pages = KV_PREFIX // KV_PAGE
+    table = torch.zeros(pool.blocks_per_slot, dtype=torch.long)
+    table[:n_pages] = torch.arange(1, n_pages + 1)
+    table = table.to(device)
+    tokens = torch.tensor(prompt, device=device)
+    rows = {name: a[:, 0:1] for name, a in cache.items()}
+    with torch.inference_mode():
+        prefill(params, tokens[None, :KV_PREFIX], cfg, DECODE_BUDGET,
+                cache=rows)
+        kvc.seal_pages(pool.pool, cache, table, 0)
+        kvc.gather_pages(cache, pool.pool, table, 1)
+        on, _ = kvc.prefill_suffix(params, cfg, cache, tokens[KV_PREFIX:],
+                                   KV_PREFIX, 1)
+        direct, _ = kvc.prefill_suffix(params, cfg, cache,
+                                       tokens[KV_PREFIX:], KV_PREFIX, 0)
+        miss, _ = kvc.prefill_suffix(params, cfg, cache, tokens, 0, 2)
+        off, _ = prefill(params, tokens[None], cfg, DECODE_BUDGET,
+                         cache=rows)
+    same = bool(torch.equal(on, direct))
+    log(f"kvcache: first-token logits through the pages equal those on "
+        f"the slot's own prefix rows bit for bit: {same}")
+    check(same, "paged suffix prefill differs from the same suffix prefill "
+                "on the prefix rows it was gathered from")
+    tol = TOL["bfloat16"]
+    for label, got in (("sharing on (paged)", on),
+                       ("suffix prefill from 0", miss)):
+        e = hold(got, off, tol, by_norm=True, name="logits")
+        log(f"kvcache: first-token logits, {label} against sharing off "
+            f"(full prefill, K1): max_abs_err {e['max_abs_err']:.3e} (tol "
+            f"{tol}), norm_err {e['norm_err']:.3e} (tol {NORM_TOL}); "
+            f"argmax {int(got.argmax())} / {int(off.argmax())}")
+    with torch.inference_mode():
+        _profile_step(
+            f"suffix prefill of {len(prompt) - KV_PREFIX} tokens after "
+            f"{KV_PREFIX} gathered",
+            lambda: kvc.prefill_suffix(params, cfg, cache,
+                                       tokens[KV_PREFIX:], KV_PREFIX, 1),
+            "kvcache")
+        _profile_step(f"full prefill of {len(prompt)} tokens",
+                      lambda: prefill(params, tokens[None], cfg,
+                                      DECODE_BUDGET, cache=rows), "kvcache")
+    del pool, cache, rows
+    torch.cuda.empty_cache()
+
+
+def _kv_relay(params, cfg, prompts, local) -> None:
+    """A prefill-role and a decode-role server in this process on the
+    same parameters, relaying over HTTP: greedy streams (blocking and
+    streamed) bit-identical to local decode (`local`: the sharing-off
+    run), and the wall of a migrated request beside the local one."""
+    from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
+    from tony_tpu_torch.serve.frontend import ServeFrontend
+
+    def engine(role):
+        return ContinuousBatchingEngine(
+            params, cfg, n_slots=DECODE_SLOTS, token_budget=DECODE_BUDGET,
+            role=role)
+    dec, pre = engine("decode"), engine("prefill")
+    dec_fe = ServeFrontend(dec, port=0, host="127.0.0.1")
+    pre_fe = ServeFrontend(pre, port=0, host="127.0.0.1", migrate_targets=[
+        f"http://127.0.0.1:{dec_fe.port}"])
+    try:
+        for e in (dec, pre):
+            e.start()
+        for fe in (dec_fe, pre_fe):
+            fe.start()
+        url = f"http://127.0.0.1:{pre_fe.port}"
+        for i, p in enumerate(prompts):
+            want = local["tokens"][i]
+            r = _post(url, {"prompt": p, "max_new_tokens": MAX_NEW},
+                      stream=bool(i % 2))
+            log(f"kvcache: migrated request {i} (prompt {len(p)}, "
+                f"{'stream' if i % 2 else 'blocking'}): wall "
+                f"{r['wall_s'] * 1e3:.1f} ms (client), local "
+                f"{local['wall_s'][i] * 1e3:.1f} ms (engine); tokens "
+                f"equal local decode {r['tokens'] == want}")
+            check(r["tokens"] == want,
+                  f"migrated stream {r['tokens']} != local {want}")
+        snap = dec.snapshot()
+        check(snap["migrated_in_total"] == len(prompts)
+              and pre.snapshot()["migrated_out_total"] == len(prompts),
+              f"migrations: {snap['migrated_in_total']} in")
+    finally:
+        for fe in (pre_fe, dec_fe):
+            fe.stop()
+        for e in (pre, dec):
+            e.stop()
+
+
+def _kv_tiny() -> None:
+    """tiny f32 on the card: the engine's greedy streams with sharing on
+    equal those with it off, under staggered arrivals."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.llama import get_config, llama_init
+    from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg = get_config("tiny")
+    with torch.inference_mode():
+        params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(6)
+    shared = [int(t) for t in rng.randint(0, cfg.vocab_size, 8)]
+    prompts = [shared + [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (5, 3, 9, 1, 6)]
+    outs = {}
+    for sharing in (False, True):
+        engine = ContinuousBatchingEngine(
+            params, cfg, n_slots=2, token_budget=32, queue_depth=16,
+            prefix_sharing=sharing, kv_page_size=4)
+        handles = [engine.submit(p, 4) for p in prompts[:2]]
+        for _ in range(3):
+            engine.step()
+        handles += [engine.submit(p, 4) for p in prompts[2:]]
+        for _ in range(200):
+            if all(h.done.is_set() for h in handles):
+                break
+            engine.step()
+        outs[sharing] = [h.tokens for h in handles]
+        if sharing:
+            hits = engine.kv_pool.req_hits
+    log(f"kvcache: tiny f32 staggered streams, sharing on equal to off: "
+        f"{outs[True] == outs[False]} ({hits} pool hits)")
+    check(outs[True] == outs[False] and hits == len(prompts) - 1,
+          f"tiny sharing on {outs[True]} != off {outs[False]}")
+
+
+def phase_kvcache(config_name: str) -> dict[str, int]:
+    """llama3_8b bf16 with prefix sharing: 8 prompts sharing a 1024-token
+    prefix with distinct suffixes, through an engine with sharing on and
+    one with it off (same parameters): pool hits exact, K1 launched only
+    for the unmatched admission, TTFT on against off, first-token logits
+    on against off, the prefill -> decode relay over HTTP, and tiny f32
+    on equal to off. Returns the sharing-on run's launches."""
+    import torch
+
+    from tony_tpu_torch.ops.attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
+    )
+    from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
+    from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
+    from tony_tpu_torch.serve.__main__ import _load_model, build_arg_parser
+    from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    device = torch.device("cuda")
+    params, cfg = _load_model(build_arg_parser().parse_args(
+        ["--config", config_name]), device)
+    prompts = _kv_prompts(cfg)
+    runs = {}
+    for sharing in (True, False):
+        engine = ContinuousBatchingEngine(
+            params, cfg, n_slots=DECODE_SLOTS, token_budget=DECODE_BUDGET,
+            prefix_sharing=sharing, kv_page_size=KV_PAGE)
+        engine.start()
+        try:
+            warm = engine.submit([1, 2, 3, 4, 5, 6, 7, 8], 4)
+            warm.result(timeout=600)
+            runs[sharing] = _kv_run(engine, prompts,
+                                    f"kvcache (sharing {sharing})")
+            if sharing:
+                pool = engine.kv_pool
+                pool.check_invariants()
+                stats = dict(pool.stats_fields())
+        finally:
+            engine.stop()
+        del engine
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    hits = len(prompts) - 1
+    log(f"kvcache: pool after the run: {stats}")
+    check(on["matched"] == [0] + [KV_PREFIX] * hits,
+          f"matched prefix tokens {on['matched']}")
+    check(stats["kv_req_hit_total"] == hits
+          and stats["kv_hit_total"] == hits * KV_PREFIX,
+          f"pool hits {stats['kv_req_hit_total']} requests, "
+          f"{stats['kv_hit_total']} tokens")
+    want = {FLASH_FWD.name: cfg.n_layers, FLASH_BWD_DQ.name: 0,
+            FLASH_BWD_DKV.name: 0, INT8_MATMUL.name: 0,
+            RMSNORM_FWD.name: (2 * cfg.n_layers + 1)
+            * (on["admissions"] + on["steps"])}
+    log(f"kvcache: sharing on: launches {on['launches']}, expected {want} "
+        f"({on['admissions']} admissions, {on['steps']} decode steps)")
+    check(on["launches"] == want,
+          f"sharing-on launches {on['launches']} != {want}")
+    for i, p in enumerate(prompts):
+        same = on["tokens"][i] == off["tokens"][i]
+        log(f"kvcache: request {i} prompt {len(p)} (matched "
+            f"{on['matched'][i]}): ttft on {on['ttft_s'][i] * 1e3:.1f} ms "
+            f"(prefill {on['prefill_s'][i] * 1e3:.1f}), off "
+            f"{off['ttft_s'][i] * 1e3:.1f} ms (prefill "
+            f"{off['prefill_s'][i] * 1e3:.1f}); stream equal {same}"
+            + ("" if same else f": on {on['tokens'][i]} off "
+                               f"{off['tokens'][i]}"))
+    med = {k: sorted(r["ttft_s"][1:])[hits // 2] * 1e3
+           for k, r in runs.items()}
+    log(f"kvcache: TTFT median over the {hits} hits: sharing on "
+        f"{med[True]:.1f} ms, off {med[False]:.1f} ms")
+    _kv_logits(params, cfg, prompts[1])
+    _kv_relay(params, cfg, prompts[:2], off)
+    del params
+    torch.cuda.empty_cache()
+    _kv_tiny()
+    return on["launches"]
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the training path at full width
 # ---------------------------------------------------------------------------
@@ -1027,9 +1560,11 @@ def _step_launches(n_layers: int) -> dict[str, int]:
     """The kernel launches one save_flash training step must make: the
     flash forward once per layer (the replay takes its saved out and lse),
     each backward kernel once per layer, RMSNorm twice per layer plus the
-    final norm in the forward and twice per layer again in the replay."""
+    final norm in the forward and twice per layer again in the replay; K5
+    never (the weights are bf16)."""
     return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
-            "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers + 1}
+            "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers + 1,
+            "int8_matmul": 0}
 
 
 def _forward_launches(n_layers: int) -> dict[str, int]:
@@ -1037,7 +1572,7 @@ def _forward_launches(n_layers: int) -> dict[str, int]:
     the flash forward once per layer, RMSNorm twice per layer plus the
     final norm."""
     return {"flash_fwd": n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "rmsnorm_fwd": 2 * n_layers + 1}
+            "rmsnorm_fwd": 2 * n_layers + 1, "int8_matmul": 0}
 
 
 def phase_train() -> dict[str, int]:
@@ -1329,7 +1864,7 @@ def _serve_from_checkpoint(ckpt_dir: str, params, cfg) -> dict[str, int]:
     want_launches = {"flash_fwd": cfg.n_layers * admissions,
                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                      "rmsnorm_fwd": (2 * cfg.n_layers + 1)
-                     * (admissions + steps)}
+                     * (admissions + steps), "int8_matmul": 0}
     log(f"ckpt: served {len(prompts)} prompts of {CKPT_PROMPT} tokens from "
         f"the checkpoint: launches {launches}, expected {want_launches}")
     check(launches == want_launches,
@@ -1585,8 +2120,8 @@ def phase_ckpt() -> dict[str, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,engine,profile,train,"
-                            "ckpt",
+                    default="build,kernels,serve,engine,profile,quant,"
+                            "kvcache,train,ckpt",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -1624,6 +2159,10 @@ def main(argv=None) -> int:
             phase_engine()
         if "profile" in phases:
             phase_profile(SERVE_CONFIG)
+        if "quant" in phases:
+            launches["quant"] = phase_quant(SERVE_CONFIG)
+        if "kvcache" in phases:
+            launches["kvcache"] = phase_kvcache(SERVE_CONFIG)
         if "train" in phases:
             launches["train"] = phase_train()
             phase_train_parity()

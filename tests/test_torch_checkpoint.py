@@ -145,6 +145,128 @@ def test_index_and_shards_equal_the_jax_packages(tmp_path, dtype):
 
 
 # ---------------------------------------------------------------------------
+# tree.pkl: the JAX package restores and serves what the port wrote
+# ---------------------------------------------------------------------------
+
+def _port_tree(tree):
+    """A JAX state of numpy leaves as the port holds it: tensors for the
+    arrays, the port's namedtuples for optax's, Python numbers kept."""
+    if isinstance(tree, dict):
+        return {k: _port_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = getattr(optim, type(tree).__name__)
+        return cls(*(_port_tree(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_port_tree(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree.view(np.int16).copy()).view(
+            torch.bfloat16) if tree.dtype.name == "bfloat16" else \
+            torch.from_numpy(tree.copy())
+    return tree
+
+
+def _sgd_state():
+    jp = jax.device_get(jllama.llama_init(jllama.get_config("tiny"),
+                                          jax.random.PRNGKey(1)))
+    return {"params": jp, "opt_state": optax.sgd(1e-2).init(jp), "step": 5}
+
+
+def _master_state():
+    state = jax.device_get(_jax_adamw_state(jnp.bfloat16))
+    master = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                          state["params"])
+    return {"params": state["params"], "step": 2,
+            "opt_state": {"inner": state["opt_state"], "master": master}}
+
+
+def _odd_state():
+    return {"b": 1.5, "a": (np.zeros(2, np.float32), None,
+                            [np.ones(3, np.int32), 2]), "n": None, "e": {}}
+
+
+TREES = {"adamw-f32": lambda: jax.device_get(_jax_adamw_state(jnp.float32)),
+         "adamw-bf16": lambda: jax.device_get(
+             _jax_adamw_state(jnp.bfloat16)),
+         "sgd": _sgd_state, "masters": _master_state, "odd": _odd_state}
+
+
+@pytest.mark.parametrize("kind", sorted(TREES))
+def test_tree_pkl_equals_the_jax_packages(tmp_path, kind):
+    """The port's tree.pkl for a state is, byte for byte, the one
+    `tony_tpu.train.checkpoint.save_checkpoint` writes for the same state
+    built from the same numpy arrays (jax 0.9.0 and optax as installed);
+    the JAX package restores the port's checkpoint without a template into
+    that state's structure and leaves, bit for bit. A state with bf16
+    leaves the JAX package restores from neither package: its restore
+    casts the '<V2' shards its own np.save wrote and numpy refuses."""
+    jstate = TREES[kind]()
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jckpt.save_checkpoint(jdir, 3, jstate)
+    ckpt.save_checkpoint(pdir, 3, _port_tree(jstate))
+    with open(os.path.join(jdir, "step_3", "tree.pkl"), "rb") as a, \
+            open(os.path.join(pdir, "step_3", "tree.pkl"), "rb") as b:
+        assert b.read() == a.read()
+    if any(getattr(leaf, "dtype", None) == jnp.bfloat16
+           for leaf in jax.tree.leaves(jstate)):
+        for d in (jdir, pdir):
+            with pytest.raises(ValueError, match="No cast function"):
+                jckpt.restore_checkpoint(d, 3)
+        return
+    back = jckpt.restore_checkpoint(pdir, 3)
+    assert jax.tree.structure(back) == jax.tree.structure(jstate)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(jstate)):
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_jax_restores_a_port_trainer_checkpoint(tmp_path):
+    """A port AdamW state two updates in (f32: see the bf16 case above),
+    saved by the port, restored by the JAX package with and without a
+    template: every leaf bit for bit, the optax counts and the step
+    included."""
+    params, opt = _port_state(torch.float32)
+    for step in range(2):
+        for i, p in enumerate(optim.tree_leaves(params)):
+            g = np.random.RandomState(10 * step + i).standard_normal(
+                p.shape)
+            p.grad = torch.from_numpy(g).to(p.dtype)
+        opt.step()
+    state = {"params": params, "opt_state": opt.tree(), "step": 2}
+    ckpt.save_checkpoint(str(tmp_path), 2, state)
+    template = _jax_adamw_state(jnp.float32)
+    for restored in (jckpt.restore_checkpoint(str(tmp_path), 2),
+                     jckpt.restore_checkpoint(str(tmp_path), 2, template)):
+        assert jax.tree.structure(restored) == jax.tree.structure(template)
+        _assert_same_leaves(state, restored)
+        assert restored["step"] == 2
+        assert int(restored["opt_state"][0].count) == 2
+
+
+def test_jax_server_serves_a_port_checkpoint(tmp_path):
+    """`python -m tony_tpu.serve --checkpoint-dir` loads a checkpoint the
+    port's Trainer layout wrote (tony_tpu/serve/__main__.py:112-120): its
+    greedy tokens are the port's `generate` on the same parameters."""
+    from tony_tpu.models.generate import generate as jax_generate
+    from tony_tpu.serve.__main__ import _load_model, build_arg_parser
+    from tony_tpu_torch.models.generate import generate
+
+    params, opt = _port_state(torch.float32)
+    ckpt.save_checkpoint(str(tmp_path), 4, {
+        "params": params, "opt_state": opt.tree(), "step": 4})
+    jparams, jcfg = _load_model(build_arg_parser().parse_args(
+        ["--config", "tiny", "--checkpoint-dir", str(tmp_path)]))
+    prompt = [5, 17, 3, 250, 9]
+    want = np.asarray(jax_generate(jparams, jcfg, jnp.asarray([prompt]),
+                                   6))[0].tolist()
+    with torch.no_grad():
+        got = generate({k: v.detach() if isinstance(v, torch.Tensor) else
+                        {n: w.detach() for n, w in v.items()}
+                        for k, v in params.items()},
+                       llama.get_config("tiny"), torch.tensor([prompt]),
+                       6)[0].tolist()
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
 # a JAX Trainer's sharded checkpoint, restored and resumed in the port
 # ---------------------------------------------------------------------------
 

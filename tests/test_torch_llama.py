@@ -271,7 +271,8 @@ def test_write_cache_rows_in_place():
     kc = torch.zeros(3, 2, 8, 4)
     vc = torch.zeros(3, 2, 8, 4)
     k = torch.ones(3, 2, 1, 4)
-    generate.write_cache_rows(kc, vc, k, 2 * k, torch.tensor([0, 5, 7]))
+    generate.write_cache_rows(kc, vc, None, k, 2 * k,
+                              torch.tensor([0, 5, 7]))
     for row, off in enumerate((0, 5, 7)):
         assert torch.all(kc[row, :, off] == 1) and torch.all(
             vc[row, :, off] == 2)

@@ -231,15 +231,48 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quant", "int8"], ["--quant-cache"],
-    ["--prefix-sharing", "on"], ["--role", "prefill"],
-    ["--migrate-to", "http://h:1"], ["--kv-pages", "64"],
     ["--config", "moe_tiny"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         build_server(build_arg_parser().parse_args(["--device", "cpu",
                                                     *flags]))
+
+
+def _closed_port_url() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"http://127.0.0.1:{s.getsockname()[1]}"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--quant", "int8"], ["--quant-cache"],
+    ["--prefix-sharing", "on", "--kv-page-size", "4", "--kv-pages", "64"],
+    ["--role", "prefill", "--migrate-to", "CLOSED"], ["--role", "decode"],
+    ["--migrate-to", "http://h:1"], ["--kv-pages", "64"],
+], ids=["quant", "quant-cache", "prefix-sharing", "prefill-role",
+        "decode-role", "migrate-to", "kv-pages"])
+def test_flags_serve_on_cpu(flags):
+    """Each of the server's int8, paged-KV and role flags builds a CPU
+    server that answers a request with the tokens of offline generate (a
+    prefill replica whose decode target is down finishes the request
+    itself)."""
+    flags = [_closed_port_url() if f == "CLOSED" else f for f in flags]
+    server = build_server(build_arg_parser().parse_args(
+        ["--device", "cpu", "--slots", "2", "--token-budget", "32",
+         "--port", "0", "--host", "127.0.0.1", *flags]))
+    try:
+        engine = server.engine
+        prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5]
+        [out] = _post(server.url, {"prompt": prompt, "max_new_tokens": 4})
+        assert out["tokens"] == _oracle(engine.params, engine.config, prompt,
+                                        4, quant_cache=engine.quant_cache)
+        load = engine.load()
+        assert load["role"] == (flags[1] if flags[0] == "--role" else "both")
+        assert ("kv_page_size" in load) == ("--prefix-sharing" in flags)
+    finally:
+        server.stop(drain_timeout=5)
 
 
 def test_serve_from_a_jax_checkpoint_matches_jax_generate(tmp_path):
@@ -335,7 +368,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
     names = names.split(",")
     assert len(names) >= 15
     for module in ("constants", "train.checkpoint", "train.precision",
-                   "train.trainer", "models.convert"):
+                   "train.trainer", "models.convert", "models.quant",
+                   "ops.int8_matmul", "serve.kvcache"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -10,6 +10,10 @@ know. They are carried over by their bits: the array is viewed as int16
 and the tensor viewed back as torch.bfloat16, so every value is kept
 exactly and nothing passes through f32.
 
+An int8 tree (`tony_tpu.models.quant.quantize_params`) converts too: each
+quantized leaf {"int8", "scale"} keeps its int8 values and f32 scales, the
+port's own qtensor (`models/quant.py`).
+
 `empty_params` allocates the parameter tree on a device, for a restore
 (`train/checkpoint.restore_params`) to fill in place.
 """
@@ -23,6 +27,7 @@ import torch
 
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.llama import LlamaConfig, Params
+from tony_tpu_torch.models.quant import is_qtensor
 
 
 def tensor_from_numpy(a: Any, device: torch.device | str) -> torch.Tensor:
@@ -60,15 +65,24 @@ def params_from_jax(tree: dict, config: LlamaConfig,
     device = resolve_device(str(device))
     want = param_shapes(config)
 
-    def leaf(path: str) -> torch.Tensor:
+    def check(path: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, config "
+                             f"wants {shape}")
+        return t
+
+    def leaf(path: str):
         node = tree
         for part in path.split("/"):
             node = node[part]
-        t = tensor_from_numpy(node, device)
-        if tuple(t.shape) != want[path]:
-            raise ValueError(f"{path}: shape {tuple(t.shape)}, config "
-                             f"wants {want[path]}")
-        return t
+        if is_qtensor(node):
+            shape = want[path]
+            return {"int8": check(path, tensor_from_numpy(
+                        node["int8"], device), shape),
+                    "scale": check(path + " scale", tensor_from_numpy(
+                        node["scale"], device),
+                        shape[:-2] + (1, shape[-1]))}
+        return check(path, tensor_from_numpy(node, device), want[path])
 
     return {
         "embed": leaf("embed"),

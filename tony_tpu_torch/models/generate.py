@@ -1,6 +1,6 @@
 """Autoregressive generation for the Llama family: KV-cache decode.
 
-Counterpart of `tony_tpu/models/generate.py`, bf16/f32 caches only:
+Counterpart of `tony_tpu/models/generate.py`:
 
 - **Prefill** runs the prompt through the model with causal flash attention
   over narrow GQA K/V (the flash and RMSNorm kernels on the card) and
@@ -13,9 +13,15 @@ Counterpart of `tony_tpu/models/generate.py`, bf16/f32 caches only:
   against the cache, grouped by GQA head group (K/V never repeated).
 - **Sampling**: greedy, or temperature with optional top-k and top-p; the
   random draws come from a `torch.Generator`.
+- **int8 cache** (`quant_cache=True`): K/V rows stored as per-row int8
+  with f32 scales (..., 1) beside them, "k_scale" and "v_scale", in the
+  JAX layout; `decode_step` finds it by the "k_scale" key and attends to
+  the rows dequantized to f32, as the JAX package does.
+- **int8 weights** (`models/quant.quantize_params`) pass straight through:
+  `models/llama.linear` and `lm_head` route their products.
 
-The logits are f32 (`ops/xent.matmul_f32`). The int8 cache and int8
-weights arrive with the port's quant slice, MoE with its models slice.
+The logits are f32 (`llama.lm_head`). MoE arrives with the port's models
+slice.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ from typing import Optional, Union
 import torch
 
 from tony_tpu_torch.models.llama import (
-    LlamaConfig, Params, embed_lookup, layer_params, matmul_f32, qkv_proj,
-    rope_tables, swiglu_mlp,
+    LlamaConfig, Params, embed_lookup, layer_params, linear, lm_head,
+    qkv_proj, rope_tables, swiglu_mlp,
 )
+from tony_tpu_torch.models.quant import dequantize_rows, quantize_rows
 from tony_tpu_torch.ops.attention import NEG_INF, flash_attention
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope
@@ -36,24 +43,50 @@ Cache = dict[str, torch.Tensor]
 
 
 def empty_cache(config: LlamaConfig, batch: int, cache_len: int,
-                device: torch.device) -> Cache:
-    """Zero cache {"k", "v"}: (L, batch, Hkv, cache_len, hd) each."""
+                device: torch.device, quant_cache: bool = False) -> Cache:
+    """Zero cache {"k", "v"}: (L, batch, Hkv, cache_len, hd) each, in
+    config.dtype, or int8 with f32 scales (..., 1) "k_scale", "v_scale"."""
     shape = (config.n_layers, batch, config.n_kv_heads, cache_len,
              config.head_dim)
+    if quant_cache:
+        scale = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=config.dtype, device=device),
             "v": torch.zeros(shape, dtype=config.dtype, device=device)}
 
 
-def write_cache_rows(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, offsets: torch.Tensor) -> None:
+def _write_rows(dst: torch.Tensor, src: torch.Tensor, rows: torch.Tensor,
+                offsets: torch.Tensor) -> None:
+    for w in range(src.shape[2]):
+        dst[rows, :, offsets + w] = src[:, :, w].to(dst.dtype)
+
+
+def write_cache_rows(kc: torch.Tensor, vc: torch.Tensor, scales,
+                     k: torch.Tensor, v: torch.Tensor,
+                     offsets: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write new K/V rows (B, Hkv, W, hd) into one layer's caches
     (B, Hkv, S, hd) at per-row offsets (B,), in place (where the JAX
-    package returned new arrays from `dynamic_update_slice`). The int8
-    cache and its scales arrive with the quant slice."""
+    package returned new arrays from `dynamic_update_slice`), quantizing
+    them iff `scales` is given ((k_scale, v_scale) of an int8 cache, None
+    for a bf16/f32 one). Returns the attention-ready views (k, v): the
+    caches themselves, or their rows dequantized to f32."""
     rows = torch.arange(k.shape[0], device=k.device)
-    for w in range(k.shape[2]):
-        kc[rows, :, offsets + w] = k[:, :, w].to(kc.dtype)
-        vc[rows, :, offsets + w] = v[:, :, w].to(vc.dtype)
+    if scales is None:
+        _write_rows(kc, k, rows, offsets)
+        _write_rows(vc, v, rows, offsets)
+        return kc, vc
+    ksc, vsc = scales
+    qk, k_s = quantize_rows(k)
+    qv, v_s = quantize_rows(v)
+    for dst, src in ((kc, qk), (vc, qv), (ksc, k_s), (vsc, v_s)):
+        _write_rows(dst, src, rows, offsets)
+    return dequantize_rows(kc, ksc), dequantize_rows(vc, vsc)
 
 
 def _cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -79,21 +112,24 @@ def _cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def prefill(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-            cache_len: int, cache: Optional[Cache] = None
-            ) -> tuple[torch.Tensor, Cache]:
+            cache_len: int, cache: Optional[Cache] = None,
+            quant_cache: bool = False) -> tuple[torch.Tensor, Cache]:
     """Run the prompt through the model; returns last-position logits
     (B, V) f32 and the cache with the prompt's K/V in positions [0, P).
 
     tokens: (B, P) int; cache_len >= P. Without `cache` a zero cache of
-    cache_len positions is made. With one (shape (L, B, Hkv, S, hd), for
-    instance a slot's rows of a shared cache, as views), the prompt's K/V
-    are written into it in place and its positions >= P are left as they
+    cache_len positions is made, int8 with scales when quant_cache. With
+    one (shape (L, B, Hkv, S, hd), for instance a slot's rows of a shared
+    cache, as views; int8 when it holds "k_scale"), the prompt's K/V are
+    written into it in place and its positions >= P are left as they
     were."""
     b, p = tokens.shape
     if p > cache_len:
         raise ValueError(f"prompt {p} exceeds cache_len {cache_len}")
     if cache is None:
-        cache = empty_cache(config, b, cache_len, tokens.device)
+        cache = empty_cache(config, b, cache_len, tokens.device,
+                            quant_cache)
+    quant = "k_scale" in cache
     cos, sin = rope_tables(config, cache_len, tokens.device)
     cos, sin = cos[:p], sin[:p]
     x = embed_lookup(params["embed"], tokens, config)
@@ -105,13 +141,19 @@ def prefill(params: Params, tokens: torch.Tensor, config: LlamaConfig,
         k = apply_rope(k, cos, sin)
         attn = flash_attention(q, k, v, True)
         attn = attn.transpose(1, 2).reshape(b, p, -1)
-        x = x + attn @ layer["wo"]
+        x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
         x = x + swiglu_mlp(h, layer)
-        cache["k"][i, :, :, :p] = k
-        cache["v"][i, :, :, :p] = v
+        if quant:
+            (cache["k"][i, :, :, :p],
+             cache["k_scale"][i, :, :, :p]) = quantize_rows(k)
+            (cache["v"][i, :, :, :p],
+             cache["v_scale"][i, :, :, :p]) = quantize_rows(v)
+        else:
+            cache["k"][i, :, :, :p] = k
+            cache["v"][i, :, :, :p] = v
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = matmul_f32(x[:, -1], params["output"])
+    logits = lm_head(x[:, -1], params["output"])
     return logits, cache
 
 
@@ -121,7 +163,9 @@ def decode_step(params: Params, config: LlamaConfig, cache: Cache,
     """One decode step. token: (B,) int; pos: an int (the position every
     row's token occupies) or (B,) int per-row positions (continuous
     batching: every row an independent request at its own length).
-    Returns (logits (B, V) f32, cache), the cache updated in place."""
+    Returns (logits (B, V) f32, cache), the cache updated in place. An
+    int8 cache is found by its "k_scale" key."""
+    quant = "k_scale" in cache
     cache_len = cache["k"].shape[3]
     device = token.device
     cos, sin = rope_tables(config, cache_len, device)
@@ -141,15 +185,17 @@ def decode_step(params: Params, config: LlamaConfig, cache: Cache,
         q, k, v = qkv_proj(h, layer, config)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        kc, vc = cache["k"][i], cache["v"][i]
-        write_cache_rows(kc, vc, k, v, offsets)
-        attn = _cache_attention(q, kc, vc, cur_len, config)
+        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+                  else None)
+        k_eff, v_eff = write_cache_rows(cache["k"][i], cache["v"][i],
+                                        scales, k, v, offsets)
+        attn = _cache_attention(q, k_eff, v_eff, cur_len, config)
         attn = attn.transpose(1, 2).reshape(b, 1, -1)
-        x = x + attn @ layer["wo"]
+        x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
         x = x + swiglu_mlp(h, layer)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = matmul_f32(x[:, 0], params["output"])
+    logits = lm_head(x[:, 0], params["output"])
     return logits, cache
 
 
@@ -184,11 +230,13 @@ def generate(params: Params, config: LlamaConfig, prompt: torch.Tensor,
              max_new_tokens: int, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0,
              eos_id: Optional[int] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             quant_cache: bool = False) -> torch.Tensor:
     """prompt: (B, P) int -> (B, max_new_tokens) generated tokens.
 
     Greedy when temperature == 0 (generator unused); once a row emits
-    eos_id it keeps emitting eos_id."""
+    eos_id it keeps emitting eos_id. quant_cache keeps the KV cache in
+    per-row int8; int8 weights (`quantize_params`) compose with it."""
     b, p = prompt.shape
     cache_len = p + max_new_tokens
     if cache_len > config.max_seq:
@@ -197,7 +245,8 @@ def generate(params: Params, config: LlamaConfig, prompt: torch.Tensor,
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=prompt.device).manual_seed(0)
     with torch.inference_mode():
-        logits, cache = prefill(params, prompt, config, cache_len)
+        logits, cache = prefill(params, prompt, config, cache_len,
+                                quant_cache=quant_cache)
         tok = _sample(logits, temperature, top_k, generator, top_p)
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]

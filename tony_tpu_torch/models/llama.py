@@ -25,6 +25,10 @@ Counterpart of `tony_tpu/models/llama.py`:
   statistics in f32 (the kernels in `ops/`); the logits are f32
   (`ops/xent.py`'s `matmul_f32`). The large matrix products stay
   `torch.matmul`, as the JAX package left them to XLA.
+- **int8 weights** (`models/quant.py`, inference only): a quantized leaf
+  {"int8", "scale"} takes its products through `linear` and `lm_head`,
+  which route them to `ops/int8_matmul.py` (the W8A16 kernel K5 at decode
+  row counts); a plain tensor leaf takes the same `@` as before.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from tony_tpu_torch.models.quant import is_qtensor
 from tony_tpu_torch.ops.attention import flash_attention
+from tony_tpu_torch.ops.int8_matmul import int8_matmul
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from tony_tpu_torch.ops.xent import fused_cross_entropy, matmul_f32
@@ -182,9 +188,16 @@ def llama_init(config: LlamaConfig, generator: torch.Generator) -> Params:
             "output": normal((d, config.vocab_size), scale_in)}
 
 
+def _layer_slice(w, i: int):
+    """Layer i of a stacked leaf: a view, of both halves of a qtensor."""
+    if is_qtensor(w):
+        return {"int8": w["int8"][i], "scale": w["scale"][i]}
+    return w[i]
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer i's weights: views into the stacked tensors, no copy."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    return {name: _layer_slice(w, i) for name, w in params["layers"].items()}
 
 
 def layer_params_for_grad(params: Params) -> list[Params]:
@@ -196,14 +209,15 @@ def layer_params_for_grad(params: Params) -> list[Params]:
     slice (AccumulateGrad adds into a defined `.grad`), and nothing is
     summed over the stack. The stacked weight itself stays out of the
     graph; its `.grad` is the gradient. Any other weight (inference,
-    frozen weights) hands each layer its plain `w[i]` view."""
-    n = next(iter(params["layers"].values())).shape[0]
+    frozen weights, int8 weights) hands each layer its plain `w[i]`
+    view."""
+    n = params["layers"]["attn_norm"].shape[0]
     layers: list[Params] = [{} for _ in range(n)]
     grad_mode = torch.is_grad_enabled()
     for name, w in params["layers"].items():
-        if not (grad_mode and w.requires_grad):
+        if is_qtensor(w) or not (grad_mode and w.requires_grad):
             for i in range(n):
-                layers[i][name] = w[i]
+                layers[i][name] = _layer_slice(w, i)
             continue
         if w.grad is None:
             w.grad = torch.zeros_like(w)
@@ -230,6 +244,21 @@ def rope_tables(config: LlamaConfig, seq: int,
         device=device)
 
 
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a layer weight: a plain tensor, or an int8 qtensor whose
+    product is `int8_matmul`'s (the result in x's dtype either way)."""
+    if is_qtensor(w):
+        return int8_matmul(x, w)
+    return x @ w
+
+
+def lm_head(x: torch.Tensor, w) -> torch.Tensor:
+    """The f32 logits x @ w of the output head, plain or int8."""
+    if is_qtensor(w):
+        return int8_matmul(x, w, out_f32=True)
+    return matmul_f32(x, w)
+
+
 def qkv_proj(h: torch.Tensor, layer: Params, config: LlamaConfig
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, S, D) -> q (B,H,S,hd), k/v (B,Hkv,S,hd), pre-RoPE. The results
@@ -237,17 +266,17 @@ def qkv_proj(h: torch.Tensor, layer: Params, config: LlamaConfig
     flash kernel reads them through their strides."""
     b, s, _ = h.shape
     nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    q = (h @ layer["wq"]).view(b, s, nh, hd).transpose(1, 2)
-    k = (h @ layer["wk"]).view(b, s, nkv, hd).transpose(1, 2)
-    v = (h @ layer["wv"]).view(b, s, nkv, hd).transpose(1, 2)
+    q = linear(h, layer["wq"]).view(b, s, nh, hd).transpose(1, 2)
+    k = linear(h, layer["wk"]).view(b, s, nkv, hd).transpose(1, 2)
+    v = linear(h, layer["wv"]).view(b, s, nkv, hd).transpose(1, 2)
     return q, k, v
 
 
 def swiglu_mlp(h: torch.Tensor, layer: Params) -> torch.Tensor:
     """SwiGLU feed-forward."""
-    gate = h @ layer["w_gate"]
-    up = h @ layer["w_up"]
-    return (F.silu(gate) * up) @ layer["w_down"]
+    gate = linear(h, layer["w_gate"])
+    up = linear(h, layer["w_up"])
+    return linear(F.silu(gate) * up, layer["w_down"])
 
 
 def attention_sublayer(h: torch.Tensor, layer: Params, config: LlamaConfig,
@@ -260,7 +289,7 @@ def attention_sublayer(h: torch.Tensor, layer: Params, config: LlamaConfig,
     attn = flash_attention(q, k, v, True)
     attn = attn.transpose(1, 2).reshape(b, s, config.n_heads
                                         * config.head_dim)
-    return attn @ layer["wo"]
+    return linear(attn, layer["wo"])
 
 
 def _block(config: LlamaConfig, cos, sin, x: torch.Tensor,
@@ -289,7 +318,8 @@ def llama_hidden(params: Params, tokens: torch.Tensor,
     block = partial(_block, config, cos, sin)
     layers = layer_params_for_grad(params)
     remat_kwargs = None
-    if config.remat and any(w.requires_grad for w in layers[0].values()):
+    if config.remat and any(isinstance(w, torch.Tensor) and w.requires_grad
+                            for w in layers[0].values()):
         context_fn = config.checkpoint_policy()
         remat_kwargs = {} if context_fn is None else {"context_fn": context_fn}
     for layer in layers:
@@ -306,7 +336,7 @@ def llama_forward(params: Params, tokens: torch.Tensor,
     """tokens: (B, S) int -> logits (B, S, vocab) in f32."""
     with torch.inference_mode():
         x = llama_hidden(params, tokens, config)
-        return matmul_f32(x, params["output"])
+        return lm_head(x, params["output"])
 
 
 # ---------------------------------------------------------------------------

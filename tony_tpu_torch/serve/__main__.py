@@ -10,16 +10,18 @@ The flags are the JAX entry point's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels).
 ``--checkpoint-dir`` serves the parameters of the latest step there, as
 the port's or the JAX package's Trainer wrote it, loaded onto the serving
-device. Flags for what this slice does not port raise
-NotImplementedError naming the slice that brings it:
-``--quant``/``--quant-cache`` (quant), prefix sharing, the prefill/decode
-roles, ``--migrate-to`` and the KV page knobs (kvcache), MoE presets
-(models). Orchestrator wiring (AM endpoint registration, the metrics
-reporter, the profiler and the frozen conf file) lives in ``tony_tpu``,
-which the port does not import; here the knobs come from the flags, with
-the JAX package's defaults, and from the ``SERVING_PORT``,
-``TONY_SERVING_ROLE`` and ``TONY_SERVING_WEIGHTS_GENERATION`` environment
-variables.
+device. ``--quant int8`` quantizes the weights (decode products on the
+W8A16 kernel), ``--quant-cache`` keeps the KV cache in int8,
+``--prefix-sharing on`` (with ``--kv-page-size``/``--kv-pages``) admits
+through the paged prefix pool, ``--role prefill --migrate-to URL,...``
+hands each request's decode to a ``--role decode`` replica over
+``/v1/migrate``. MoE presets raise NotImplementedError (the port's models
+slice). Orchestrator wiring (AM endpoint registration, the metrics
+reporter, the profiler, the frozen conf file and its ``tony.serving.*``
+fallbacks) lives in ``tony_tpu``, which the port does not import; here
+the knobs come from the flags, with the JAX package's defaults, and from
+the ``SERVING_PORT``, ``TONY_SERVING_ROLE`` and
+``TONY_SERVING_WEIGHTS_GENERATION`` environment variables.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ LOG = logging.getLogger(__name__)
 DEFAULT_SLOTS = 4
 DEFAULT_QUEUE_DEPTH = 64
 DEFAULT_TOKEN_BUDGET = 2048
+DEFAULT_KV_PAGE_SIZE = 16
 DRAIN_TIMEOUT_S = 10.0
 INIT_SEED = 0
 
@@ -54,9 +57,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="serve the params of the latest checkpoint step "
                         "there")
     p.add_argument("--quant", default="", choices=("", "int8"),
-                   help="int8 weight-only decode (not yet ported)")
+                   help="int8 weight-only decode (models/quant.py)")
     p.add_argument("--quant-cache", action="store_true",
-                   help="per-row int8 KV cache (not yet ported)")
+                   help="per-row int8 KV cache for the shared slot cache")
     p.add_argument("--slots", type=int, default=0,
                    help=f"decode slots (0 = {DEFAULT_SLOTS})")
     p.add_argument("--token-budget", type=int, default=0,
@@ -80,39 +83,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--role", default="",
                    choices=("", "both", "prefill", "decode"),
                    help="disaggregated serving role ('' = "
-                        "$TONY_SERVING_ROLE, else both); only 'both' is "
-                        "ported")
+                        "$TONY_SERVING_ROLE, else both)")
     p.add_argument("--migrate-to", default="",
-                   help="decode-replica base URLs (not yet ported)")
+                   help="comma-separated decode-replica base URLs a "
+                        "prefill replica hands decode work to")
     p.add_argument("--prefix-sharing", default="",
                    choices=("", "on", "off"),
-                   help="paged prefix-shared KV admission (only 'off' is "
-                        "ported)")
+                   help="paged prefix-shared KV admission ('' = off)")
     p.add_argument("--kv-page-size", type=int, default=0,
-                   help="tokens per KV page (not yet ported)")
+                   help=f"tokens per KV page (0 = {DEFAULT_KV_PAGE_SIZE})")
     p.add_argument("--kv-pages", type=int, default=0,
-                   help="device page-pool size (not yet ported)")
+                   help="device page-pool size incl. scratch (0 = one full "
+                        "prefix per slot)")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for every flag this slice does not port."""
-    role = args.role or os.environ.get("TONY_SERVING_ROLE", "") or "both"
-    unported = [
-        (args.quant == "int8", "--quant int8", "the quant slice"),
-        (args.quant_cache, "--quant-cache", "the quant slice"),
-        (args.prefix_sharing == "on", "--prefix-sharing on",
-         "the kvcache slice"),
-        (role != "both", f"role {role!r}", "the kvcache slice"),
-        (bool(args.migrate_to), "--migrate-to", "the kvcache slice"),
-        (args.kv_page_size > 0, "--kv-page-size", "the kvcache slice"),
-        (args.kv_pages > 0, "--kv-pages", "the kvcache slice"),
-    ]
-    for hit, what, slice_name in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to tony_tpu_torch yet; it arrives "
-                f"with {slice_name} (ROADMAP.md, queue 1)")
 
 
 def _load_model(args, device):
@@ -135,10 +118,15 @@ def _load_model(args, device):
                                 empty_params(config, device))
         LOG.info("restored checkpoint step %d from %s", step,
                  args.checkpoint_dir)
-        return params, config
-    generator = torch.Generator(device=device).manual_seed(INIT_SEED)
-    with torch.inference_mode():
-        params = llama_init(config, generator)
+    else:
+        generator = torch.Generator(device=device).manual_seed(INIT_SEED)
+        with torch.inference_mode():
+            params = llama_init(config, generator)
+    if args.quant == "int8":
+        from tony_tpu_torch.models.quant import quantize_params
+        with torch.inference_mode():
+            params = quantize_params(params)
+        LOG.info("int8 weight-only params")
     return params, config
 
 
@@ -177,7 +165,6 @@ class Server:
 def build_server(args) -> Server:
     """Model, engine and frontend from parsed flags, started. The one
     place `main()` and `chip_smoke.py` build a server."""
-    _refuse_unported(args)
     from tony_tpu_torch.device import resolve_device
     from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
     from tony_tpu_torch.serve.frontend import ServeFrontend
@@ -191,15 +178,23 @@ def build_server(args) -> Server:
         port = int(os.environ.get("SERVING_PORT", "0") or 0)
     weights_generation = args.weights_generation or int(
         os.environ.get("TONY_SERVING_WEIGHTS_GENERATION", "0") or 0)
+    role = args.role or os.environ.get("TONY_SERVING_ROLE", "") or "both"
+    migrate_targets = [u.strip() for u in args.migrate_to.split(",")
+                       if u.strip()]
     engine = ContinuousBatchingEngine(
         params, config, n_slots=args.slots or DEFAULT_SLOTS,
         token_budget=token_budget,
         queue_depth=args.queue_depth or DEFAULT_QUEUE_DEPTH,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         eos_id=args.eos_id if args.eos_id >= 0 else None,
-        weights_generation=weights_generation)
+        quant_cache=args.quant_cache,
+        weights_generation=weights_generation,
+        prefix_sharing=args.prefix_sharing == "on",
+        kv_page_size=args.kv_page_size or DEFAULT_KV_PAGE_SIZE,
+        kv_pages=args.kv_pages, role=role)
     engine.start()
-    frontend = ServeFrontend(engine, port=port, host=args.host)
+    frontend = ServeFrontend(engine, port=port, host=args.host,
+                             migrate_targets=migrate_targets)
     frontend.start()
     host = args.host if args.host not in ("", "0.0.0.0") else current_host()
     return Server(engine, frontend, f"http://{host}:{frontend.port}")

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the KV-cache decode core.
 
-Counterpart of `tony_tpu/serve/engine.py` (prefix sharing off, role
-"both"). Requests flow through fixed shapes:
+Counterpart of `tony_tpu/serve/engine.py`. Requests flow through fixed
+shapes:
 
 - **Admission**: a request is admitted by prefilling its prompt (batch 1,
   the same `prefill` the offline path uses), which writes the prompt's K/V
@@ -19,14 +19,33 @@ Counterpart of `tony_tpu/serve/engine.py` (prefix sharing off, role
   and overwritten by that occupant's decode writes, so recycling needs no
   cache scrubbing.
 
+Composes with the offline path's levers: the int8 KV cache
+(`quant_cache`, the shared `write_cache_rows`) and int8 weights
+(quantized params pass straight through).
+
+Prefix sharing (`prefix_sharing=True`, serve/kvcache.py): admission first
+gathers the radix-indexed pages of the prompt's longest known prefix into
+the slot on the device, then prefills only the unmatched suffix
+(`prefill_suffix`), and seals the newly computed complete blocks into the
+page pool for the next sharer. An admission that matches no page prefills
+as with sharing off (the flash kernel), where the JAX package runs its
+suffix prefill from position 0; the greedy streams are the same either
+way. Decode is untouched.
+
+Disaggregation: `role="prefill"` engines admit with `migrate_out=True`
+and, instead of decoding, extract the slot's K/V and sampler state into
+`handle.migration` (finish_reason "migrated"); a `role="decode"` engine
+installs it with `submit_migration()` and decodes from the transplanted
+bytes, so greedy decode across a migrate is bit-identical to decoding
+locally.
+
 Sampling: greedy (`temperature=0`) is the contract, equal to offline
 greedy. Temperature/top-k/top-p are engine-wide settings; sampled streams
 draw from one engine `torch.Generator` seeded with SAMPLING_SEED at
 construction, in admission and step order.
 
-Not in this slice: the int8 KV cache, prefix sharing and prefill/decode
-disaggregation (the port's kvcache slice), and the profiler beacon on the
-loop thread (the port's observability slice).
+Not in this slice: the profiler beacon on the loop thread (the port's
+observability slice).
 """
 
 from __future__ import annotations
@@ -47,6 +66,7 @@ from tony_tpu_torch.models.generate import (
     _sample, decode_step, empty_cache, prefill,
 )
 from tony_tpu_torch.models.llama import LlamaConfig, Params
+from tony_tpu_torch.serve import kvcache as kvc
 
 LOG = logging.getLogger(__name__)
 
@@ -79,8 +99,18 @@ class RequestHandle:
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.tokens: list[int] = []
-        # "eos" | "length" | "shutdown" | "cancelled"
+        # "eos" | "length" | "shutdown" | "cancelled" | "migrated"
         self.finish_reason: Optional[str] = None
+        # disaggregation: migrate_out marks a prefill-role request whose
+        # decode is handed off; on finish_reason "migrated", `migration`
+        # holds {"meta", "leaves"} for pack_migration. On the decode side,
+        # `install` carries the unpacked payload until the stepper
+        # installs it into a slot.
+        self.migrate_out = False
+        self.migration: Optional[dict] = None
+        self.install: Optional[dict] = None
+        # prefix tokens whose K/V came from the page pool at admission
+        self.kv_matched_tokens = 0
         self.submitted_at = time.monotonic()
         self.admitted_at: Optional[float] = None
         self.first_token_at: Optional[float] = None
@@ -181,6 +211,10 @@ class EngineStats:
         default_factory=lambda: collections.deque(maxlen=512))
     prefill_s: collections.deque = field(
         default_factory=lambda: collections.deque(maxlen=512))
+    # requests handed off to a decode replica (prefill role) / adopted
+    # from a prefill replica (decode role)
+    migrated_out: int = 0
+    migrated_in: int = 0
 
 
 def _percentile(samples, q: float) -> Optional[float]:
@@ -213,7 +247,10 @@ class ContinuousBatchingEngine:
                  n_slots: int = 4, token_budget: int = 0,
                  queue_depth: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
-                 eos_id: Optional[int] = None, weights_generation: int = 0):
+                 eos_id: Optional[int] = None, quant_cache: bool = False,
+                 weights_generation: int = 0,
+                 prefix_sharing: bool = False, kv_page_size: int = 16,
+                 kv_pages: int = 0, role: str = "both"):
         if token_budget <= 0:
             token_budget = config.max_seq
         if token_budget > config.max_seq:
@@ -234,7 +271,21 @@ class ContinuousBatchingEngine:
         self.top_k = top_k
         self.top_p = top_p
         self.eos_id = eos_id
-        self._cache = empty_cache(config, n_slots, token_budget, self.device)
+        self.quant_cache = quant_cache
+        # disaggregated serving role: "prefill" replicas migrate decode
+        # work out after admission, "decode" replicas accept /v1/migrate
+        # installs, "both" is the monolithic replica
+        self.role = role if role in ("prefill", "decode", "both") else "both"
+        self._cache = empty_cache(config, n_slots, token_budget, self.device,
+                                  quant_cache)
+        # paged prefix-shared KV pool (serve/kvcache.py); None = sharing off
+        self.kv_pool: Optional[kvc.KVPagePool] = None
+        if prefix_sharing:
+            self.kv_pool = kvc.KVPagePool(
+                config, token_budget=token_budget,
+                page_size=kv_page_size if kv_page_size > 0 else 16,
+                n_pages=kv_pages, n_slots=n_slots, quant_cache=quant_cache,
+                device=self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(
             SAMPLING_SEED)
         # host mirrors of the per-slot device state; uploaded per step
@@ -256,11 +307,16 @@ class ContinuousBatchingEngine:
         self.on_request_finished: Optional[Callable] = None
 
     # -- intake ---------------------------------------------------------
-    def submit(self, prompt: list[int], max_new_tokens: int
-               ) -> RequestHandle:
+    def submit(self, prompt: list[int], max_new_tokens: int,
+               migrate_out: bool = False) -> RequestHandle:
         """Enqueue a request. Raises BudgetExceededError when it can never
         fit a slot, QueueFullError when the bounded queue (or its token
-        budget) is full, DrainingError while draining."""
+        budget) is full, DrainingError while draining.
+
+        migrate_out=True (prefill-role frontends): after admission
+        computes the prompt's K/V and first token, the request finishes
+        with reason "migrated" and `handle.migration` carries the decode
+        handoff instead of decoding here."""
         if max_new_tokens < 1:
             raise BudgetExceededError("max_new_tokens must be >= 1")
         if not prompt:
@@ -274,6 +330,62 @@ class ContinuousBatchingEngine:
             raise BudgetExceededError(
                 f"prompt {len(prompt)} + max_new {max_new_tokens} exceeds "
                 f"the per-slot token budget {self.token_budget}")
+        handle = RequestHandle(next(self._next_id), list(prompt),
+                               max_new_tokens)
+        handle.migrate_out = bool(migrate_out)
+        return self._enqueue(handle, need)
+
+    def submit_migration(self, meta: dict,
+                         leaves: dict[str, torch.Tensor]) -> RequestHandle:
+        """Adopt a migrated request from a prefill replica: check the K/V
+        payload against this engine's cache layout and enqueue it; the
+        stepper installs it into a slot with `install_rows` (no prefill is
+        paid here). The same backpressure as submit()."""
+        try:
+            prompt = [int(t) for t in meta.get("prompt") or []]
+            max_new = int(meta.get("max_new_tokens", 0))
+            pos = int(meta.get("pos", -1))
+            tok0 = int(meta.get("tok0", -1))
+            emitted = int(meta.get("emitted", 1))
+        except (TypeError, ValueError):
+            raise BudgetExceededError("invalid migration metadata") from None
+        if not prompt or max_new < 1:
+            raise BudgetExceededError("invalid migration metadata")
+        vocab = self.config.vocab_size
+        if any(t < 0 or t >= vocab for t in prompt + [tok0]):
+            raise BudgetExceededError(
+                f"migration carries token ids outside [0, {vocab})")
+        if pos != len(prompt):
+            raise BudgetExceededError(
+                f"migration pos {pos} != prompt length {len(prompt)}")
+        need = len(prompt) + max_new
+        if need > self.token_budget:
+            raise BudgetExceededError(
+                f"migrated prompt {len(prompt)} + max_new {max_new} "
+                f"exceeds the per-slot token budget {self.token_budget}")
+        if set(leaves) != set(self._cache):
+            raise BudgetExceededError(
+                f"migration cache layout mismatch: payload "
+                f"{sorted(leaves)}, serving {sorted(self._cache)}")
+        for name, arr in self._cache.items():
+            l, _, h, _, d = arr.shape
+            leaf = leaves[name]
+            if tuple(leaf.shape) != (l, h, pos, d):
+                raise BudgetExceededError(
+                    f"migration leaf {name} shape {tuple(leaf.shape)} != "
+                    f"{(l, h, pos, d)}")
+            if leaf.dtype != arr.dtype:
+                raise BudgetExceededError(
+                    f"migration leaf {name} dtype {leaf.dtype} != "
+                    f"{arr.dtype}")
+        handle = RequestHandle(next(self._next_id), prompt, max_new)
+        handle.install = {"pos": pos, "tok0": tok0, "emitted": emitted,
+                          "leaves": leaves}
+        return self._enqueue(handle, need)
+
+    def _enqueue(self, handle: RequestHandle, need: int) -> RequestHandle:
+        """Queue a checked request under the draining, stop, depth and
+        queued-token bounds."""
         if self._draining.is_set():
             raise DrainingError("engine is draining")
         with self._lock:
@@ -290,8 +402,6 @@ class ContinuousBatchingEngine:
                     f"({self._pending_tokens} of "
                     f"{self.queue_token_budget} tokens pending)")
             self.stats.requests_submitted += 1
-            handle = RequestHandle(next(self._next_id), list(prompt),
-                                   max_new_tokens)
             self._pending.append(handle)
             self._pending_tokens += need
             self.stats.queue_depth_max = max(self.stats.queue_depth_max,
@@ -342,16 +452,22 @@ class ContinuousBatchingEngine:
         state, weights generation. Lock-free: a momentarily stale count
         only costs one slightly uneven routing decision."""
         active = sum(1 for s in self._slots if s.handle is not None)
-        return {
+        load = {
             "queue_depth": len(self._pending),
             "slots_free": max(0, self.n_slots - active),
             "active_slots": active,
             "n_slots": self.n_slots,
             "draining": self._draining.is_set(),
             "weights_generation": self.weights_generation,
-            "role": "both",
+            "role": self.role,
             "token_budget": self.token_budget,
         }
+        pool = self.kv_pool
+        if pool is not None:
+            # page-pool headroom and advertised prefix hashes (plain ints
+            # and an atomically swapped tuple: still lock-free)
+            load.update(pool.load_fields())
+        return load
 
     # -- stepping -------------------------------------------------------
     @torch.inference_mode()
@@ -410,7 +526,10 @@ class ContinuousBatchingEngine:
                 handle._finish("cancelled", time.monotonic())
                 admitted = True
                 continue
-            self._admit(free, handle)
+            if handle.install is not None:
+                self._admit_migrated(free, handle)
+            else:
+                self._admit(free, handle)
             admitted = True
 
     def _admit(self, slot: _Slot, handle: RequestHandle) -> None:
@@ -418,14 +537,50 @@ class ContinuousBatchingEngine:
         # until the first sampled token reaches the host is the prefill
         t_dequeue = time.monotonic()
         handle.queue_wait_s = t_dequeue - handle.submitted_at
-        prompt = torch.tensor([handle.prompt], dtype=torch.long,
-                              device=self.device)
         i = slot.index
-        rows = {name: arr[:, i:i + 1] for name, arr in self._cache.items()}
-        logits, _ = prefill(self.params, prompt, self.config,
-                            self.token_budget, cache=rows)
+        pool = self.kv_pool
+        hashes: list[str] = []
+        depth = 0
+        if pool is not None:
+            # the longest indexed prefix, capped so that at least one
+            # suffix token is left to give the logits
+            hashes = kvc.chain_hashes(handle.prompt, pool.page_size)
+            usable = (len(handle.prompt) - 1) // pool.page_size
+            page_ids, depth = pool.match(hashes[:usable])
+        start = depth * pool.page_size if depth else 0
+        if depth:
+            table = torch.full((pool.blocks_per_slot,), kvc.SCRATCH_PAGE,
+                               dtype=torch.long)
+            table[:depth] = torch.tensor(page_ids)
+            kvc.gather_pages(self._cache, pool.pool, table.to(self.device),
+                             i)
+            suffix = torch.tensor(handle.prompt[start:], dtype=torch.long,
+                                  device=self.device)
+            logits, _ = kvc.prefill_suffix(self.params, self.config,
+                                           self._cache, suffix, start, i)
+        else:
+            prompt = torch.tensor([handle.prompt], dtype=torch.long,
+                                  device=self.device)
+            rows = {name: arr[:, i:i + 1]
+                    for name, arr in self._cache.items()}
+            logits, _ = prefill(self.params, prompt, self.config,
+                                self.token_budget, cache=rows)
         tok0 = int(_sample(logits, self.temperature, self.top_k,
                            self._generator, self.top_p)[0])
+        if pool is not None:
+            # the slot holds the whole prompt's K/V: seal the complete
+            # blocks the index lacks, release the admission's pin and
+            # count the reuse
+            self._seal_prefix(slot, handle, hashes, depth)
+            if depth:
+                pool.unpin(hashes[depth - 1])
+            pool.hit_tokens += start
+            pool.miss_tokens += len(handle.prompt) - start
+            if start:
+                pool.req_hits += 1
+            else:
+                pool.req_misses += 1
+        handle.kv_matched_tokens = start
         now = time.monotonic()
         handle.prefill_s = now - t_dequeue
         handle.admitted_at = now
@@ -442,10 +597,106 @@ class ContinuousBatchingEngine:
             self.stats.ttft_s.append(now - handle.submitted_at)
             self.stats.queue_wait_s.append(handle.queue_wait_s)
             self.stats.prefill_s.append(handle.prefill_s)
-        LOG.debug("admitted request %d into slot %d (prompt %d, max_new "
-                  "%d)", handle.request_id, i, len(handle.prompt),
-                  handle.max_new_tokens)
+        LOG.debug("admitted request %d into slot %d (prompt %d, matched %d, "
+                  "max_new %d)", handle.request_id, i, len(handle.prompt),
+                  start, handle.max_new_tokens)
+        if handle.migrate_out:
+            done = ((self.eos_id is not None and tok0 == self.eos_id)
+                    or handle.max_new_tokens <= 1)
+            if not done:
+                # hand the decode off: the slot's K/V rows [0, pos) and
+                # the sampler state, then free the slot at once (the
+                # frontend relays the payload to a decode replica)
+                handle.migration = self._extract_migration(slot, handle,
+                                                           tok0)
+                with self._lock:
+                    self.stats.migrated_out += 1
+                self._finish_slot(slot, "migrated", now)
+                return
         self._maybe_finish(slot, tok0, now)
+
+    def _seal_prefix(self, slot: _Slot, handle: RequestHandle,
+                     hashes: list[str], depth: int) -> None:
+        """Copy the slot's complete blocks past the matched depth into pool
+        pages and index them. When every page is pinned or interior the
+        rest is not sealed: reuse degrades, correctness never."""
+        pool = self.kv_pool
+        n_complete = min(len(handle.prompt) // pool.page_size,
+                         pool.blocks_per_slot)
+        if n_complete <= depth:
+            return
+        table = torch.full((pool.blocks_per_slot,), kvc.SCRATCH_PAGE,
+                           dtype=torch.long)
+        parent = hashes[depth - 1] if depth else ""
+        newly: list[str] = []
+        for b in range(depth, n_complete):
+            digest = hashes[b]
+            if pool.has(digest):
+                parent = digest
+                continue
+            pid = pool.allocate()
+            if pid is None:
+                break
+            pool.register(parent, digest, pid, b + 1)
+            # pinned until its bytes are sealed: allocate() for a later
+            # block must not evict it and hand its page out twice
+            pool.pin(digest)
+            table[b] = pid
+            newly.append(digest)
+            parent = digest
+        if newly:
+            kvc.seal_pages(pool.pool, self._cache, table.to(self.device),
+                           slot.index)
+            for digest in newly:
+                pool.unpin(digest)
+
+    def _extract_migration(self, slot: _Slot, handle: RequestHandle,
+                           tok0: int) -> dict:
+        """Host copies of the slot's K/V rows [0, pos) and the sampler
+        state a decode replica needs to continue where this admission
+        stopped (tok0's own K/V is written by the first decode step, there
+        as here)."""
+        leaves = {name: arr[:, slot.index, :, :slot.pos].to("cpu")
+                  .contiguous() for name, arr in self._cache.items()}
+        meta = {"prompt": list(handle.prompt),
+                "max_new_tokens": handle.max_new_tokens,
+                "pos": int(slot.pos), "tok0": int(tok0), "emitted": 1}
+        return {"meta": meta, "leaves": leaves}
+
+    def _admit_migrated(self, slot: _Slot, handle: RequestHandle) -> None:
+        """Install a migrated-in request: its rows zero-padded to the full
+        budget, one `install_rows`, decode resumed at pos. tok0 was already
+        streamed to the client by the prefill replica: it is not pushed
+        again; it is the next decode step's input."""
+        t_dequeue = time.monotonic()
+        handle.queue_wait_s = t_dequeue - handle.submitted_at
+        install, handle.install = handle.install, None
+        pos = install["pos"]
+        rows = {}
+        for name, arr in self._cache.items():
+            l, _, h, s, d = arr.shape
+            full = torch.zeros((l, 1, h, s, d), dtype=arr.dtype,
+                               device=self.device)
+            full[:, 0, :, :pos] = install["leaves"][name].to(self.device)
+            rows[name] = full
+        kvc.install_rows(self._cache, rows, slot.index)
+        now = time.monotonic()
+        handle.prefill_s = now - t_dequeue
+        handle.admitted_at = now
+        slot.handle = handle
+        slot.pos = pos
+        slot.emitted = install["emitted"]
+        slot.last_emit_at = now
+        self._pos_np[slot.index] = pos
+        self._tokens_np[slot.index] = install["tok0"]
+        with self._lock:
+            self.stats.queue_wait_s.append(handle.queue_wait_s)
+            self.stats.prefill_s.append(handle.prefill_s)
+            self.stats.migrated_in += 1
+        LOG.debug("installed migrated request %d into slot %d (pos %d)",
+                  handle.request_id, slot.index, pos)
+        if slot.emitted >= handle.max_new_tokens:
+            self._finish_slot(slot, "length", now)
 
     def _maybe_finish(self, slot: _Slot, token: int, now: float) -> None:
         """Per-slot eos/length latch + immediate slot recycling."""
@@ -542,9 +793,13 @@ class ContinuousBatchingEngine:
                 "token_budget": self.token_budget,
                 "draining": self._draining.is_set(),
                 "weights_generation": self.weights_generation,
-                "role": "both",
+                "role": self.role,
+                "migrated_out_total": self.stats.migrated_out,
+                "migrated_in_total": self.stats.migrated_in,
                 "device": str(self.device),
             }
+            if self.kv_pool is not None:
+                snap.update(self.kv_pool.stats_fields())
             itl = _percentile(self.stats.itl_s, 0.50)
             if itl is not None:
                 snap["itl_p50_ms"] = itl * 1000.0
@@ -574,6 +829,15 @@ class ContinuousBatchingEngine:
             "prefill_s_p95": "SERVING_PREFILL_P95_S",
             "decode_ms_per_token_p50": "SERVING_DECODE_P50_MS",
             "decode_ms_per_token_p95": "SERVING_DECODE_P95_MS",
+            # paged-KV reuse and disaggregation (absent with sharing off:
+            # filtered below)
+            "kv_hit_total": "SERVING_KV_HIT_TOTAL",
+            "kv_miss_total": "SERVING_KV_MISS_TOTAL",
+            "kv_evict_total": "SERVING_KV_EVICT_TOTAL",
+            "kv_occupancy_pct": "SERVING_KV_OCCUPANCY_PCT",
+            "kv_hit_rate_pct": "SERVING_KV_HIT_RATE_PCT",
+            "migrated_out_total": "SERVING_MIGRATED_OUT_TOTAL",
+            "migrated_in_total": "SERVING_MIGRATED_IN_TOTAL",
         }
         snap = self.snapshot()
         return [{"name": metric, "value": float(snap[key])}

@@ -17,11 +17,16 @@ checkpoint written by either package reads back in the other:
 - bf16 has no numpy dtype here: a bf16 shard is written and read by its
   bits, under the header the JAX package's `np.save` gives an
   `ml_dtypes.bfloat16` array (`'<V2'`), and `index.json` says "bfloat16".
-- `tree.json` (the key path of every leaf) takes the place of the JAX
-  package's `tree.pkl`, a pickled jax treedef that cannot be read without
-  jax. It is what `restore_checkpoint(..., template=None)` rebuilds the
-  tree from, so a JAX-written checkpoint (only `tree.pkl`) is restored
-  through a template.
+- `tree.json` (the key path of every leaf) is what the port's
+  `restore_checkpoint(..., template=None)` rebuilds the tree from, so a
+  JAX-written checkpoint (only `tree.pkl`) is restored through a
+  template.
+- `tree.pkl`, beside it, is the JAX package's file: the pickled jax
+  treedef its restore opens, with or without a template. Pickling a
+  treedef needs jax, so `_treedef_pickle` writes the pickle's opcodes by
+  hand, as jax 0.9.0's own pickler lays them out (a `PyTreeDef` rebuilt
+  from jax's default registry and one tuple per node, in post-order), and
+  names each optax state class by optax's module path.
 
 Restore reads shard files mmap-backed and pastes the regions each leaf
 needs, so a JAX checkpoint written from a sharded mesh (several shard
@@ -47,6 +52,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import threading
 from typing import Any, Optional
 
@@ -57,6 +63,7 @@ LOG = logging.getLogger(__name__)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _TREE_FILE = "tree.json"
+_TREEDEF_FILE = "tree.pkl"
 _INDEX_FILE = "index.json"
 _MANIFEST_RE = re.compile(r"^manifest_p(\d+)\.json$")
 # the header descr the JAX package's np.save gives an ml_dtypes.bfloat16
@@ -79,7 +86,9 @@ def _check_local(ckpt_dir: str) -> None:
 def _children(node) -> Optional[list[tuple[str, Any]]]:
     """(key, child) pairs of a container in jax's flatten order, or None
     for a leaf: dicts by sorted key, namedtuples by field, tuples and
-    lists by position."""
+    lists by position; None is a node without children, as in jax."""
+    if node is None:
+        return []
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -101,6 +110,8 @@ def flatten_with_paths(tree) -> list[tuple[tuple[str, ...], Any]]:
 def _rebuild(template, leaves) -> Any:
     """`template`'s structure with its leaves, in flatten order, replaced
     from the iterator `leaves`."""
+    if template is None:
+        return None
     if isinstance(template, dict):
         new = {k: None for k in template}
         for k in sorted(template):
@@ -126,6 +137,146 @@ def _unflatten_paths(paths: list[list[str]], leaves: list) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
     return root
+
+
+# jax 0.9.0's pickled treedef: `PyTreeDef()` from this class, then its
+# state (the registry, [one tuple per node]); the node kinds are jaxlib's
+_PYTREEDEF = ("jaxlib._jax.pytree", "PyTreeDef")
+_REGISTRY = ("jax._src.tree_util", "default_registry")
+_LEAF, _NONE, _TUPLE, _NAMEDTUPLE, _LIST, _DICT = range(6)
+# optax's module of each state class of train/optim.py, by class name
+_OPTAX_MODULES = {"ScaleByAdamState": "optax._src.transform",
+                  "EmptyState": "optax._src.base",
+                  "ScaleByScheduleState": "optax._src.transform"}
+
+
+class _Pickler:
+    """The few protocol-4 opcodes a treedef's pickle uses, memoised as
+    CPython's pickler does (a repeated string or class is a BINGET of its
+    first occurrence)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.memo: dict = {}
+
+    def _memoize(self, key) -> None:
+        self.memo[key] = len(self.memo)
+        self.out += b"\x94"                                  # MEMOIZE
+
+    def _repeat(self, key) -> bool:
+        idx = self.memo.get(key)
+        if idx is None:
+            return False
+        self.out += (b"h" + bytes([idx]) if idx < 256        # BINGET
+                     else b"j" + struct.pack("<I", idx))     # LONG_BINGET
+        return True
+
+    def int(self, n: int) -> None:
+        if 0 <= n < 256:
+            self.out += b"K" + bytes([n])                    # BININT1
+        elif 0 <= n < 65536:
+            self.out += b"M" + struct.pack("<H", n)          # BININT2
+        else:
+            self.out += b"J" + struct.pack("<i", n)          # BININT
+
+    def str(self, s: str) -> None:
+        if self._repeat(("str", s)):
+            return
+        data = s.encode("utf-8")
+        if len(data) < 256:
+            self.out += b"\x8c" + bytes([len(data)]) + data  # SHORT_BINUNICODE
+        else:
+            self.out += b"X" + struct.pack("<I", len(data)) + data
+        self._memoize(("str", s))
+
+    def glob(self, module: str, name: str) -> None:
+        if self._repeat(("global", module, name)):
+            return
+        self.str(module)
+        self.str(name)
+        self.out += b"\x93"                                  # STACK_GLOBAL
+        self._memoize(("global", module, name))
+
+    def items(self, emit: list) -> None:
+        """A list's items as CPython's pickler appends them: one item by
+        APPEND, more by MARK ... APPENDS in batches of 1000."""
+        if len(emit) == 1:
+            emit[0]()
+            self.out += b"a"                                 # APPEND
+            return
+        for at in range(0, len(emit), 1000):
+            self.out += b"("                                 # MARK
+            for fn in emit[at:at + 1000]:
+                fn()
+            self.out += b"e"                                 # APPENDS
+
+    def list(self, emit: list) -> None:
+        self.out += b"]"                                     # EMPTY_LIST
+        self._memoize(("list", len(self.memo)))
+        self.items(emit)
+
+
+def _treedef_nodes(node) -> list[tuple]:
+    """The nodes of `node`'s treedef in post-order, each (kind, arity,
+    node data, leaves, nodes): node data is a dict's sorted keys or a
+    namedtuple's optax class (module, name), else None."""
+    kids = _children(node)
+    if kids is None:
+        return [(_LEAF, 0, None, 1, 1)]
+    out: list[tuple] = []
+    for _, child in kids:
+        out += _treedef_nodes(child)
+    leaves = sum(n[3] for n in out if n[0] == _LEAF)
+    nodes = len(out) + 1
+    if node is None:
+        kind, data = _NONE, None
+    elif isinstance(node, dict):
+        kind, data = _DICT, [k for k, _ in kids]
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        cls = type(node).__name__
+        if cls not in _OPTAX_MODULES:
+            raise TypeError(f"no optax class for the namedtuple {cls}")
+        kind, data = _NAMEDTUPLE, (_OPTAX_MODULES[cls], cls)
+    elif isinstance(node, tuple):
+        kind, data = _TUPLE, None
+    else:
+        kind, data = _LIST, None
+    return out + [(kind, len(kids), data, leaves, nodes)]
+
+
+def _treedef_pickle(tree) -> bytes:
+    """`pickle.dumps(jax.tree.structure(tree))` under jax 0.9.0, without
+    jax: PROTO 4, one FRAME, `PyTreeDef()` by NEWOBJ and BUILD with
+    (default_registry, [(kind, arity, node data, None, leaves, nodes)])."""
+    p = _Pickler()
+
+    def node(kind, arity, data, leaves, nodes):
+        def emit():
+            p.out += b"("                                    # MARK
+            p.int(kind)
+            p.int(arity)
+            if data is None:
+                p.out += b"N"                                # NONE
+            elif kind == _DICT:
+                p.list([lambda k=k: p.str(k) for k in data])
+            else:
+                p.glob(*data)
+            p.out += b"N"
+            p.int(leaves)
+            p.int(nodes)
+            p.out += b"t"                                    # TUPLE
+            p._memoize(("tuple", len(p.memo)))
+        return emit
+
+    p.glob(*_PYTREEDEF)
+    p.out += b")\x81"                                        # EMPTY_TUPLE NEWOBJ
+    p._memoize(("obj",))
+    p.glob(*_REGISTRY)
+    p.list([node(*n) for n in _treedef_nodes(tree)])
+    p.out += b"\x86"                                         # TUPLE2
+    p._memoize(("state",))
+    p.out += b"b."                                           # BUILD STOP
+    return b"\x80\x04\x95" + struct.pack("<Q", len(p.out)) + bytes(p.out)
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +336,8 @@ def _snapshot(state: Any, buffers: Optional[dict] = None):
     device-to-host copy is issued (into pinned buffers, reused from
     `buffers` where shape and dtype still match) before one wait, and a
     CPU tensor is cloned, since the next step updates it in place.
-    Returns (paths, metas, records), each record (leaf index, shard file,
-    index region, host data)."""
+    Returns (paths, pickled treedef, metas, records), each record (leaf
+    index, shard file, index region, host data)."""
     leaves = flatten_with_paths(state)
     metas, records, synced = [], [], set()
     for i, (_, leaf) in enumerate(leaves):
@@ -216,11 +367,12 @@ def _snapshot(state: Any, buffers: Optional[dict] = None):
                             [[0, d] for d in arr.shape], arr))
     for device in synced:
         torch.cuda.synchronize(device)
-    return [list(path) for path, _ in leaves], metas, records
+    return ([list(path) for path, _ in leaves], _treedef_pickle(state),
+            metas, records)
 
 
-def _write_snapshot(ckpt_dir: str, step: int, paths, metas,
-                    records) -> str:
+def _write_snapshot(ckpt_dir: str, step: int, paths, treedef: bytes,
+                    metas, records) -> str:
     """File IO, then the atomic rename (safe on a background thread)."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = final + ".tmp"
@@ -237,6 +389,8 @@ def _write_snapshot(ckpt_dir: str, step: int, paths, metas,
                       (_TREE_FILE, {"paths": paths})):
         with open(os.path.join(tmp, name), "w", encoding="utf-8") as f:
             json.dump(obj, f)
+    with open(os.path.join(tmp, _TREEDEF_FILE), "wb") as f:
+        f.write(treedef)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
