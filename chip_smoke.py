@@ -86,13 +86,33 @@ Phases (any failure exits non-zero, and the result line is not printed):
               checkpointed step against an unchecked one, and the
               master-weights step time, tokens/s, MFU and peak memory.
 
+8. orch     — the port as a TonY task, reporting to a recording AM
+              stand-in (a gRPC server with the three methods a task calls,
+              on the port's JSON codec, refusing a call without the task
+              token), under the environment the executor renders and a
+              frozen conf file. Training in this process: the train
+              phase's Trainer with `--data` on a shard of 8 M random
+              tokens, 8 steps, an eval every 4, a final checkpoint; checks
+              the first batch against a numpy read of the shard, exact
+              launches per step, the gauges, goodput phases (their sum
+              within 1% of the wall) and spans the stand-in received, and
+              prints stall_s per step, the goodput shares and the step
+              interval beside the train phase's. Serving: `python -m
+              tony_tpu_torch.serve --config llama3_8b` as a subprocess,
+              four times (reports off, on, off, on), with the serve
+              phase's burst; each "on" run checks the registration,
+              /metrics, /v1/traces, /v1/drain (403 without the token, 200
+              with it), and that SIGTERM re-registers the endpoint
+              draining and exits 0. Prints tokens/s, decode and ITL p50,
+              TTFT p50 and the profiler's own overhead for every run.
+
 `--phases build,kernels` (for instance) runs a subset.
 
 Two lines before the last is a JSON object with one entry per kernel
-(`launches`: its launches on the serve, quant, kvcache, train and ckpt
-paths together, split in `launches_by_path`), then the card's name and
-power limit from nvidia-smi; the last line is {"ok": true, "device":
-{...}}.
+(`launches`: its launches on the serve, quant, kvcache, train, ckpt and
+orch paths together, split in `launches_by_path`; the orch path counts
+its training run), then the card's name and power limit from nvidia-smi;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -109,6 +129,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -228,6 +249,17 @@ DECODE_POS = (1900, 700, 300, 20)
 # distinct suffixes
 KV_PREFIX, KV_PAGE = 1024, 16
 KV_SUFFIXES = (5, 16, 40, 63, 77, 100, 128, 200)
+# the orch phase: the train phase's model and batch on a token shard of
+# ORCH_SHARD_TOKENS random tokens below the vocab, ORCH_STEPS steps with a
+# held-out eval every ORCH_EVAL_EVERY; then the serve phase's burst on
+# `python -m tony_tpu_torch.serve`, reports off and on, interleaved
+ORCH_STEPS, ORCH_EVAL_EVERY = 8, 4
+ORCH_SHARD_TOKENS = 8_000_000
+ORCH_SERVE_RUNS = ("off", "on", "off", "on")
+# how long a server subprocess may take to print SERVING_UP, seconds
+ORCH_SERVER_UP_S = 300.0
+# the train phase's median step interval, for the orch phase to compare
+TRAIN_INTERVAL: dict = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -1665,6 +1697,7 @@ def phase_train() -> dict[str, int]:
         f"memory allocated {peak_gib:.2f} GiB (limit {TRAIN_PEAK_GIB})")
     check(peak_gib <= TRAIN_PEAK_GIB,
           f"peak memory {peak_gib:.2f} GiB > {TRAIN_PEAK_GIB} GiB")
+    TRAIN_INTERVAL["s"] = step_s
 
     wall = profiled["wall_ms"]
     kernels = device_events(profiled["prof"])
@@ -2117,11 +2150,498 @@ def phase_ckpt() -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the port as a TonY task, reporting to a recording AM
+# ---------------------------------------------------------------------------
+
+class _AmStandIn:
+    """A recording AM: a gRPC server with generic unary handlers for the
+    three methods a port task calls (register_serving_endpoint,
+    report_serving_migrated, update_metrics), speaking the port's JSON
+    codec. A call without the task token is refused UNAUTHENTICATED, as
+    the AM's interceptor refuses it."""
+
+    def __init__(self, token: str):
+        from concurrent import futures
+
+        import grpc
+
+        from tony_tpu_torch.rpc.client import (
+            CLUSTER_METHODS, CLUSTER_SERVICE, METRICS_METHODS,
+            METRICS_SERVICE, _deser, _ser,
+        )
+        self.token = token
+        self.calls: list[tuple[str, str, dict]] = []
+        self._lock = threading.Lock()
+
+        def handler(method):
+            def unary(req, ctx):
+                meta = dict(ctx.invocation_metadata() or ())
+                if meta.get("tony-token") != self.token:
+                    ctx.abort(grpc.StatusCode.UNAUTHENTICATED,
+                              "missing or invalid tony token")
+                with self._lock:
+                    self.calls.append((method, meta.get("tony-task-id", ""),
+                                       req))
+                return {}
+            return grpc.unary_unary_rpc_method_handler(
+                unary, request_deserializer=_deser,
+                response_serializer=_ser)
+
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=8))
+        self.server.add_generic_rpc_handlers((
+            grpc.method_handlers_generic_handler(
+                CLUSTER_SERVICE, {m: handler(m) for m in CLUSTER_METHODS}),
+            grpc.method_handlers_generic_handler(
+                METRICS_SERVICE, {m: handler(m) for m in METRICS_METHODS})))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+
+    def take(self, method: str) -> list[tuple[str, dict]]:
+        with self._lock:
+            return [(task, req) for m, task, req in self.calls
+                    if m == method]
+
+    def clear(self) -> None:
+        with self._lock:
+            self.calls.clear()
+
+    def stop(self) -> None:
+        self.server.stop(grace=None)
+
+
+def _task_env(am: "_AmStandIn", job: str, trace_id: str, parent: str,
+              conf_path: str) -> dict[str, str]:
+    """The environment the executor renders into a task."""
+    return {"AM_HOST": "127.0.0.1", "AM_PORT": str(am.port),
+            "JOB_NAME": job, "TASK_INDEX": "0", "TASK_ATTEMPT": "0",
+            "TONY_TRACE_ID": trace_id, "TONY_PARENT_SPAN": parent,
+            "TONY_SECURITY_TOKEN": am.token, "TONY_CONF_PATH": conf_path}
+
+
+def _write_conf(path: str, values: dict) -> str:
+    """A frozen conf file, in the layout the TonY client writes."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"values": values, "sources": {k: "chip_smoke"
+                                                 for k in values}}, f)
+    return path
+
+
+def _orch_train(am: "_AmStandIn", root: str, conf_path: str
+                ) -> dict[str, int]:
+    """The `--data` Trainer in this process under the task environment:
+    first batch, launches per step, the gauges, goodput and spans the
+    stand-in received, stall_s per step, and the step interval."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.llama import get_config
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+    from tony_tpu_torch.train.native_data import (
+        XorShiftStarts, write_token_file,
+    )
+
+    shard = os.path.join(root, "tokens.bin")
+    tokens = np.random.default_rng(0).integers(
+        0, get_config(TRAIN_CONFIG).vocab_size, ORCH_SHARD_TOKENS,
+        dtype=np.int32)
+    write_token_file(shard, tokens)
+    parent = "0f" * 8
+    env = _task_env(am, "worker", "chip-smoke-train", parent, conf_path)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = build_arg_parser().parse_args(
+            ["--config", TRAIN_CONFIG, "--device", "cuda", "--steps",
+             str(ORCH_STEPS), "--batch-size", str(TRAIN_BATCH),
+             "--seq-len", str(TRAIN_SEQ), "--log-every", "1",
+             "--eval-every", str(ORCH_EVAL_EVERY), "--data", shard,
+             "--checkpoint-dir", os.path.join(root, "ckpt")])
+        trainer, cfg = build_trainer(args)
+        first: list = []
+        source = trainer.data_iter
+
+        def recorded():
+            for batch in source:
+                if not first:
+                    first.append(batch["tokens"].copy())
+                yield batch
+
+        trainer.data_iter = recorded()
+        t_wall = time.monotonic()
+        trainer.setup()
+        want = _step_launches(cfg.n_layers)
+        step_fn = trainer.train_step
+        per_step: list[dict[str, int]] = []
+        stalls: list[float] = []
+
+        def counted_step(params, opt_state, batch):
+            before = cuda_lib.launches()
+            out = step_fn(params, opt_state, batch)
+            after = cuda_lib.launches()
+            per_step.append({n: after[n] - before[n] for n in want})
+            stalls.append(trainer._global_data_iter.stall_s)
+            return out
+
+        trainer.train_step = counted_step
+        cuda_lib.reset_launches()
+        trainer.run()
+        wall = time.monotonic() - t_wall
+        total = cuda_lib.launches()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # the first batch: a fresh numpy read of the shard at the windows the
+    # seed's xorshift64* draws (training seed = process index 0)
+    starts = XorShiftStarts(0, ORCH_SHARD_TOKENS - TRAIN_SEQ)
+    row = TRAIN_SEQ + 1
+    expect = np.stack([tokens[s:s + row] for s in
+                       (starts.next() for _ in range(TRAIN_BATCH))])
+    check(len(first) == 1 and np.array_equal(first[0], expect),
+          "orch: the Trainer's first batch is not the shard's windows at "
+          "seed 0")
+    log(f"orch: train: the first batch ({first[0].shape}, int32) equals a "
+        f"numpy read of the shard at seed 0's window starts "
+        f"{[int(r[0]) for r in expect[:, :1]]}... (first tokens)")
+    for i, got in enumerate(per_step):
+        check(got == want, f"orch: step {i + 1} launches {got} != {want}")
+    evals = ORCH_STEPS // ORCH_EVAL_EVERY
+    fwd = _forward_launches(cfg.n_layers)
+    want_total = {n: ORCH_STEPS * want[n] + evals * fwd[n] for n in want}
+    check(total == want_total,
+          f"orch: run launches {total} != {want_total}")
+    log(f"orch: train: launches per step {per_step[0]} x {ORCH_STEPS} "
+        f"and {evals} eval forwards {fwd}: run total {total}")
+    deltas = [b - a for a, b in zip([0.0] + stalls[:-1], stalls)]
+    log(f"orch: train: stall_s per step "
+        f"{', '.join(f'{d:.6f}' for d in deltas)} (total {stalls[-1]:.6f} "
+        f"s)")
+    losses = [e["loss"] for e in trainer.metrics_history if "loss" in e]
+    check(len(losses) == ORCH_STEPS and all(math.isfinite(x)
+                                            for x in losses),
+          f"orch: losses {losses}")
+
+    # what the stand-in received from the worker task
+    pushes = [req for task, req in am.take("update_metrics")
+              if task == "worker:0"]
+    gauges: dict[str, float] = {}
+    spans: list[dict] = []
+    for req in pushes:
+        check(req.get("task_type") == "worker" and req.get("index") == 0,
+              f"orch: push identity {req.get('task_type')}:"
+              f"{req.get('index')}")
+        for m in req.get("metrics", []):
+            gauges[m["name"]] = m["value"]
+        spans += req.get("spans") or []
+    for name in ("TRAIN_STEP_TIME_MS", "TRAIN_TOKENS_PER_SEC_PER_CHIP",
+                 "TRAIN_MFU_PCT", "TPU_HBM_BYTES_IN_USE",
+                 "GOODPUT_WALL_SECONDS", "GOODPUT_TRAIN_STEP_SECONDS",
+                 "GOODPUT_COMPILE_SECONDS", "GOODPUT_EVAL_SECONDS",
+                 "GOODPUT_CHECKPOINT_SAVE_SECONDS"):
+        check(name in gauges, f"orch: the AM never received {name}: "
+                              f"{sorted(gauges)}")
+    phases = {k[len("GOODPUT_"):-len("_SECONDS")].lower(): v
+              for k, v in gauges.items()
+              if k.startswith("GOODPUT_") and k != "GOODPUT_WALL_SECONDS"}
+    phase_sum = sum(phases.values())
+    check(abs(phase_sum - wall) <= 0.01 * wall,
+          f"orch: goodput phases sum to {phase_sum:.3f} s, the run's wall "
+          f"is {wall:.3f} s (more than 1% apart)")
+    log(f"orch: train: {len(pushes)} metric pushes; last gauges: step "
+        f"{gauges['TRAIN_STEP_TIME_MS']:.1f} ms, "
+        f"{gauges['TRAIN_TOKENS_PER_SEC_PER_CHIP']:.1f} tokens/s, MFU "
+        f"{gauges['TRAIN_MFU_PCT']:.2f}%, card memory in use "
+        f"{gauges['TPU_HBM_BYTES_IN_USE'] / 2**30:.2f} GiB")
+    log(f"orch: train: goodput phases sum {phase_sum:.3f} s against a "
+        f"wall of {wall:.3f} s (ledger wall "
+        f"{gauges['GOODPUT_WALL_SECONDS']:.3f} s); shares: "
+        + ", ".join(f"{p} {100 * v / phase_sum:.2f}%"
+                    for p, v in sorted(phases.items(), key=lambda x: -x[1])
+                    if v > 0))
+    by_name = {s["name"]: s for s in spans}
+    for name in ("trainer_setup", "first_step", "checkpoint_save"):
+        check(name in by_name, f"orch: span {name} not received: "
+                               f"{sorted(by_name)}")
+        check(by_name[name]["parent_id"] == parent
+              and by_name[name]["trace_id"] == "chip-smoke-train",
+              f"orch: span {name} not parented under TONY_PARENT_SPAN: "
+              f"{by_name[name]}")
+    log("orch: train: spans " + ", ".join(
+        f"{s['name']} {s['end_ms'] - s['start_ms']} ms" for s in spans)
+        + f", each parented under {parent}")
+
+    # steps 3-8: the interval between log boundaries is one step of
+    # device time once the loss reads lag one step
+    window = [e for e in trainer.metrics_history
+              if "tokens_per_s" in e and e["step"] >= 3]
+    intervals = sorted(TRAIN_BATCH * (TRAIN_SEQ + 1) / e["tokens_per_s"]
+                       for e in window)
+    median = (intervals[len(intervals) // 2]
+              + intervals[(len(intervals) - 1) // 2]) / 2
+    ref = TRAIN_INTERVAL.get("s")
+    log(f"orch: train: median interval over steps 3-{ORCH_STEPS} "
+        f"{median:.4f} s per step (steps 5 and later hold an eval's "
+        f"share); the train phase's in this run: "
+        + (f"{ref:.4f} s" if ref else "not run"))
+    del trainer, step_fn
+    torch.cuda.empty_cache()
+    return total
+
+
+def _server_up(proc, timeout: float) -> str:
+    """The url of the server's SERVING_UP line (it fails if the server
+    exits or stays silent past `timeout`)."""
+    found: dict = {}
+
+    def read() -> None:
+        for line in proc.stdout:
+            if line.startswith("SERVING_UP "):
+                found["url"] = line.split()[1]
+                return
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout)
+    check("url" in found, f"orch: no SERVING_UP within {timeout:.0f} s "
+                          f"(exit {proc.poll()})")
+    return found["url"]
+
+
+def _http(url: str, data: bytes = None, headers: dict = None,
+          timeout: float = 60.0) -> tuple[int, dict, bytes]:
+    rq = urllib.request.Request(url, data=data, headers=headers or {},
+                                method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(rq, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _orch_serve_run(kind: str, am: "_AmStandIn", root: str, smi: str
+                    ) -> dict:
+    """One `python -m tony_tpu_torch.serve` run with the serve phase's
+    burst; `kind` "on" (AM, profiler and tracing on) or "off"."""
+    import numpy as np
+
+    from tony_tpu_torch.models.llama import get_config
+    from tony_tpu_torch.observability.prometheus import (
+        CONTENT_TYPE, parse,
+    )
+
+    on = kind == "on"
+    conf = _write_conf(os.path.join(root, f"conf-{kind}.json"), {
+        "tony.profiler.enabled": on, "tony.serving.trace.enabled": on,
+        # every burst request is kept, so /v1/traces must hold them all
+        "tony.serving.trace.slow-threshold-ms": 0,
+        "tony.serving.trace.slowest-k": 64,
+        "tony.task.metrics-interval-ms": 1000,
+        "tony.serving.slots": 4, "tony.serving.token-budget": 2048})
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AM_HOST", "AM_PORT", "METRICS_RPC_PORT",
+                        "JOB_NAME", "TONY_SECURITY_TOKEN",
+                        "TONY_TRACE_ID", "TONY_PARENT_SPAN")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env["TONY_CONF_PATH"] = conf
+    if on:
+        env.update(_task_env(am, "serving", "chip-smoke-serve", "1e" * 8,
+                             conf))
+    am.clear()
+    err_path = os.path.join(root, f"serve-{kind}.stderr")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.serve", "--config",
+             SERVE_CONFIG, "--port", "0", "--host", "127.0.0.1"],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+            cwd=repo)
+    try:
+        t0 = time.monotonic()
+        url = _server_up(proc, ORCH_SERVER_UP_S)
+        up_s = time.monotonic() - t0
+        warm = _post(url, {"prompt": [1, 2, 3, 4, 5, 6, 7, 8],
+                           "max_new_tokens": 4}, stream=False)
+        check(len(warm["tokens"]) == 4, f"orch: warm-up {warm}")
+        rng = np.random.RandomState(0)
+        vocab = get_config(SERVE_CONFIG).vocab_size
+        prompts = [[int(t) for t in rng.randint(0, vocab, size=n)]
+                   for n in PROMPT_LENS]
+        results: dict[int, object] = {}
+
+        def run(i: int) -> None:
+            try:
+                results[i] = _post(url, {"prompt": prompts[i],
+                                         "max_new_tokens": MAX_NEW},
+                                   stream=i < N_STREAMED)
+            except Exception as e:  # noqa: BLE001 — reported below
+                results[i] = e
+
+        t_burst = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.monotonic() - t_burst
+        for i, n in enumerate(PROMPT_LENS):
+            r = results.get(i)
+            check(isinstance(r, dict) and len(r["tokens"]) == MAX_NEW,
+                  f"orch: {kind} request {i} (prompt {n}): {r!r}")
+        snap = json.loads(_http(url + "/v1/metrics")[2])
+        code, headers, body = _http(url + "/metrics")
+        text = body.decode("utf-8")
+        parsed = parse(text)
+        check(code == 200 and headers.get("Content-Type") == CONTENT_TYPE,
+              f"orch: /metrics {code} {headers.get('Content-Type')}")
+        overhead = [v for (n, _), v in parsed.items()
+                    if n == "tony_profiler_overhead_pct"]
+        out = {"kind": kind, "up_s": up_s,
+               "tokens_per_s": len(PROMPT_LENS) * MAX_NEW / burst_s,
+               "decode_p50_ms": snap["decode_ms_per_token_p50"],
+               "itl_p50_ms": snap["itl_p50_ms"],
+               "ttft_p50_ms": 1000.0 * snap["ttft_p50_s"],
+               "overhead_pct": overhead[0] if overhead else None}
+        if on:
+            _orch_checks_on(am, url, parsed, text)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"orch: {kind} server exited {rc} after SIGTERM")
+        regs = am.take("register_serving_endpoint")
+        if on:
+            check([r.get("draining", False) for _, r in regs]
+                  == [False, True]
+                  and all(r["url"] == url and t == "serving:0"
+                          for t, r in regs),
+                  f"orch: registrations {regs}")
+            log(f"orch: serve on: SIGTERM re-registered {url} with "
+                f"draining=True; the server exited 0")
+        else:
+            check(not am.calls, f"orch: an off run reached the AM: "
+                                f"{am.calls[:2]}")
+        log(f"orch: serve {kind}: {out['tokens_per_s']:.1f} tokens/s, "
+            f"decode p50 {out['decode_p50_ms']:.2f} ms/token, ITL p50 "
+            f"{out['itl_p50_ms']:.2f} ms per decode step, TTFT p50 "
+            f"{out['ttft_p50_ms']:.1f} ms, profiler overhead "
+            + (f"{out['overhead_pct']:.4f}%" if out["overhead_pct"]
+               is not None else "not running")
+            + f" (up in {up_s:.1f} s; {smi})")
+        return out
+    except BaseException:
+        with open(err_path) as f:
+            log(f"orch: {kind} server log tail:\n{f.read()[-3000:]}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _orch_checks_on(am: "_AmStandIn", url: str, parsed: dict,
+                    text: str) -> None:
+    """An "on" run: the AM has the registration and the serving pushes,
+    /metrics is the port's encoder's exposition of the engine, /v1/traces
+    holds the burst, /v1/drain takes the token."""
+    regs = am.take("register_serving_endpoint")
+    check(len(regs) == 1 and regs[0][1] == {"task_id": "serving:0",
+                                             "url": url, "role": "both"},
+          f"orch: registration {regs}")
+    from tony_tpu_torch.observability.prometheus import parse, render
+    check(text.endswith("\n") and "# TYPE tony_serving_tokens_emitted gauge"
+          in text, "orch: /metrics lacks the engine's families")
+    labels = dict(next(ls for (n, ls) in parsed
+                       if n == "tony_serving_tokens_emitted"))
+    check(labels == {"task_type": "serving", "index": "0", "attempt": "0"},
+          f"orch: engine gauge labels {labels}")
+    # the port's encoder re-renders every parsed sample to the same
+    # sample lines the server sent (NaN for a gauge with no value yet)
+    lines = render([{"name": n, "type": "untyped",
+                     "samples": [(dict(ls), v)]}
+                    for (n, ls), v in parsed.items()]).splitlines()
+    sent = [x for x in text.splitlines() if x and not x.startswith("#")]
+    check(sorted(x for x in lines if not x.startswith("#")) == sorted(sent)
+          and parse("\n".join(lines)).keys() == parsed.keys(),
+          "orch: /metrics is not the port's exposition format")
+    deadline = time.monotonic() + 30
+    while True:
+        pushes = [req for _, req in am.take("update_metrics")]
+        names = {m["name"] for req in pushes for m in req["metrics"]}
+        traced = sum(len(req.get("serving_traces") or []) for req in pushes)
+        if ("SERVING_TOKENS_PER_SEC" in names and traced
+                and any(req.get("spans") for req in pushes)):
+            break
+        check(time.monotonic() < deadline,
+              f"orch: no serving push with gauges, traces and spans: "
+              f"{sorted(names)}, {traced} traces")
+        time.sleep(0.5)
+    traces = json.loads(_http(url + "/v1/traces")[2])
+    burst = [t for t in traces["traces"]]
+    check(len(burst) + traced >= len(PROMPT_LENS) + 1
+          and traces["http_requests"].get("/v1/generate")
+          == len(PROMPT_LENS) + 1,
+          f"orch: /v1/traces holds {len(burst)} traces (drained "
+          f"{traced}), counts {traces['http_requests']}")
+    code, _, _ = _http(url + "/v1/drain", data=b"")
+    check(code == 403, f"orch: /v1/drain without the token answered {code}")
+    code, _, body = _http(url + "/v1/drain", data=b"",
+                          headers={"Authorization": f"Bearer {am.token}"})
+    check(code == 200 and json.loads(body)["draining"] is True,
+          f"orch: /v1/drain with the token answered {code} {body[:200]}")
+    log(f"orch: serve on: the AM got the registration, "
+        f"{len(pushes)} pushes ({sorted(n for n in names if 'TTFT' in n)}"
+        f", {traced} traces); /metrics parsed {len(parsed)} samples; "
+        f"/v1/traces {len(burst)} held, counts {traces['http_requests']}; "
+        f"/v1/drain 403 without the token, 200 with it")
+
+
+def phase_orch(smi: str) -> dict[str, int]:
+    """The port as a TonY task (its AM is the stand-in above): training
+    on a token shard in this process, then four runs of the server as a
+    subprocess, reports off, on, off, on. Returns the training run's
+    kernel launches (the server's are another process's)."""
+    import secrets
+
+    import grpc  # noqa: F401 — the stand-in needs it; fail here if absent
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-orch-")
+    am = _AmStandIn(secrets.token_hex(32))
+    log(f"orch: AM stand-in on 127.0.0.1:{am.port} (grpc "
+        f"{sys.modules['grpc'].__version__}); {smi}")
+    try:
+        launches = _orch_train(am, root, _write_conf(
+            os.path.join(root, "conf-train.json"),
+            {"tony.task.metrics-interval-ms": 1000}))
+        runs = [_orch_serve_run(kind, am, root, smi)
+                for kind in ORCH_SERVE_RUNS]
+    finally:
+        am.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    for key, label in (("tokens_per_s", "tokens/s"),
+                       ("decode_p50_ms", "decode p50 ms/token"),
+                       ("ttft_p50_ms", "TTFT p50 ms")):
+        off = [r[key] for r in runs if r["kind"] == "off"]
+        on = [r[key] for r in runs if r["kind"] == "on"]
+        spread = abs(off[0] - off[1])
+        gap = (sum(off) - sum(on)) / 2 if key == "tokens_per_s" \
+            else (sum(on) - sum(off)) / 2
+        verdict = ("on slower than off by more than the off-off spread"
+                   if gap > spread else "within the off-off spread")
+        log(f"orch: {label}: off {off[0]:.2f} / {off[1]:.2f}, on "
+            f"{on[0]:.2f} / {on[1]:.2f}; on's cost {gap:+.2f} against "
+            f"the off-off spread {spread:.2f}: {verdict} ({smi})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,serve,engine,profile,quant,"
-                            "kvcache,train,ckpt",
+                            "kvcache,train,ckpt,orch",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -2168,6 +2688,8 @@ def main(argv=None) -> int:
             phase_train_parity()
         if "ckpt" in phases:
             launches["ckpt"] = phase_ckpt()
+        if "orch" in phases:
+            launches["orch"] = phase_orch(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

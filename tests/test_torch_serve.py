@@ -352,9 +352,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 # top-level package of every loaded module: "tony_tpu_torch" is not
-# "tony_tpu", though it starts with it
+# "tony_tpu", though it starts with it; grpc loads only when an RPC
+# client is built
 bad = sorted({n.split(".")[0] for n in sys.modules}
-             & {"jax", "jaxlib", "tony_tpu"})
+             & {"jax", "jaxlib", "tony_tpu", "grpc"})
 print(",".join(names), ",".join(bad))
 """
 
@@ -369,9 +370,56 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
     assert len(names) >= 15
     for module in ("constants", "train.checkpoint", "train.precision",
                    "train.trainer", "models.convert", "models.quant",
-                   "ops.int8_matmul", "serve.kvcache"):
+                   "ops.int8_matmul", "serve.kvcache", "conf",
+                   "security.tokens", "rpc.client", "observability.metrics",
+                   "observability.prometheus", "observability.trace",
+                   "observability.perf", "observability.logs",
+                   "observability.profiler", "observability.reqtrace",
+                   "train.metrics", "train.native_data"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
+
+
+NO_AM_PROBE = """
+import json, logging, sys, urllib.request
+import numpy as np
+logging.basicConfig(level=logging.INFO)
+from tony_tpu_torch.train.native_data import write_token_file
+from tony_tpu_torch.train.__main__ import main as train_main
+from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
+shard = write_token_file(sys.argv[1], np.random.default_rng(0).integers(
+    0, 256, 4096, dtype=np.int32))
+assert train_main(["--device", "cpu", "--config", "tiny", "--steps", "10",
+                   "--batch-size", "2", "--seq-len", "32",
+                   "--eval-every", "5", "--data", shard]) == 0
+server = build_server(build_arg_parser().parse_args(
+    ["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+     "--token-budget", "32"]))
+rq = urllib.request.Request(server.url + "/v1/generate",
+                            data=json.dumps({"prompt": [1, 2],
+                                             "max_new_tokens": 2}).encode())
+urllib.request.urlopen(rq, timeout=60).read()
+server.stop(drain_timeout=0)
+print("grpc loaded:", "grpc" in sys.modules)
+"""
+
+
+def test_port_process_without_an_am_loads_no_grpc(tmp_path):
+    """Outside the orchestrator the port's trainer (on a token shard, via
+    the entry point) and server run their reports as no-ops: grpc is
+    never imported."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AM_HOST", "AM_PORT", "METRICS_RPC_PORT",
+                        "JOB_NAME")}
+    out = subprocess.run(
+        [sys.executable, "-c", NO_AM_PROBE, str(tmp_path / "shard.bin")],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=dict(env, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "prefetching shard loader active" in out.stderr
+    assert "step 10 eval_loss" in out.stderr
+    assert "final loss " in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "grpc loaded: False"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -1,0 +1,283 @@
+"""Performance truth of a port trainer: the goodput ledger, MFU and the
+on-demand profile capture.
+
+The port's copy of the task-side half of `tony_tpu/observability/perf.py`:
+- `GoodputLedger`: every wall-clock second of the task lands in exactly
+  one exclusive phase (init, compile, train_step, input_stall,
+  checkpoint_save/restore, eval, idle, and the executor's localization
+  and rendezvous_wait handed over in ``TONY_GOODPUT_SEED``). Transitions
+  happen only at existing boundaries, so the hot loop gains no device
+  sync; sum(phases) == wall by construction. Pushed to the AM as the
+  ``GOODPUT_<PHASE>_SECONDS`` gauges under the JAX package's names.
+- `mfu_pct` over the card's dense bf16 peak (`tony_tpu_torch.device`).
+- `ProfileCapture`: the trainer's half of the ``request_profile``
+  workflow. The executor writes ``profile_request.json`` into the task's
+  cwd; at a log boundary the trainer starts `torch.profiler` for N
+  steps, writes its Chrome trace into ``profiles/<request_id>/`` and
+  publishes ``{request_id, path, num_steps, duration_ms}`` (the JAX
+  payload's keys) through the metrics RPC.
+The AM-side aggregation and SLO watchdog stay the AM's.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from typing import Callable, Optional
+
+LOG = logging.getLogger(__name__)
+
+# exclusive phases; `input_stall` is carved out of `train_step`
+PHASES = (
+    "init", "localization", "rendezvous_wait", "compile", "train_step",
+    "input_stall", "checkpoint_save", "checkpoint_restore", "eval",
+    "relaunch_downtime", "resize", "idle",
+)
+
+GOODPUT_METRIC_PREFIX = "GOODPUT_"
+GOODPUT_WALL_METRIC = "GOODPUT_WALL_SECONDS"
+
+
+def goodput_metric_name(phase: str) -> str:
+    return f"{GOODPUT_METRIC_PREFIX}{phase.upper()}_SECONDS"
+
+
+def mfu_pct(tokens_per_sec: float, flops_per_token: float,
+            device=None, peak: float = 0.0) -> float:
+    """Model FLOPs utilization in percent: achieved training FLOP/s over
+    the card's dense bf16 peak (`peak`, else that of the torch `device`;
+    0 for the CPU or a card not in the table)."""
+    if not peak and device is not None:
+        from tony_tpu_torch.device import peak_flops
+        peak = peak_flops(device)
+    if peak <= 0 or flops_per_token <= 0:
+        return 0.0
+    return 100.0 * tokens_per_sec * flops_per_token / peak
+
+
+def tokens_in_batch(batch) -> int:
+    """B * S of a batch's 'inputs' or 'tokens' (0 when not token-like);
+    reads shapes only, so never syncs the device."""
+    if not isinstance(batch, dict):
+        return 0
+    for key in ("inputs", "tokens"):
+        shape = getattr(batch.get(key), "shape", None)
+        if shape and len(shape) >= 2:
+            return int(shape[0]) * int(shape[1])
+    return 0
+
+
+class GoodputLedger:
+    """Exclusive-phase wall-clock accounting for one task process.
+
+    Exactly one phase is open; `transition` closes it and opens the next,
+    `carve` moves seconds of one phase to another without touching the
+    timeline. The snapshot includes the open phase's elapsed time, so
+    sum(phases) == wall_s at any moment. Thread-safe (the metrics pusher
+    reads it from its worker)."""
+
+    def __init__(self, phase: str = "init",
+                 clock: Callable[[], float] = time.monotonic,
+                 seed: Optional[dict] = None):
+        self._clock = clock
+        self._t0 = clock()
+        self._phase = phase
+        self._phase_start = self._t0
+        self._acc: dict[str, float] = {p: 0.0 for p in PHASES}
+        self._acc.setdefault(phase, 0.0)
+        # phases the executor already accounted for this task slot:
+        # closed durations that extend this ledger's wall clock
+        self._seed_total = 0.0
+        for p, v in (seed or {}).items():
+            v = max(0.0, float(v))
+            self._acc[str(p)] = self._acc.get(str(p), 0.0) + v
+            self._seed_total += v
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_env(cls, env, phase: str = "init") -> "GoodputLedger":
+        """A ledger seeded with ``TONY_GOODPUT_SEED`` (none: bare)."""
+        from tony_tpu_torch import constants as C
+        seed = None
+        raw = env.get(C.TONY_GOODPUT_SEED, "")
+        if raw:
+            try:
+                parsed = json.loads(raw)
+                if isinstance(parsed, dict):
+                    seed = {str(k): float(v) for k, v in parsed.items()
+                            if isinstance(v, (int, float))}
+            except (ValueError, TypeError):
+                seed = None
+        return cls(phase=phase, seed=seed)
+
+    @property
+    def phase(self) -> str:
+        return self._phase
+
+    def transition(self, phase: str) -> None:
+        """Close the open phase and open `phase` (the same phase: folds
+        the elapsed segment in)."""
+        now = self._clock()
+        with self._lock:
+            self._acc[self._phase] = self._acc.get(self._phase, 0.0) + (
+                now - self._phase_start)
+            self._phase = phase
+            self._phase_start = now
+            self._acc.setdefault(phase, 0.0)
+
+    def carve(self, phase: str, seconds: float,
+              source: Optional[str] = None) -> None:
+        """Move `seconds` from `source` (default: the open phase) to
+        `phase`; the wall-clock sum is kept."""
+        if seconds <= 0:
+            return
+        with self._lock:
+            src = source if source is not None else self._phase
+            self._acc[phase] = self._acc.get(phase, 0.0) + seconds
+            self._acc[src] = self._acc.get(src, 0.0) - seconds
+
+    def snapshot(self) -> dict:
+        """{"phases": {phase: seconds}, "wall_s": seconds}."""
+        now = self._clock()
+        with self._lock:
+            phases = dict(self._acc)
+            phases[self._phase] = phases.get(self._phase, 0.0) + (
+                now - self._phase_start)
+            wall = (now - self._t0) + self._seed_total
+        return {"phases": phases, "wall_s": wall}
+
+    def metrics(self) -> list[dict]:
+        """GOODPUT_<PHASE>_SECONDS and GOODPUT_WALL_SECONDS metric dicts."""
+        snap = self.snapshot()
+        out = [{"name": goodput_metric_name(p), "value": round(v, 4)}
+               for p, v in sorted(snap["phases"].items())]
+        out.append({"name": GOODPUT_WALL_METRIC,
+                    "value": round(snap["wall_s"], 4)})
+        return out
+
+
+class _TorchTrace:
+    """torch.profiler over the host and the card (CUDA activity when the
+    card is present); `stop` writes its Chrome trace into the capture
+    directory."""
+
+    def __init__(self):
+        self._prof = None
+        self._dir = ""
+
+    def start(self, out_dir: str) -> None:
+        import torch
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._dir = out_dir
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.__enter__()
+
+    def stop(self) -> None:
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(self._dir, "trace.json"))
+
+
+class ProfileCapture:
+    """The trainer's half of the ``request_profile`` workflow.
+
+    `poll()` at log boundaries (a file read, never a device sync) starts
+    a capture for an unseen request id; `on_step()` after each step
+    counts it down, stops it and publishes the artifact. A request id
+    seen once never restarts a trace, and its file is removed so a
+    relaunched trainer does not replay it. `start_fn`/`stop_fn` replace
+    torch.profiler (tests)."""
+
+    def __init__(self, cwd: str = ".",
+                 publish: Optional[Callable[[dict], None]] = None,
+                 start_fn: Optional[Callable[[str], None]] = None,
+                 stop_fn: Optional[Callable[[], None]] = None):
+        from tony_tpu_torch import constants as C
+        self._request_path = os.path.join(cwd, C.PROFILE_REQUEST_FILE)
+        self._profiles_dir = os.path.join(cwd, C.PROFILES_DIR_NAME)
+        self._publish = publish
+        if start_fn is None or stop_fn is None:
+            trace = _TorchTrace()
+            start_fn, stop_fn = trace.start, trace.stop
+        self._start_fn = start_fn
+        self._stop_fn = stop_fn
+        self._seen: set[str] = set()
+        self._active: Optional[dict] = None
+
+    @property
+    def active(self) -> bool:
+        return self._active is not None
+
+    def poll(self) -> None:
+        """Start a capture if the request file names an unseen id."""
+        if self._active is not None:
+            return
+        try:
+            with open(self._request_path, "r", encoding="utf-8") as f:
+                req = json.load(f)
+        except (OSError, ValueError):
+            return
+        rid = str(req.get("request_id", "") or "")
+        if not rid:
+            return
+        if rid in self._seen:
+            self._remove_request_file()
+            return
+        self._seen.add(rid)
+        steps = max(1, int(req.get("num_steps", 1) or 1))
+        out_dir = os.path.join(self._profiles_dir, rid)
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            self._start_fn(out_dir)
+        except Exception:  # noqa: BLE001 — profiling never kills training
+            LOG.exception("could not start profiler trace for request %s",
+                          rid)
+            return
+        LOG.info("profiler capture %s started (%d steps) -> %s", rid,
+                 steps, out_dir)
+        self._active = {"request_id": rid, "remaining": steps,
+                        "num_steps": steps, "dir": out_dir,
+                        "t0": time.monotonic()}
+
+    def on_step(self) -> None:
+        """Count one finished step; stop and publish when spent."""
+        active = self._active
+        if active is None:
+            return
+        active["remaining"] -= 1
+        if active["remaining"] > 0:
+            return
+        self._active = None
+        self._remove_request_file()
+        try:
+            self._stop_fn()
+        except Exception:  # noqa: BLE001
+            LOG.exception("profiler stop failed for request %s",
+                          active["request_id"])
+            return
+        duration_ms = int(1000 * (time.monotonic() - active["t0"]))
+        LOG.info("profiler capture %s finished after %d steps (%d ms)",
+                 active["request_id"], active["num_steps"], duration_ms)
+        if self._publish is not None:
+            try:
+                self._publish({
+                    "request_id": active["request_id"],
+                    "path": os.path.abspath(active["dir"]),
+                    "num_steps": active["num_steps"],
+                    "duration_ms": duration_ms,
+                })
+            except Exception:  # noqa: BLE001
+                LOG.exception("profile publish failed")
+
+    def _remove_request_file(self) -> None:
+        try:
+            os.remove(self._request_path)
+        except OSError:
+            pass

@@ -1,0 +1,162 @@
+"""Lifecycle spans of a task: the port's copy of `SpanRecorder` from
+`tony_tpu/observability/trace.py`.
+
+A *trace* is one application run (trace_id = app_id); a *span* is one
+phase of it (trainer setup, first step, checkpoint save/restore, a served
+request) with a parent link, so the portal renders the job as one
+waterfall. The executor renders ``TONY_TRACE_ID`` and ``TONY_PARENT_SPAN``
+(its ``user_process`` span) into the task's environment; the trainer and
+server parent their spans under it, and the finished spans ride the
+metrics RPC (``update_metrics``'s ``spans``) to the AM. The span dict has
+the JAX package's keys. A recorder past ``max_spans`` counts drops in the
+health registry instead of growing. The AM-side store is not ported.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import uuid
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Optional, Union
+
+from tony_tpu_torch.observability.metrics import REGISTRY
+
+# env contract (rendered by the AM / executor, read by children)
+TRACE_ID_ENV = "TONY_TRACE_ID"
+PARENT_SPAN_ENV = "TONY_PARENT_SPAN"
+
+STATUS_OK = "OK"
+STATUS_ERROR = "ERROR"
+STATUS_OPEN = "OPEN"
+
+
+def new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+@dataclass
+class Span:
+    name: str
+    span_id: str = field(default_factory=new_span_id)
+    trace_id: str = ""
+    parent_id: str = ""
+    task_id: str = ""          # "worker:0"; "" for client/AM scope
+    attempt: int = 0
+    start_ms: int = 0
+    end_ms: int = 0            # 0 = still open
+    status: str = STATUS_OPEN
+    attrs: dict = field(default_factory=dict)
+
+    @property
+    def duration_ms(self) -> int:
+        return max(0, self.end_ms - self.start_ms) if self.end_ms else 0
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name, "span_id": self.span_id,
+            "trace_id": self.trace_id, "parent_id": self.parent_id,
+            "task_id": self.task_id, "attempt": self.attempt,
+            "start_ms": self.start_ms, "end_ms": self.end_ms,
+            "status": self.status, "attrs": dict(self.attrs),
+        }
+
+
+class SpanRecorder:
+    """Process-local span source for one task (a trainer, a server):
+    finished spans accumulate for ``drain()`` and the metrics push."""
+
+    def __init__(self, trace_id: str = "", task_id: str = "",
+                 attempt: int = 0, parent_id: str = "",
+                 max_spans: int = 512):
+        self.trace_id = trace_id
+        self.task_id = task_id
+        self.attempt = attempt
+        self.parent_id = parent_id          # ambient parent from the env
+        self._max = max(1, max_spans)
+        self._finished: list[dict] = []
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_env(cls, env, task_id: str = "", attempt: int = 0,
+                 max_spans: int = 512) -> "SpanRecorder":
+        """Recorder seeded with the trace context a parent process
+        rendered (no context → spans still record, with an empty trace
+        id, so direct script runs keep working)."""
+        return cls(trace_id=str(env.get(TRACE_ID_ENV, "") or ""),
+                   task_id=task_id, attempt=attempt,
+                   parent_id=str(env.get(PARENT_SPAN_ENV, "") or ""),
+                   max_spans=max_spans)
+
+    @property
+    def enabled(self) -> bool:
+        """Context-bearing recorders push upstream; a bare one (direct
+        script run outside the orchestrator) records only locally."""
+        return bool(self.trace_id)
+
+    def start(self, name: str,
+              parent: Union[Span, str, None] = None,
+              attrs: Optional[dict] = None,
+              task_id: Optional[str] = None,
+              attempt: Optional[int] = None) -> Span:
+        parent_id = (parent.span_id if isinstance(parent, Span)
+                     else (parent if parent is not None
+                           else self.parent_id))
+        return Span(
+            name=name, trace_id=self.trace_id, parent_id=parent_id,
+            task_id=self.task_id if task_id is None else task_id,
+            attempt=self.attempt if attempt is None else attempt,
+            start_ms=int(time.time() * 1000), status=STATUS_OPEN,
+            attrs=dict(attrs or {}))
+
+    def end(self, span: Span, status: str = STATUS_OK,
+            attrs: Optional[dict] = None) -> Span:
+        if span.end_ms:                     # idempotent
+            return span
+        span.end_ms = int(time.time() * 1000)
+        span.status = status
+        if attrs:
+            span.attrs.update(attrs)
+        self._record(span.to_dict())
+        return span
+
+    @contextmanager
+    def span(self, name: str, parent: Union[Span, str, None] = None,
+             attrs: Optional[dict] = None):
+        s = self.start(name, parent=parent, attrs=attrs)
+        try:
+            yield s
+        except BaseException:
+            self.end(s, STATUS_ERROR)
+            raise
+        self.end(s)
+
+    def _record(self, d: dict) -> None:
+        with self._lock:
+            if len(self._finished) >= self._max:
+                REGISTRY.counter("tony_spans_dropped_total").inc()
+                return
+            self._finished.append(d)
+
+    def drain(self) -> list[dict]:
+        """Finished spans accumulated since the last drain (cleared) —
+        the payload the executor/trainer piggybacks on the metrics RPC."""
+        with self._lock:
+            out, self._finished = self._finished, []
+        return out
+
+    def record_complete(self, name: str, start_ms: int, end_ms: int,
+                        status: str = STATUS_OK,
+                        attrs: Optional[dict] = None) -> Span:
+        """Record an already-finished span with caller-supplied
+        timestamps — for events measured on another clock (the serving
+        engine's monotonic request stamps) that are converted to epoch
+        ms after the fact."""
+        span = Span(name=name, trace_id=self.trace_id,
+                    parent_id=self.parent_id, task_id=self.task_id,
+                    attempt=self.attempt, start_ms=int(start_ms),
+                    end_ms=int(end_ms), status=status,
+                    attrs=dict(attrs or {}))
+        self._record(span.to_dict())
+        return span

@@ -44,8 +44,12 @@ greedy. Temperature/top-k/top-p are engine-wide settings; sampled streams
 draw from one engine `torch.Generator` seeded with SAMPLING_SEED at
 construction, in admission and step order.
 
-Not in this slice: the profiler beacon on the loop thread (the port's
-observability slice).
+Observability: the stepper beats the `serve-engine` profiler beacon each
+iteration (a wedged loop is a stall the watchdog reports), handles carry
+the request-trace context the frontend adopts (`trace`, `trace_ctx`) and
+the phase stamps `record_engine_phases` reads (`kv_match_s`,
+`migrated_in`), and `on_request_finished` is the hook request tracing
+and the serve_request span compose onto.
 """
 
 from __future__ import annotations
@@ -118,6 +122,13 @@ class RequestHandle:
         # time queued before a slot freed, and the admission prefill itself
         self.queue_wait_s: Optional[float] = None
         self.prefill_s: Optional[float] = None
+        # the prefix match's share of the prefill (paged admission only)
+        self.kv_match_s: Optional[float] = None
+        # installed from a prefill replica's /v1/migrate handoff
+        self.migrated_in = False
+        # request tracing (observability/reqtrace.py), set by the frontend
+        self.trace = None
+        self.trace_ctx = None
         self.done = threading.Event()
         self.cancelled = threading.Event()
         self._queue: "queue.Queue" = queue.Queue()
@@ -547,6 +558,7 @@ class ContinuousBatchingEngine:
             hashes = kvc.chain_hashes(handle.prompt, pool.page_size)
             usable = (len(handle.prompt) - 1) // pool.page_size
             page_ids, depth = pool.match(hashes[:usable])
+            handle.kv_match_s = time.monotonic() - t_dequeue
         start = depth * pool.page_size if depth else 0
         if depth:
             table = torch.full((pool.blocks_per_slot,), kvc.SCRATCH_PAGE,
@@ -554,6 +566,7 @@ class ContinuousBatchingEngine:
             table[:depth] = torch.tensor(page_ids)
             kvc.gather_pages(self._cache, pool.pool, table.to(self.device),
                              i)
+            handle.kv_match_s = time.monotonic() - t_dequeue
             suffix = torch.tensor(handle.prompt[start:], dtype=torch.long,
                                   device=self.device)
             logits, _ = kvc.prefill_suffix(self.params, self.config,
@@ -670,6 +683,7 @@ class ContinuousBatchingEngine:
         again; it is the next decode step's input."""
         t_dequeue = time.monotonic()
         handle.queue_wait_s = t_dequeue - handle.submitted_at
+        handle.migrated_in = True
         install, handle.install = handle.install, None
         pos = install["pos"]
         rows = {}
@@ -736,7 +750,12 @@ class ContinuousBatchingEngine:
         self._thread.start()
 
     def _loop(self) -> None:
+        from tony_tpu_torch.observability.profiler import register_beacon
+        # a wedged loop hangs every in-flight request; the cadence is one
+        # idle backstop tick, so the watchdog sees it quickly
+        beacon = register_beacon("serve-engine", 1.0)
         while not self._stop.is_set():
+            beacon.beat()
             try:
                 busy = self.step()
             except Exception:  # noqa: BLE001 — a poisoned step must not
@@ -745,6 +764,7 @@ class ContinuousBatchingEngine:
             if not busy:
                 self._work.wait(timeout=0.02)
                 self._work.clear()
+        beacon.idle()
 
     def stop(self) -> None:
         """Stop the loop and fail outstanding work (pending AND in-flight)

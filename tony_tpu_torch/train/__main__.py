@@ -2,31 +2,39 @@
 
 Counterpart of ``examples/llama-pretrain/pretrain.py`` on one device: it
 builds the Llama config from a preset, a `Trainer` running
-``make_train_step(llama_loss, adamw)`` on `synthetic_tokens`, trains, and
+``make_train_step(llama_loss, adamw)`` on `synthetic_tokens` (or, with
+``--data``, on random windows of a raw int32 token shard), trains, and
 prints ``final loss X``.
 
 The flags are the JAX script's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels) and
 ``--log-every``. ``--checkpoint-dir`` resumes from the latest step there
 and checkpoints at the end (and every ``--checkpoint-every`` steps);
-``--eval-every`` scores a fixed held-out batch of ``synthetic_tokens`` with
-seed 1, as the JAX script does; ``--master-weights`` keeps f32 masters. A
-SIGTERM commits an emergency checkpoint and exits 12. Flags for what this
-slice does not port raise NotImplementedError naming the slice that brings
-it: ``--data`` (a token shard, with the data slice), ``--pp-micro`` and
-``--pp-virtual`` (the parallel slice). MoE presets raise in `get_config`.
+``--eval-every`` scores a fixed held-out batch from the same source as
+training with a disjoint seed, as the JAX script does: shard windows with
+seed ``1_000_000 + process_index`` (training uses ``process_index``), or
+``synthetic_tokens`` with seed 1. ``--master-weights`` keeps f32 masters.
+A SIGTERM commits an emergency checkpoint and exits 12.
+
+Run as a TonY task (``--executes`` a script that calls this module), it
+logs structured JSON lines, runs the sampling profiler, and its Trainer
+reports spans, goodput and step metrics to the AM; outside the
+orchestrator those reports are no-ops. ``--pp-micro`` and ``--pp-virtual``
+raise NotImplementedError (the parallel slice); MoE presets raise in
+`get_config`.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import sys
 from functools import partial
 
 DATA_SEED = 0
 EVAL_SEED = 1
+# a shard's held-out windows: seed offset from the training stream's
+SHARD_EVAL_SEED = 1_000_000
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -56,7 +64,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="checkpoint cadence in steps (0 = only at the "
                         "end)")
     p.add_argument("--data", default="",
-                   help="raw int32 token shard (not yet ported)")
+                   help="raw int32 token shard (write_token_file); "
+                        "default: synthetic tokens")
     p.add_argument("--pp-micro", type=int, default=0,
                    help="pipeline microbatches (not yet ported)")
     p.add_argument("--pp-virtual", type=int, default=1,
@@ -67,8 +76,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Raise NotImplementedError for every flag this slice does not port."""
     unported = [
-        (bool(args.data), "--data", "the data slice (a token shard in the "
-                                    "repository)"),
         (args.pp_micro > 0, "--pp-micro", "the parallel slice"),
         (args.pp_virtual != 1, "--pp-virtual", "the parallel slice"),
     ]
@@ -79,10 +86,30 @@ def _refuse_unported(args) -> None:
                 f"with {slice_name} (ROADMAP.md, queue 1)")
 
 
+def _streams(args, seq: int, vocab_size: int, process_index: int):
+    """(training stream, held-out stream or None), from the shard with
+    pretrain.py's seeds or from synthetic_tokens."""
+    from tony_tpu_torch.train.data import synthetic_tokens
+    from tony_tpu_torch.train.native_data import token_batches
+
+    if args.data:
+        train = token_batches(args.data, args.batch_size, seq,
+                              seed=process_index)
+        held = (token_batches(args.data, args.batch_size, seq,
+                              seed=SHARD_EVAL_SEED + process_index)
+                if args.eval_every else None)
+        return train, held
+    train = synthetic_tokens(args.batch_size, seq, vocab_size,
+                             seed=DATA_SEED, process_index=process_index)
+    held = (synthetic_tokens(args.batch_size, seq, vocab_size,
+                             seed=EVAL_SEED, process_index=process_index)
+            if args.eval_every else None)
+    return train, held
+
+
 def build_trainer(args):
     """The Trainer the entry point runs, and its model config."""
     from tony_tpu_torch.models.llama import get_config, llama_init, llama_loss
-    from tony_tpu_torch.train.data import synthetic_tokens
     from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     _refuse_unported(args)
@@ -90,12 +117,12 @@ def build_trainer(args):
     config = get_config(args.config, **overrides)
     seq = args.seq_len or config.max_seq
     process_index = int(os.environ.get("RANK", "0"))
+    data_iter, eval_iter = _streams(args, seq, config.vocab_size,
+                                    process_index)
     trainer = Trainer(
         loss_fn=partial(llama_loss, config=config),
         init_fn=partial(llama_init, config),
-        data_iter=synthetic_tokens(args.batch_size, seq, config.vocab_size,
-                                   seed=DATA_SEED,
-                                   process_index=process_index),
+        data_iter=data_iter,
         config=TrainerConfig(num_steps=args.steps, log_every=args.log_every,
                              checkpoint_dir=args.checkpoint_dir,
                              checkpoint_every=args.checkpoint_every,
@@ -104,17 +131,13 @@ def build_trainer(args):
                              master_weights=args.master_weights,
                              flops_per_token=config.flops_per_token(seq)),
         device=args.device,
-        # held-out batches from a disjoint seed of the same stream
-        eval_data_iter=(synthetic_tokens(args.batch_size, seq,
-                                         config.vocab_size, seed=EVAL_SEED,
-                                         process_index=process_index)
-                        if args.eval_every else None))
+        # held-out batches from a disjoint seed of the same source
+        eval_data_iter=eval_iter)
     return trainer, config
 
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
     trainer, _ = build_trainer(args)
     final_loss = trainer.run()
     print(f"final loss {final_loss:.4f}")
@@ -122,4 +145,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from tony_tpu_torch.observability.profiler import (
+        install_task_observability,
+    )
+    install_task_observability("train")
     sys.exit(main())

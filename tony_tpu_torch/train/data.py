@@ -16,9 +16,9 @@ Counterpart of `tony_tpu/train/data.py`:
   allocator records each non-blocking copy on its block, so a pinned
   buffer is not reused before its copy ends.
 
-Single process only: the multi-host global-array assembly waits for the
-parallel slice, and the `tony_prefetch_stall_seconds_total` registry
-counter for the observability slice.
+The consumer's blocked seconds also count into the health registry's
+`tony_prefetch_stall_seconds_total`. Single process only: the multi-host
+global-array assembly waits for the parallel slice.
 """
 
 from __future__ import annotations
@@ -182,6 +182,9 @@ class PrefetchIterator:
         self._closed = False
         self.stall_s = 0.0
         self.batches = 0
+        from tony_tpu_torch.observability.metrics import REGISTRY
+        self._stall_counter = REGISTRY.counter(
+            "tony_prefetch_stall_seconds_total")
         self._initial: list = list(initial)
         self._spill: list = []    # producer's in-flight batch on close
         self.leftover: list = []  # populated by close(), in order
@@ -239,7 +242,9 @@ class PrefetchIterator:
                         break
                     except queue.Empty:
                         raise StopIteration from None
-        self.stall_s += time.perf_counter() - t0
+        stalled = time.perf_counter() - t0
+        self.stall_s += stalled
+        self._stall_counter.inc(stalled)
         if item is _DONE:
             self._closed = True
             raise StopIteration

@@ -35,9 +35,23 @@ The state lifecycle is the JAX Trainer's:
   that escapes the step itself may have left it half applied, so that
   state is never committed: the last committed step stands.
 
-Not in this slice: the profiler server, the metrics reporter, the goodput
-ledger and lifecycle spans (they report to the orchestrator: ROADMAP queue
-1 item 4). Sharded parameters wait for the parallel slice.
+Reports to the orchestrator, as the JAX Trainer makes them (each a no-op
+outside it):
+- **Spans**: `trainer_setup`, `first_step` (step 1's dispatch),
+  `checkpoint_save` and `checkpoint_restore`, parented under the
+  executor's ``TONY_PARENT_SPAN``.
+- **Goodput**: one `GoodputLedger` per process, seeded from
+  ``TONY_GOODPUT_SEED``: init, compile (step 1), train_step, input_stall
+  (the prefetcher's `stall_s`, carved out of train_step at log
+  boundaries), eval, checkpoint save and restore, then idle.
+- **Metrics**: at each log boundary `TRAIN_STEP_TIME_MS` (eval and
+  checkpoint time taken out), `TRAIN_TOKENS_PER_SEC_PER_CHIP`,
+  `TRAIN_MFU_PCT`, the card's memory and the goodput gauges go to the
+  non-blocking `TpuMetricsReporter`; a final push when the run ends.
+- **Profile capture** on request (`ProfileCapture`), and the chaos step
+  delay ``TONY_TRAINER_STEP_DELAY_MS``.
+Not ported: the TensorBoard-port profiler server. Sharded parameters
+wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -55,6 +69,10 @@ import torch
 
 from tony_tpu_torch import constants as C
 from tony_tpu_torch.device import peak_flops, resolve_device
+from tony_tpu_torch.observability.perf import (
+    GoodputLedger, ProfileCapture, mfu_pct, tokens_in_batch,
+)
+from tony_tpu_torch.observability.trace import SpanRecorder
 from tony_tpu_torch.train.checkpoint import (
     AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint,
     trainer_state,
@@ -64,6 +82,7 @@ from tony_tpu_torch.train.optim import (
     Optimizer, adamw, tree_leaves, warmup_cosine_decay_schedule,
 )
 from tony_tpu_torch.train.precision import with_f32_master
+from tony_tpu_torch.train.metrics import TpuMetricsReporter
 from tony_tpu_torch.train.step import make_eval_step, make_train_step
 
 LOG = logging.getLogger(__name__)
@@ -106,16 +125,6 @@ class TrainerConfig:
     extra: dict = field(default_factory=dict)
 
 
-def tokens_in_batch(batch) -> int:
-    """Token count of one batch: B * S of its 'inputs' or 'tokens'."""
-    for key in ("inputs", "tokens"):
-        arr = batch.get(key) if isinstance(batch, dict) else None
-        shape = getattr(arr, "shape", None)
-        if shape and len(shape) >= 2:
-            return int(shape[0]) * int(shape[1])
-    return 0
-
-
 class Trainer:
     """loss_fn(params, batch) -> scalar; init_fn(generator) -> params on
     the generator's device; data_iter (and eval_data_iter) yield host
@@ -151,11 +160,59 @@ class Trainer:
         self._updating = False
         # a SIGTERM that arrived mid-step, raised at the step's end
         self._preempt_requested = False
+        self.ledger: Optional[GoodputLedger] = None
+        self._tracer: Optional[SpanRecorder] = None
+        self._metrics_reporter: Optional[TpuMetricsReporter] = None
+        self._profile: Optional[ProfileCapture] = None
+        self._tokens_per_batch = 0
+        self._last_stall_s = 0.0
+        self._test_step_delay_s = 0.0
 
     # ------------------------------------------------------------------
     def setup(self) -> None:
         # armed first: a SIGTERM during setup or restore still drains
         self._install_sigterm_handler()
+        # spans parent under the executor's user_process span and ride
+        # the reporter's queue: the hot loop never gains an RPC
+        env = os.environ
+        self._tracer = SpanRecorder.from_env(
+            env,
+            task_id=(f"{env.get(C.JOB_NAME, '')}:"
+                     f"{env.get(C.TASK_INDEX, '0')}"
+                     if env.get(C.JOB_NAME) else ""),
+            attempt=int(env.get(C.TASK_ATTEMPT, "0") or 0))
+        # one ledger per process: a re-setup() keeps its clock
+        if self.ledger is None:
+            self.ledger = GoodputLedger.from_env(env)
+        else:
+            self.ledger.transition("init")
+        setup_span = self._tracer.start("trainer_setup")
+        try:
+            self._setup_inner()
+        except BaseException:
+            self._tracer.end(setup_span, "ERROR")
+            raise
+        self._tracer.end(setup_span, attrs={"resumed_step": self.step})
+        self._flush_spans()
+
+    def _flush_spans(self) -> None:
+        tracer, reporter = self._tracer, self._metrics_reporter
+        if tracer is not None and reporter is not None and tracer.enabled:
+            reporter.report_spans(tracer.drain())
+
+    def _setup_inner(self) -> None:
+        if self._metrics_reporter is not None:
+            self._metrics_reporter.close()
+        self._metrics_reporter = TpuMetricsReporter()
+        # the request file is polled at log boundaries; the artifact
+        # rides the metrics RPC back to the AM
+        self._profile = ProfileCapture(
+            cwd=os.getcwd(),
+            publish=self._metrics_reporter.report_profile_done)
+        self._last_stall_s = 0.0
+        # chaos seam: a fixed per-step host sleep (a steady straggler)
+        self._test_step_delay_s = float(
+            os.environ.get(C.TRAINER_STEP_DELAY_MS, "0") or 0) / 1000.0
         cfg = self.config
         self.device = resolve_device(str(self.device_name))
         if cfg.optimizer is not None:
@@ -186,10 +243,14 @@ class Trainer:
         if resume is not None:
             LOG.info("resuming from checkpoint step %d", resume)
             self._restore_pinned = resume
+            self.ledger.transition("checkpoint_restore")
             # in place into the state just built: leaf by leaf, on the
             # device, mmap-backed reads
-            state = restore_checkpoint(cfg.checkpoint_dir, resume,
-                                       template=template)
+            with self._tracer.span("checkpoint_restore",
+                                   attrs={"step": resume}):
+                state = restore_checkpoint(cfg.checkpoint_dir, resume,
+                                           template=template)
+            self.ledger.transition("init")
             self.opt_state.load_tree(state["opt_state"])
             self.step = int(state["step"])
         self.train_step.step_num = self.step
@@ -236,6 +297,50 @@ class Trainer:
         return trainer_state(self.params, self.opt_state.tree(),
                              self.step if step is None else step)
 
+    def _perf_metrics(self) -> list[dict]:
+        """Log-boundary accounting (never per step): carve the
+        prefetcher's fresh stall seconds out of train_step, and return
+        the goodput gauges plus the interval's step time, tokens/s and
+        MFU for the metrics push. Reads shapes and host clocks only."""
+        now = time.monotonic()
+        snap = getattr(self._global_data_iter, "stall_snapshot", None)
+        if snap is not None:
+            stall_s, _ = snap()
+            if stall_s > self._last_stall_s:
+                self.ledger.carve("input_stall",
+                                  stall_s - self._last_stall_s,
+                                  source="train_step")
+            self._last_stall_s = stall_s
+        phases = self.ledger.snapshot()["phases"]
+        out = self.ledger.metrics()
+        prev_t = getattr(self, "_perf_t0", None)
+        prev_step = getattr(self, "_perf_step0", self.step)
+        if prev_t is not None and self.step > prev_step and now > prev_t:
+            dt = now - prev_t
+            d_steps = self.step - prev_step
+            # step time leaves out the interval's eval and checkpoint
+            # time; throughput stays on the wall (stalls included)
+            prev_phases = getattr(self, "_perf_phases0", {})
+            overhead = sum(
+                phases.get(p, 0.0) - prev_phases.get(p, 0.0)
+                for p in ("eval", "checkpoint_save", "checkpoint_restore"))
+            step_dt = max(dt - max(0.0, overhead), 1e-9)
+            out.append({"name": "TRAIN_STEP_TIME_MS",
+                        "value": round(1000.0 * step_dt / d_steps, 3)})
+            if self._tokens_per_batch:
+                # one device: the per-chip rate is the rate
+                tok_s = self._tokens_per_batch * d_steps / dt
+                out.append({"name": "TRAIN_TOKENS_PER_SEC_PER_CHIP",
+                            "value": round(tok_s, 2)})
+                if self.config.flops_per_token > 0:
+                    out.append({"name": "TRAIN_MFU_PCT",
+                                "value": round(mfu_pct(
+                                    tok_s, self.config.flops_per_token,
+                                    self.device), 3)})
+        self._perf_t0, self._perf_step0 = now, self.step
+        self._perf_phases0 = phases
+        return out
+
     def _evaluate(self) -> float:
         """Mean loss over the fixed held-out set (params only). The losses
         add up on the device; one host read at the end."""
@@ -251,6 +356,10 @@ class Trainer:
         if self.params is None:
             self.setup()
         self._install_sigterm_handler()
+        if self.ledger is None or self._metrics_reporter is None:
+            # state injected by hand (setup() skipped): account from here
+            self.ledger = self.ledger or GoodputLedger(phase="init")
+            self._metrics_reporter = TpuMetricsReporter()
         it = self._global_data_iter
         if (isinstance(it, PrefetchIterator) and it.closed
                 and self.step < self.config.num_steps):
@@ -264,7 +373,15 @@ class Trainer:
         self._preempt_requested = False
         loss = None
         pending = None      # (step, device loss, elapsed_s, interval)
-        tokens_per_batch = 0
+        tracer, profile = self._tracer, self._profile
+        # step 1's dispatch builds every kernel and allocator pool it
+        # touches: the compile phase, in the first_step span
+        first_span = (tracer.start("first_step")
+                      if tracer is not None and self.step < cfg.num_steps
+                      else None)
+        if self.step < cfg.num_steps:
+            self.ledger.transition("compile" if first_span is not None
+                                   else "train_step")
         t0 = time.monotonic()
         last_t, last_step = t0, self.step
 
@@ -287,13 +404,23 @@ class Trainer:
                 self._updating = False
                 if self._preempt_requested:
                     raise TrainerPreempted()
-                if not tokens_per_batch:
-                    tokens_per_batch = tokens_in_batch(batch)
+                if self._test_step_delay_s:
+                    time.sleep(self._test_step_delay_s)
+                if profile is not None and profile.active:
+                    profile.on_step()
+                if not self._tokens_per_batch:
+                    self._tokens_per_batch = tokens_in_batch(batch)
+                if first_span is not None:
+                    tracer.end(first_span, attrs={"step": self.step})
+                    first_span = None
+                    self._flush_spans()
+                    self.ledger.transition("train_step")
                 if cfg.log_every and self.step % cfg.log_every == 0:
                     if pending is not None:
                         _flush(pending)
                     now = time.monotonic()
                     interval = {}
+                    tokens_per_batch = self._tokens_per_batch
                     if tokens_per_batch and now > last_t:
                         # host time between boundaries: in steady state
                         # the device is a fixed lag behind, so this is
@@ -307,9 +434,15 @@ class Trainer:
                                                    / peak)
                     last_t, last_step = now, self.step
                     pending = (self.step, loss, now - t0, interval)
+                    self._metrics_reporter.report(
+                        extra=self._perf_metrics())
+                    if profile is not None:
+                        profile.poll()
                 if (cfg.eval_every and self.eval_data_iter is not None
                         and self.step % cfg.eval_every == 0):
+                    self.ledger.transition("eval")
                     self.last_eval_loss = self._evaluate()
+                    self.ledger.transition("train_step")
                     self.metrics_history.append(
                         {"step": self.step, "eval_loss": self.last_eval_loss})
                     LOG.info("step %d eval_loss %.4f", self.step,
@@ -350,6 +483,17 @@ class Trainer:
                               exc_info=True)
             if isinstance(self._global_data_iter, PrefetchIterator):
                 self._global_data_iter.close()
+            if first_span is not None:      # failed before step 1 ended
+                tracer.end(first_span, "ERROR")
+            self._flush_spans()
+            # close the books: the rest is idle, and the final ledger
+            # ships with the last push (never masking the real error)
+            try:
+                self.ledger.transition("idle")
+                self._metrics_reporter.report(extra=self._perf_metrics())
+            except Exception:  # noqa: BLE001
+                LOG.debug("final goodput report failed", exc_info=True)
+            self._metrics_reporter.close()
         return self.last_loss
 
     # ------------------------------------------------------------------
@@ -409,9 +553,13 @@ class Trainer:
                 LOG.info("emergency checkpoint: step %d already committed",
                          self.step)
                 return
+            if self.ledger is not None:
+                self.ledger.transition("checkpoint_save")
             save_checkpoint(cfg.checkpoint_dir, self.step, self._state(),
                             keep=self._checkpoint_keep(),
                             pinned=self._restore_pinned)
+            if self.ledger is not None:
+                self.ledger.transition("idle")
             LOG.warning("emergency checkpoint committed at step %d (%s)",
                         self.step, reason or "unhandled error")
         except BaseException:  # noqa: BLE001 — never mask the real error
@@ -426,10 +574,24 @@ class Trainer:
             self._checkpointer = AsyncCheckpointer(
                 self.config.checkpoint_dir, keep=self._checkpoint_keep(),
                 pinned=self._restore_pinned)
+        tracer, ledger = self._tracer, self.ledger
+        span = (tracer.start("checkpoint_save",
+                             attrs={"step": self.step, "final": final})
+                if tracer is not None else None)
+        prev_phase = ledger.phase if ledger is not None else ""
+        if ledger is not None:
+            ledger.transition("checkpoint_save")
         if not (final and self._checkpointer.last_step == self.step):
             self._checkpointer.save(self.step, self._state())
         if final:
             self._checkpointer.close()
             self._checkpointer = None
+        # the async file IO runs on past this by design: only the
+        # snapshot (and the final commit) is checkpoint time
+        if ledger is not None:
+            ledger.transition(prev_phase or "train_step")
+        if span is not None:
+            tracer.end(span)
+            self._flush_spans()
         LOG.info("checkpointed step %d%s", self.step,
                  " (final)" if final else " (async)")
