@@ -105,19 +105,48 @@ Phases (any failure exits non-zero, and the result line is not printed):
               with it), and that SIGTERM re-registers the endpoint
               draining and exits 0. Prints tokens/s, decode and ITL p50,
               TTFT p50 and the profiler's own overhead for every run.
+9. moe      — the mixture-of-experts Llama, mixtral_proxy (full width
+              and depth, bf16, random weights from a fixed seed), through
+              both entry points. Serve: the serve phase's burst on a
+              `--config mixtral_proxy` server (no-drop capacity, cf 4)
+              with exact K1 and K4 launches; each burst stream compared
+              with offline `generate` (printed: the burst's 4-row decode
+              products round otherwise than generate's 1-row ones), the
+              streams held token for token at generate's own shapes (one
+              slot), the prefill's last logits held to `moe_forward` at
+              bf16's 3e-2; the prefill and decode step profiled with the
+              MoE breakdown (expert products, dispatch gathers, router).
+              int8: the weights quantized on the card; int8 logits (and
+              with the int8 cache) on the bf16 model's routing within
+              the 5% normalized RMSE of bf16's, printed beside the
+              logits on their own routing and the top-2 choices that
+              differ; K5's launches in one decode step exact (16 x (4 +
+              3 x 8) + 1); the int8 decode step profiled; the burst on a
+              `--quant int8 --quant-cache` server with exact K1, K4 and
+              K5 launches. Train: the train phase's run on mixtral_proxy
+              (B4 x S4096, cf 1.25, save_flash, AdamW; 5 steps and a
+              profiled one, exact launches, peak memory, tokens/s and MFU
+              on the active parameters), then two fresh 2-step runs whose
+              losses, parameters and AdamW moments are bitwise equal to
+              each other's, and whose losses are the train run's first
+              two.
 
-`--phases build,kernels` (for instance) runs a subset.
+`--phases build,kernels` (for instance) runs a subset; `--phases
+build,moe` runs the MoE slice alone.
 
 Two lines before the last is a JSON object with one entry per kernel
-(`launches`: its launches on the serve, quant, kvcache, train, ckpt and
-orch paths together, split in `launches_by_path`; the orch path counts
-its training run), then the card's name and power limit from nvidia-smi;
-the last line is {"ok": true, "device": {...}}.
+(`launches`: its launches on the serve, quant, kvcache, train, ckpt,
+orch and moe paths together, split in `launches_by_path`; the orch path
+counts its training run, the moe path its two bursts and its training
+runs), then the card's name and power limit from nvidia-smi; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import os
@@ -138,9 +167,11 @@ SERVE_CONFIG = "llama3_8b"
 # lengths, timed; the last is the timed summary
 FLASH_SEQS = (1, 37, 512, 513, 2000)
 # more bf16 K1 cases, held and not timed, (B, H, Hkv, S, D, causal):
-# bench_350m's D64, D32 and D16, each at a ragged S (not a multiple of the
-# 128-key tile), a non-causal case, an H == Hkv case, a group of 4 at B2
+# mixtral_proxy's prefill head layout at the longest prompt, bench_350m's
+# D64, D32 and D16, each at a ragged S (not a multiple of the 128-key
+# tile), a non-causal case, an H == Hkv case, a group of 4 at B2
 FLASH_CASES = (
+    (1, 16, 8, 1900, 128, True),
     (1, 16, 8, 1000, 64, True),
     (1, 4, 2, 100, 32, True),
     (2, 4, 4, 37, 16, True),
@@ -149,12 +180,14 @@ FLASH_CASES = (
     (2, 8, 2, 777, 128, True),
 )
 # (rows, D): serving's shapes (2000 x 4096 is the timed summary), the
-# training path's (B4 x S4096 rows of llama3_1b_proxy's 2048), bench_350m's
-# 1024, and two rows that are not a power of two: 1000 (bf16: 125 16-byte
+# training path's (B4 x S4096 rows of llama3_1b_proxy's and
+# mixtral_proxy's 2048), mixtral_proxy's serving rows, bench_350m's 1024,
+# and two rows that are not a power of two: 1000 (bf16: 125 16-byte
 # vectors, the vector path) and 1001 (not a whole number of 16-byte
 # vectors in either dtype: the scalar path)
 RMS_CASES = ((1, 4096), (4, 4096), (513, 4096), (2000, 4096),
-             (16384, 2048), (2000, 1024), (2000, 1000), (2000, 1001))
+             (16384, 2048), (4, 2048), (1900, 2048), (2000, 1024),
+             (2000, 1000), (2000, 1001))
 RMS_SUMMARY = (2000, 4096)
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
@@ -230,9 +263,16 @@ INT8_CASES = (("wq/wo", 4096, 4096, False), ("wk/wv", 4096, 1024, False),
               ("w_down", 14336, 4096, False), ("output", 4096, 128256, True))
 INT8_ROWS = (1, 4)
 INT8_SUMMARY = "w_gate/w_up M4"
-# held and not timed: row blocks past one (M 5: a partial block of 8; M 16:
-# two) in bf16, and the tiny f32 path's products in f32
-INT8_EXTRA = (("wk/wv", 4096, 1024, False, 5, "bfloat16"),
+# held and not timed: mixtral_proxy's int8 decode products at its 4 slots
+# (an expert's queue holds 4 rows at no-drop capacity), row blocks past
+# one (M 5: a partial block of 8; M 16: two) in bf16, and the tiny f32
+# path's products in f32
+INT8_EXTRA = (("mixtral wq/wo", 2048, 2048, False, 4, "bfloat16"),
+              ("mixtral wk/wv", 2048, 1024, False, 4, "bfloat16"),
+              ("mixtral we_gate/we_up", 2048, 4096, False, 4, "bfloat16"),
+              ("mixtral we_down", 4096, 2048, False, 4, "bfloat16"),
+              ("mixtral output", 2048, 32000, True, 4, "bfloat16"),
+              ("wk/wv", 4096, 1024, False, 5, "bfloat16"),
               ("wk/wv", 4096, 1024, False, 16, "bfloat16"),
               ("output", 4096, 128256, True, 16, "bfloat16"),
               ("wk/wv", 4096, 1024, False, 4, "float32"),
@@ -260,6 +300,23 @@ ORCH_SERVE_RUNS = ("off", "on", "off", "on")
 ORCH_SERVER_UP_S = 300.0
 # the train phase's median step interval, for the orch phase to compare
 TRAIN_INTERVAL: dict = {}
+# the moe phase: mixtral_proxy at full width and depth, bf16. Served at
+# no-drop capacity (the entry point's), the serve phase's burst; its
+# prefill's last logits held to moe_forward's at MOE_FORWARD_PROMPT
+# tokens; greedy streams held to `generate` at its own shapes (one slot,
+# a budget of prompt + new tokens) for MOE_EXACT_PROMPTS; trained at
+# MOE_TRAIN_BATCH x TRAIN_SEQ with the preset's capacity factor 1.25, then
+# two fresh runs of MOE_REPEAT_STEPS steps that must agree bit for bit
+MOE_CONFIG = "mixtral_proxy"
+MOE_FORWARD_PROMPT = 513
+MOE_EXACT_PROMPTS = (128, 513)
+MOE_TRAIN_BATCH = 4
+MOE_REPEAT_STEPS = 2
+# peak device memory the MoE training may reach, GiB: bf16 params, grads
+# and AdamW moments of 3.554 B parameters are 26.5 GiB; save_flash keeps
+# 2.1 GiB of block inputs and flash out/lse; one block's replay and
+# backward at E * C = 40960 expert rows holds a few GiB more
+MOE_TRAIN_PEAK_GIB = 40.0
 
 
 class SmokeFailure(RuntimeError):
@@ -941,22 +998,37 @@ def _post(url: str, body: dict, stream: bool, timeout: float = 600.0
             "wall_s": time.monotonic() - t0, "first_s": first}
 
 
-def _k5_launches(n_layers: int, prompt_lens, steps: int) -> int:
-    """K5's launches over a burst with int8 weights: the decode step's 7
-    products per layer and the LM head, and in each admission the LM head
-    (its last row), or all of the products where the prompt has at most
-    KERNEL_MAX_ROWS tokens."""
+def _k5_per_pass(cfg, rows: int) -> int:
+    """K5's launches in one pass of `rows` tokens with int8 weights: per
+    layer the 4 attention products, and the 3 MLP products (an MoE
+    config: 3 per expert, each over its queue of capacity rows), each
+    where it has at most KERNEL_MAX_ROWS rows; then the LM head on the
+    last row (a prefill) or the slots' rows (a decode step)."""
     from tony_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
-    per_pass = 7 * n_layers + 1
-    return steps * per_pass + sum(
-        per_pass if n <= KERNEL_MAX_ROWS else 1 for n in prompt_lens)
+    per_layer = 4 * (rows <= KERNEL_MAX_ROWS)
+    experts = getattr(cfg, "n_experts", 0)
+    if experts:
+        capacity = max(1, int(cfg.capacity_factor * rows * cfg.top_k
+                              / experts))
+        per_layer += 3 * experts * (capacity <= KERNEL_MAX_ROWS)
+    else:
+        per_layer += 3 * (rows <= KERNEL_MAX_ROWS)
+    return cfg.n_layers * per_layer + 1
+
+
+def _k5_launches(cfg, prompt_lens, steps: int, slots: int) -> int:
+    """K5's launches over a burst with int8 weights: each decode step over
+    the slots' rows, and each admission's prefill of its prompt."""
+    return steps * _k5_per_pass(cfg, slots) + sum(
+        _k5_per_pass(cfg, n) for n in prompt_lens)
 
 
 def phase_serve(config_name: str, flags: tuple = (),
-                tag: str = "serve") -> dict[str, int]:
+                tag: str = "serve", hold=None) -> dict[str, int]:
     """Returns each kernel's launch count over the burst. `flags` are
     added to the server's (the quant phase's `--quant int8
-    --quant-cache`)."""
+    --quant-cache`); `hold(server, prompts, finished)`, when given, runs
+    more checks on the server after the burst (the moe phase's)."""
     import numpy as np
     import torch
 
@@ -1038,8 +1110,8 @@ def phase_serve(config_name: str, flags: tuple = (),
                 FLASH_BWD_DQ.name: 0, FLASH_BWD_DKV.name: 0,
                 RMSNORM_FWD.name: (2 * cfg.n_layers + 1)
                 * (admissions + steps),
-                INT8_MATMUL.name: (_k5_launches(cfg.n_layers, PROMPT_LENS,
-                                                steps)
+                INT8_MATMUL.name: (_k5_launches(cfg, PROMPT_LENS, steps,
+                                                engine.n_slots)
                                    if "int8" in flags else 0)}
         log(f"{tag}: launches {launches}, expected {want} "
             f"({admissions} admissions, {steps} decode steps)")
@@ -1055,10 +1127,14 @@ def phase_serve(config_name: str, flags: tuple = (),
                 f" ms, prefill {h.prefill_s * 1e3:.1f} ms), decode "
                 f"{per_tok:.2f} ms/token, wall {results[i]['wall_s']:.3f} s")
         total = len(PROMPT_LENS) * MAX_NEW
+        ttfts = sorted(h.ttft_s * 1e3 for h in finished)
         log(f"{tag}: {total} tokens in {burst_s:.3f} s = "
-            f"{total / burst_s:.1f} tokens/s; decode p50 "
+            f"{total / burst_s:.1f} tokens/s; TTFT p50 "
+            f"{ttfts[len(ttfts) // 2]:.1f} ms; decode p50 "
             f"{metrics['decode_ms_per_token_p50']:.2f} ms/token; peak "
             f"memory allocated {peak_gib:.2f} GiB")
+        if hold is not None:
+            hold(server, prompts, finished)
 
         # the 8B outputs are right in kind: a prefill's f32 logits are
         # finite and of the vocab's width
@@ -1070,7 +1146,7 @@ def phase_serve(config_name: str, flags: tuple = (),
         check(logits.shape == (1, cfg.vocab_size)
               and logits.dtype == torch.float32
               and bool(torch.isfinite(logits).all()),
-              f"8B prefill logits {logits.shape} {logits.dtype}")
+              f"{config_name} prefill logits {logits.shape} {logits.dtype}")
         return launches
     finally:
         server.stop(drain_timeout=0)
@@ -1210,10 +1286,38 @@ def _nrmse(got, want) -> float:
     return float((g - w).square().mean().sqrt() / w.square().mean().sqrt())
 
 
-def _profile_step(label: str, fn, tag: str) -> dict:
+def moe_breakdown(prof, n_experts: int) -> dict[str, float]:
+    """Device ms of an MoE profile's parts, by the host op that launched
+    each kernel (the profile recorded its shapes): the expert banks'
+    bf16 products (`bmm` over n_experts batches; the decode step's
+    attention einsums are `bmm`s over B x Hkv; an int8 bank's products
+    are K5's, counted with K5), the dispatch and combine gathers and
+    slot writes (the indexing ops, forward and backward), and the
+    router's products (`mm` with an operand of n_experts columns or
+    rows)."""
+    parts = {"expert products": 0.0, "dispatch gathers/scatters": 0.0,
+             "router products": 0.0}
+    gathers = re.compile(r"aten::(index|index_put_|_index_put_impl_|gather|"
+                         r"scatter|scatter_|index_select)$")
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = e.self_device_time_total
+        if not us or str(e.device_type).endswith("CUDA"):
+            continue
+        shapes = [sh for sh in (e.input_shapes or []) if sh]
+        if e.key == "aten::bmm" and shapes and shapes[0][0] == n_experts:
+            parts["expert products"] += us / 1e3
+        elif gathers.match(e.key):
+            parts["dispatch gathers/scatters"] += us / 1e3
+        elif e.key == "aten::mm" and any(
+                n_experts in shape for shape in shapes if len(shape) == 2):
+            parts["router products"] += us / 1e3
+    return parts
+
+
+def _profile_step(label: str, fn, tag: str, n_experts: int = 0) -> dict:
     """Host wall (median of 5, CUDA-synchronised, profiler off), device
     busy time and idle share of fn(), K5's share of the busy time, and the
-    top device ops."""
+    top device ops; with `n_experts`, the MoE breakdown too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1226,8 +1330,8 @@ def _profile_step(label: str, fn, tag: str) -> dict:
         torch.cuda.synchronize()
         walls.append((time.monotonic() - t0) * 1e3)
     wall = sorted(walls)[len(walls) // 2]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(n_experts)) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = device_events(prof)
@@ -1238,8 +1342,12 @@ def _profile_step(label: str, fn, tag: str) -> dict:
     log(f"{tag}: {label}: wall {wall:.2f} ms (median of 5), device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
         f"{n_ops} device ops, K5 {k5:.3f} ms")
+    if n_experts:
+        parts = moe_breakdown(prof, n_experts)
+        log(f"{tag}: {label}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()))
     log_top(kernels, 6)
-    return {"wall_ms": wall, "busy_ms": busy, "k5_ms": k5}
+    return {"wall_ms": wall, "busy_ms": busy, "k5_ms": k5, "ops": n_ops}
 
 
 def phase_quant(config_name: str) -> dict[str, int]:
@@ -1608,11 +1716,22 @@ def _forward_launches(n_layers: int) -> dict[str, int]:
 
 
 def phase_train() -> dict[str, int]:
-    """One `Trainer.run()` of TRAIN_STEPS steps and a profiled last one.
-    Its step is wrapped to count each step's kernel launches (counts set to
-    0 just before the step, read just after); the step time, tokens/s and
-    MFU are the Trainer's own `metrics_history`. Returns each kernel's
-    launches over the run."""
+    """The train phase's run (`_train_run` on TRAIN_CONFIG). Returns each
+    kernel's launches over the run."""
+    run = _train_run(TRAIN_CONFIG, TRAIN_BATCH, TRAIN_PEAK_GIB, "train")
+    TRAIN_INTERVAL["s"] = run["step_s"]
+    return run["launches"]
+
+
+def _train_run(config_name: str, batch: int, peak_limit_gib: float,
+               tag: str) -> dict:
+    """One `Trainer.run()`, built as `python -m tony_tpu_torch.train
+    --config config_name` builds it, of TRAIN_STEPS steps at batch x
+    TRAIN_SEQ and a profiled last one. Its step is wrapped to count each
+    step's kernel launches (counts set to 0 just before the step, read
+    just after); the step time, tokens/s and MFU are the Trainer's own
+    `metrics_history`. An MoE config's profile also gives its breakdown.
+    Returns {"launches" over the run, "losses", "step_s"}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1622,18 +1741,22 @@ def phase_train() -> dict[str, int]:
 
     steps = TRAIN_STEPS + 1                  # the last one is profiled
     args = build_arg_parser().parse_args(
-        ["--config", TRAIN_CONFIG, "--device", "cuda", "--steps",
-         str(steps), "--batch-size", str(TRAIN_BATCH), "--seq-len",
+        ["--config", config_name, "--device", "cuda", "--steps",
+         str(steps), "--batch-size", str(batch), "--seq-len",
          str(TRAIN_SEQ), "--log-every", "1"])
     t0 = time.monotonic()
     trainer, cfg = build_trainer(args)
     trainer.setup()
-    log(f"train: {TRAIN_CONFIG} (dim {cfg.dim}, {cfg.n_layers} layers, "
+    experts = getattr(cfg, "n_experts", 0)
+    moe_desc = (f", {experts} experts top-{cfg.top_k}, capacity_factor "
+                f"{cfg.capacity_factor}, {cfg.active_params() / 1e9:.3f} B "
+                f"active" if experts else "")
+    log(f"{tag}: {config_name} (dim {cfg.dim}, {cfg.n_layers} layers, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim}, vocab "
         f"{cfg.vocab_size}, {str(cfg.dtype).split('.')[-1]}, remat "
         f"{cfg.remat_policy if cfg.remat else 'off'}, xent_chunk "
-        f"{cfg.xent_chunk}), batch {TRAIN_BATCH} x {TRAIN_SEQ}; set up in "
-        f"{time.monotonic() - t0:.1f} s, "
+        f"{cfg.xent_chunk}{moe_desc}), batch {batch} x {TRAIN_SEQ}; set up "
+        f"in {time.monotonic() - t0:.1f} s, "
         f"{cfg.num_params() / 1e9:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     want = _step_launches(cfg.n_layers)
@@ -1650,7 +1773,8 @@ def phase_train() -> dict[str, int]:
         else:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+                                     ProfilerActivity.CUDA],
+                         record_shapes=bool(experts)) as prof:
                 t_step = time.monotonic()
                 out = step_fn(params, opt_state, batch)
                 torch.cuda.synchronize()
@@ -1669,7 +1793,7 @@ def phase_train() -> dict[str, int]:
           f"{len(history)} log entries, {len(per_step)} steps, want {steps}")
     total = {name: 0 for name in want}
     for entry, got in zip(history, per_step):
-        log(f"train: step {entry['step']} loss {entry['loss']:.4f} "
+        log(f"{tag}: step {entry['step']} loss {entry['loss']:.4f} "
             f"interval tokens/s {entry.get('tokens_per_s', 0.0):.1f} "
             f"launches {got}")
         check(got == want, f"step {entry['step']} launches {got} != {want}")
@@ -1688,31 +1812,34 @@ def phase_train() -> dict[str, int]:
     mfu = sorted(e["mfu_pct"] for e in window)[1]
     peak = peak_flops(torch.device("cuda"))
     # the Trainer counts a batch's B x (S + 1) tokens, as the JAX one does
-    step_s = TRAIN_BATCH * (TRAIN_SEQ + 1) / tok_s
-    log(f"train: the Trainer's median interval over steps "
+    step_s = batch * (TRAIN_SEQ + 1) / tok_s
+    log(f"{tag}: the Trainer's median interval over steps "
         f"{TRAIN_STEPS - 2}-{TRAIN_STEPS}: {step_s:.4f} s per step = "
         f"{tok_s:.1f} "
         f"tokens/s, MFU {mfu:.2f}% of {peak / 1e12:.0f} TFLOP/s "
         f"(flops_per_token {cfg.flops_per_token(TRAIN_SEQ):.4e}); peak "
-        f"memory allocated {peak_gib:.2f} GiB (limit {TRAIN_PEAK_GIB})")
-    check(peak_gib <= TRAIN_PEAK_GIB,
-          f"peak memory {peak_gib:.2f} GiB > {TRAIN_PEAK_GIB} GiB")
-    TRAIN_INTERVAL["s"] = step_s
+        f"memory allocated {peak_gib:.2f} GiB (limit {peak_limit_gib})")
+    check(peak_gib <= peak_limit_gib,
+          f"peak memory {peak_gib:.2f} GiB > {peak_limit_gib} GiB")
 
     wall = profiled["wall_ms"]
     kernels = device_events(profiled["prof"])
     busy = sum(_device_us(e) for e in kernels) / 1e3
     copies = [e for e in kernels if "copy" in e.key.lower()
               or "memcpy" in e.key.lower()]
-    log(f"profile: train step {steps}: wall {wall:.2f} ms, device busy "
+    log(f"profile: {tag} step {steps}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
         f"{sum(e.count for e in kernels)} device ops, of which "
         f"{sum(e.count for e in copies)} copies "
         f"({sum(_device_us(e) for e in copies) / 1e3:.2f} ms)")
+    if experts:
+        parts = moe_breakdown(profiled["prof"], experts)
+        log(f"profile: {tag} step {steps}: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in parts.items()))
     log_top(kernels, 12)
     del trainer, profiled, step_fn
     torch.cuda.empty_cache()
-    return total
+    return {"launches": total, "losses": losses, "step_s": step_s}
 
 
 def phase_train_parity() -> None:
@@ -2637,11 +2764,294 @@ def phase_orch(smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the mixture-of-experts Llama, served and trained
+# ---------------------------------------------------------------------------
+
+def _moe_exact_streams(params, cfg, prompts) -> None:
+    """The engine at `generate`'s own shapes (one slot, a budget of prompt
+    + new tokens, so its decode steps are generate's B 1 products): each
+    prompt's greedy stream equal to offline `generate`, token for
+    token."""
+    import torch
+
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    for p in prompts:
+        engine = ContinuousBatchingEngine(params, cfg, n_slots=1,
+                                          token_budget=len(p) + MAX_NEW)
+        h = engine.submit(p, MAX_NEW)
+        for _ in range(4 * MAX_NEW):
+            if h.done.is_set():
+                break
+            engine.step()
+        want = generate(params, cfg, torch.tensor([p], device="cuda"),
+                        MAX_NEW)[0].tolist()
+        log(f"moe: engine at generate's shapes, prompt {len(p)}: "
+            f"{h.tokens}, generate {want}")
+        check(h.tokens == want, f"MoE engine stream {h.tokens} != offline "
+                                f"generate {want} (prompt {len(p)})")
+
+
+@contextlib.contextmanager
+def _moe_routes(replay: list | None = None):
+    """Records every MoE routing in the block (yields the list); with
+    `replay`, each call returns the recorded routing of the same call
+    instead of its own (the int8 model on the bf16 model's choices)."""
+    from tony_tpu_torch.models import moe
+
+    own = moe.route
+    seen: list = []
+
+    def route(xt, router, config):
+        r = own(xt, router, config) if replay is None else replay[len(seen)]
+        seen.append(r)
+        return r
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = own
+
+
+def _choice_flips(a: list, b: list) -> tuple[int, int]:
+    """(token-layer routings whose top-k sets differ, all of them) between
+    two runs' records."""
+    import torch
+    flips = total = 0
+    for ra, rb in zip(a, b):
+        sa = torch.stack(ra.topk_idx, -1).sort(-1).values
+        sb = torch.stack(rb.topk_idx, -1).sort(-1).values
+        flips += int((sa != sb).any(-1).sum())
+        total += sa.shape[0]
+    return flips, total
+
+
+def _moe_serve_checks(server, prompts, finished) -> None:
+    """After the bf16 burst, on the served parameters: the burst's streams
+    against offline `generate` (compared and printed), the streams at
+    generate's shapes (held), the prefill's last logits against
+    `moe_forward`, the prefill and decode step profiled with the MoE
+    breakdown, then int8: weights quantized on the card, logits against
+    bf16's under the 5% gate, K5's launches per decode step exact, and the
+    decode step's device time against bf16's."""
+    import torch
+
+    from tony_tpu_torch.models.generate import (
+        decode_step, empty_cache, generate, prefill,
+    )
+    from tony_tpu_torch.models.moe import MoEConfig, moe_forward
+    from tony_tpu_torch.models.quant import quantize_params, quantized_bytes
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
+
+    engine = server.engine
+    params, cfg = engine.params, engine.config
+    check(isinstance(cfg, MoEConfig)
+          and cfg.capacity_factor == cfg.n_experts / cfg.top_k,
+          f"the served config is not the no-drop MoE config: {cfg}")
+    device = torch.device("cuda")
+    equal = 0
+    by_len = {len(h.prompt): h for h in finished}
+    for p in prompts:
+        want = generate(params, cfg, torch.tensor([p], device=device),
+                        MAX_NEW)[0].tolist()
+        got = by_len[len(p)].tokens
+        same = got == want
+        equal += same
+        log(f"moe: burst request, prompt {len(p)}: stream equal to offline "
+            f"generate {same}" + ("" if same else
+                                  f": served {got} generate {want}"))
+    log(f"moe: {equal} of {len(prompts)} burst streams equal offline "
+        f"generate (4-slot decode steps against generate's 1-row ones)")
+    _moe_exact_streams(params, cfg,
+                       [p for p in prompts if len(p) in MOE_EXACT_PROMPTS])
+
+    fwd_prompt = next(p for p in prompts if len(p) == MOE_FORWARD_PROMPT)
+    tokens = torch.tensor([fwd_prompt], device=device)
+    with torch.inference_mode():
+        last, _ = prefill(params, tokens, cfg, len(fwd_prompt))
+        full, aux = moe_forward(params, tokens, cfg)
+    err, ok = max_err(last, full[:, -1], TOL["bfloat16"])
+    log(f"moe: prefill last logits against moe_forward (prompt "
+        f"{len(fwd_prompt)}): max_abs_err {err:.3e} (tol "
+        f"{TOL['bfloat16']}), aux loss {float(aux):.4f}")
+    check(ok and bool(torch.isfinite(full).all()),
+          f"MoE prefill logits differ from moe_forward by {err}")
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LENS[-1]),
+                                generator=g, device="cuda")
+    cache = empty_cache(cfg, DECODE_SLOTS, DECODE_BUDGET, device)
+    rows = {n: a[:, 0:1] for n, a in cache.items()}
+    tok = torch.randint(0, cfg.vocab_size, (DECODE_SLOTS,), generator=g,
+                        device="cuda")
+    pos = torch.tensor(DECODE_POS, device="cuda")
+    with torch.inference_mode():
+        _profile_step(f"prefill {PROMPT_LENS[-1]} tokens, bf16",
+                      lambda: prefill(params, long_prompt, cfg,
+                                      DECODE_BUDGET, cache=rows),
+                      "moe", cfg.n_experts)
+        bf16 = _profile_step(f"decode step, {DECODE_SLOTS} slots, bf16",
+                             lambda: decode_step(params, cfg, cache, tok,
+                                                 pos),
+                             "moe", cfg.n_experts)
+
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    now, full_bytes = quantized_bytes(qparams)
+    log(f"moe: quantized on the card in {time.monotonic() - t0:.1f} s: "
+        f"{now / 1e9:.3f} GB of int8 weights and scales where bf16 holds "
+        f"{full_bytes / 1e9:.3f} GB (the router stays "
+        f"{str(qparams['layers']['router'].dtype).split('.')[-1]})")
+    b, p = QUANT_PROMPTS
+    qtokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                            device="cuda")
+    # the 5% gate holds the int8 products' error: the int8 model routed as
+    # the bf16 model routed. On its own routing a token whose top-2 margin
+    # is below the int8 perturbation of its router input takes another
+    # expert, and its logits then differ by a whole expert's output: that
+    # is printed beside it, with the choices that differ
+    errs = {}
+    with torch.inference_mode():
+        with _moe_routes() as bf16_routes:
+            ref, ref_cache = prefill(params, qtokens, cfg, p + 8)
+            nxt = torch.argmax(ref, dim=-1)
+            d_ref, _ = decode_step(params, cfg, ref_cache, nxt, p)
+        for mode, qc in (("int8 weights", False),
+                         ("int8 weights + int8 cache", True)):
+            for routing, replay in (("own routing", None),
+                                    ("bf16's routing", bf16_routes)):
+                with _moe_routes(replay) as routes:
+                    logits, qcache = prefill(qparams, qtokens, cfg, p + 8,
+                                             quant_cache=qc)
+                    d, _ = decode_step(qparams, cfg, qcache, nxt, p)
+                check(bool(torch.isfinite(d).all()), f"MoE {mode} logits")
+                flips, total = _choice_flips(routes, bf16_routes)
+                rows = [round(_nrmse(logits[i], ref[i]), 4)
+                        for i in range(b)]
+                errs[mode, routing] = (_nrmse(logits, ref), _nrmse(d, d_ref))
+                log(f"moe: {mode}, {routing}: normalized RMSE against "
+                    f"bf16: prefill {errs[mode, routing][0]:.4f} (by prompt "
+                    f"{rows}), decode {errs[mode, routing][1]:.4f}; "
+                    f"top-{cfg.top_k} choices differing from bf16's in "
+                    f"{flips} of {total} token-layers")
+    for (mode, routing), (e_pre, e_dec) in errs.items():
+        if routing == "bf16's routing":
+            check(e_pre < QUANT_NRMSE and e_dec < QUANT_NRMSE,
+                  f"MoE {mode} logits on bf16's routing: normalized RMSE "
+                  f"{e_pre}, {e_dec} (limit {QUANT_NRMSE})")
+        cuda_lib.reset_launches()
+        decode_step(qparams, cfg, cache, tok, pos)
+        k5 = cuda_lib.launches()[INT8_MATMUL.name]
+    want_k5 = _k5_per_pass(cfg, DECODE_SLOTS)
+    log(f"moe: K5 launches in one int8 decode step of {DECODE_SLOTS} slots: "
+        f"{k5}, expected {want_k5} ({cfg.n_layers} layers x (4 attention "
+        f"products + 3 x {cfg.n_experts} experts) + the LM head)")
+    check(k5 == want_k5, f"int8 decode step K5 launches {k5} != {want_k5}")
+    with torch.inference_mode():
+        int8 = _profile_step(f"decode step, {DECODE_SLOTS} slots, int8 "
+                             f"weights", lambda: decode_step(
+                                 qparams, cfg, cache, tok, pos),
+                             "moe", cfg.n_experts)
+    log(f"moe: decode step device busy bf16 {bf16['busy_ms']:.2f} ms "
+        f"({bf16['ops']} ops, wall {bf16['wall_ms']:.2f} ms), int8 weights "
+        f"{int8['busy_ms']:.2f} ms ({int8['ops']} ops, wall "
+        f"{int8['wall_ms']:.2f} ms, K5 {int8['k5_ms']:.2f} ms)")
+    del qparams, cache, rows, ref_cache
+    torch.cuda.empty_cache()
+
+
+def _moe_repeat(first_losses: list[float]) -> dict[str, int]:
+    """Two fresh `Trainer.run()`s of MOE_REPEAT_STEPS steps, built as the
+    entry point builds them: their losses equal bit for bit each other's
+    and the first steps' of the train run, and so do every parameter and
+    AdamW moment (the moments hold each step's gradients: a backward that
+    added in another order would show there). Returns their launches."""
+    import torch
+
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+    from tony_tpu_torch.train.optim import tree_leaves
+
+    args = build_arg_parser().parse_args(
+        ["--config", MOE_CONFIG, "--device", "cuda", "--steps",
+         str(MOE_REPEAT_STEPS), "--batch-size", str(MOE_TRAIN_BATCH),
+         "--seq-len", str(TRAIN_SEQ), "--log-every", "1"])
+    runs = []
+    cuda_lib.reset_launches()
+    for _ in range(2):
+        trainer, _ = build_trainer(args)
+        trainer.run()
+        losses = [e["loss"] for e in trainer.metrics_history]
+        for p in tree_leaves(trainer.params):
+            p.grad = None
+        runs.append((losses, _leaves(trainer)))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = cuda_lib.launches()
+    (a_losses, a), (b_losses, b) = runs
+    log(f"moe: repeat runs of {MOE_REPEAT_STEPS} steps: losses {a_losses} "
+        f"and {b_losses}; the train run's first {first_losses}")
+    check(a_losses == b_losses == first_losses,
+          f"repeat losses differ: {a_losses}, {b_losses}, {first_losses}")
+    differ = [("/".join(pa)) for (pa, x), (_, y) in zip(a, b)
+              if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                      else x == y)]
+    log(f"moe: repeat runs: {len(a)} leaves (params, AdamW mu and nu, "
+        f"counts, step), {len(differ)} differ")
+    check(not differ, f"repeat runs differ at {differ[:8]}")
+    return launches
+
+
+def phase_moe() -> dict[str, int]:
+    """mixtral_proxy (full width and depth, bf16, random weights from the
+    fixed seed) through both entry points: the serve phase's burst on a
+    `--config mixtral_proxy` server (no-drop capacity) with its checks in
+    `_moe_serve_checks`, the same burst on a `--quant int8 --quant-cache`
+    server, then training: the train phase's run at MOE_TRAIN_BATCH and
+    two repeat runs. Returns each kernel's launches over the bursts and
+    the training steps."""
+    import torch
+
+    total: dict[str, int] = {}
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        # what earlier parts and phases left in reference cycles (a
+        # Trainer and its wrapped step) goes before the next part's
+        # memory is read
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    add({})
+    add(phase_serve(MOE_CONFIG, tag="moe", hold=_moe_serve_checks))
+    add(phase_serve(MOE_CONFIG, ("--quant", "int8", "--quant-cache"),
+                    "moe int8"))
+    run = _train_run(MOE_CONFIG, MOE_TRAIN_BATCH, MOE_TRAIN_PEAK_GIB,
+                     "moe train")
+    add(run["launches"])
+    repeat = _moe_repeat(run["losses"][:MOE_REPEAT_STEPS])
+    from tony_tpu_torch.models.moe import get_moe_config
+    want = {name: 2 * MOE_REPEAT_STEPS * n for name, n in
+            _step_launches(get_moe_config(MOE_CONFIG).n_layers).items()}
+    log(f"moe: repeat runs' launches {repeat}, expected {want}")
+    check(repeat == want, f"repeat launches {repeat} != {want}")
+    add(repeat)
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,serve,engine,profile,quant,"
-                            "kvcache,train,ckpt,orch",
+                            "kvcache,train,ckpt,orch,moe",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -2690,6 +3100,8 @@ def main(argv=None) -> int:
             launches["ckpt"] = phase_ckpt()
         if "orch" in phases:
             launches["orch"] = phase_orch(smi)
+        if "moe" in phases:
+            launches["moe"] = phase_moe()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

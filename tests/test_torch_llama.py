@@ -62,11 +62,6 @@ def test_presets_match_jax(name):
     assert port.flops_per_token(1024) == ref.flops_per_token(1024)
 
 
-def test_moe_preset_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="models slice"):
-        llama.get_config("moe_tiny")
-
-
 def test_params_from_jax_keeps_layout_and_values(tiny):
     _, jparams, cfg, params = tiny
     flat_j = jax.tree_util.tree_leaves_with_path(jax.device_get(jparams))

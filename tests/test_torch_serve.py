@@ -230,15 +230,6 @@ def test_cuda_without_a_card_raises(monkeypatch):
         build_server(build_arg_parser().parse_args([]))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--config", "moe_tiny"],
-])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_server(build_arg_parser().parse_args(["--device", "cpu",
-                                                    *flags]))
-
-
 def _closed_port_url() -> str:
     import socket
     with socket.socket() as s:
@@ -370,6 +361,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
     assert len(names) >= 15
     for module in ("constants", "train.checkpoint", "train.precision",
                    "train.trainer", "models.convert", "models.quant",
+                   "models.moe",
                    "ops.int8_matmul", "serve.kvcache", "conf",
                    "security.tokens", "rpc.client", "observability.metrics",
                    "observability.prometheus", "observability.trace",

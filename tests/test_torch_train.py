@@ -468,8 +468,7 @@ def test_trainer_loss_falls_on_tiny_cpu():
     assert t.opt_state.count == 30
 
 
-@pytest.mark.parametrize("flag", [["--config", "moe_tiny"],
-                                  ["--pp-micro", "2"],
+@pytest.mark.parametrize("flag", [["--pp-micro", "2"],
                                   ["--pp-virtual", "2"]])
 def test_entry_point_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -12,7 +12,9 @@ exactly and nothing passes through f32.
 
 An int8 tree (`tony_tpu.models.quant.quantize_params`) converts too: each
 quantized leaf {"int8", "scale"} keeps its int8 values and f32 scales, the
-port's own qtensor (`models/quant.py`).
+port's own qtensor (`models/quant.py`). So does an MoE tree
+(`tony_tpu.models.moe.moe_init`, an `MoEConfig`): the router and expert
+banks in place of the dense MLP.
 
 `empty_params` allocates the parameter tree on a device, for a restore
 (`train/checkpoint.restore_params`) to fill in place.
@@ -42,26 +44,35 @@ def tensor_from_numpy(a: Any, device: torch.device | str) -> torch.Tensor:
 
 
 def param_shapes(config: LlamaConfig) -> dict[str, tuple[int, ...]]:
-    """{"embed": shape, "layers/wq": shape, ...}: `llama_init`'s leaves."""
+    """{"embed": shape, "layers/wq": shape, ...}: `llama_init`'s leaves,
+    or `moe_init`'s for an MoE config."""
     d, f, v = config.dim, config.ffn_dim, config.vocab_size
     L, hd = config.n_layers, config.head_dim
     nh, nkv = config.n_heads, config.n_kv_heads
-    return {
+    # in the inits' order of the layer keys, which `tree_leaves` keeps
+    shapes = {
         "embed": (v, d), "final_norm": (d,), "output": (d, v),
         "layers/wq": (L, d, nh * hd), "layers/wk": (L, d, nkv * hd),
         "layers/wv": (L, d, nkv * hd), "layers/wo": (L, nh * hd, d),
-        "layers/w_gate": (L, d, f), "layers/w_up": (L, d, f),
-        "layers/w_down": (L, f, d), "layers/attn_norm": (L, d),
-        "layers/mlp_norm": (L, d),
     }
+    E = getattr(config, "n_experts", 0)
+    if not E:
+        shapes.update({"layers/w_gate": (L, d, f), "layers/w_up": (L, d, f),
+                       "layers/w_down": (L, f, d)})
+    shapes.update({"layers/attn_norm": (L, d), "layers/mlp_norm": (L, d)})
+    if E:
+        shapes.update({
+            "layers/router": (L, d, E), "layers/we_gate": (L, E, d, f),
+            "layers/we_up": (L, E, d, f), "layers/we_down": (L, E, f, d)})
+    return shapes
 
 
 def params_from_jax(tree: dict, config: LlamaConfig,
                     device: torch.device | str = "cuda") -> Params:
-    """`llama_init`'s tree of numpy leaves -> the port's parameters on
-    `device` (the card unless the caller asks for the CPU; with no card,
-    the default raises before any leaf is placed). Checks every leaf's
-    shape against `config`."""
+    """`llama_init`'s (or `moe_init`'s) tree of numpy leaves -> the port's
+    parameters on `device` (the card unless the caller asks for the CPU;
+    with no card, the default raises before any leaf is placed). Checks
+    every leaf's shape against `config`."""
     device = resolve_device(str(device))
     want = param_shapes(config)
 
@@ -96,7 +107,8 @@ def params_from_jax(tree: dict, config: LlamaConfig,
 def empty_params(config: LlamaConfig,
                  device: torch.device | str = "cuda") -> Params:
     """The parameter tree of `config`, uninitialised, on `device`, in
-    `llama_init`'s layout and dtypes (norms f32, the rest config.dtype)."""
+    `llama_init`'s (or `moe_init`'s) layout and dtypes (norms f32, the
+    rest config.dtype)."""
     device = resolve_device(str(device))
     want = param_shapes(config)
 

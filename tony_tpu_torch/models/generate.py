@@ -19,20 +19,25 @@ Counterpart of `tony_tpu/models/generate.py`:
   the rows dequantized to f32, as the JAX package does.
 - **int8 weights** (`models/quant.quantize_params`) pass straight through:
   `models/llama.linear` and `lm_head` route their products.
+- **MoE** (`models/moe.py`): the MLP is `llama.mlp`, dispatched on the
+  config type, so one stack serves both families. Each call routes its own
+  tokens: at capacity_factor >= n_experts / top_k nothing overflows and
+  incremental decode is the training forward; below it `generate` warns
+  (`_warn_moe_below_capacity`), as the JAX package does.
 
-The logits are f32 (`llama.lm_head`). MoE arrives with the port's models
-slice.
+The logits are f32 (`llama.lm_head`).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Union
 
 import torch
 
 from tony_tpu_torch.models.llama import (
-    LlamaConfig, Params, embed_lookup, layer_params, linear, lm_head,
-    qkv_proj, rope_tables, swiglu_mlp,
+    LlamaConfig, Params, embed_lookup, layer_params, linear, lm_head, mlp,
+    qkv_proj, rope_tables,
 )
 from tony_tpu_torch.models.quant import dequantize_rows, quantize_rows
 from tony_tpu_torch.ops.attention import NEG_INF, flash_attention
@@ -40,6 +45,25 @@ from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope
 
 Cache = dict[str, torch.Tensor]
+
+
+def _warn_moe_below_capacity(config: LlamaConfig, who: str = "decode"
+                             ) -> None:
+    """Warn when an MoE config below no-drop capacity reaches the decode
+    path: decode routes each step's tokens on their own while the training
+    forward routes the whole sequence, so the two overflow different
+    expert queues and decode serves tokens training dropped."""
+    if not getattr(config, "n_experts", 0):
+        return
+    from tony_tpu_torch.models.moe import no_drop_capacity_floor
+    floor = no_drop_capacity_floor(config)
+    if config.capacity_factor < floor:
+        warnings.warn(
+            f"MoE config reaches the {who} path below no-drop capacity "
+            f"(capacity_factor {config.capacity_factor} < n_experts/"
+            f"top_k = {floor}): decode routes tokens the training "
+            f"forward dropped — raise capacity_factor to >= {floor} "
+            f"for train/serve parity", stacklevel=3)
 
 
 def empty_cache(config: LlamaConfig, batch: int, cache_len: int,
@@ -143,7 +167,7 @@ def prefill(params: Params, tokens: torch.Tensor, config: LlamaConfig,
         attn = attn.transpose(1, 2).reshape(b, p, -1)
         x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-        x = x + swiglu_mlp(h, layer)
+        x = x + mlp(h, layer, config)
         if quant:
             (cache["k"][i, :, :, :p],
              cache["k_scale"][i, :, :, :p]) = quantize_rows(k)
@@ -193,7 +217,7 @@ def decode_step(params: Params, config: LlamaConfig, cache: Cache,
         attn = attn.transpose(1, 2).reshape(b, 1, -1)
         x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-        x = x + swiglu_mlp(h, layer)
+        x = x + mlp(h, layer, config)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = lm_head(x[:, 0], params["output"])
     return logits, cache
@@ -236,7 +260,9 @@ def generate(params: Params, config: LlamaConfig, prompt: torch.Tensor,
 
     Greedy when temperature == 0 (generator unused); once a row emits
     eos_id it keeps emitting eos_id. quant_cache keeps the KV cache in
-    per-row int8; int8 weights (`quantize_params`) compose with it."""
+    per-row int8; int8 weights (`quantize_params`) compose with it. An MoE
+    config below no-drop capacity warns (`_warn_moe_below_capacity`)."""
+    _warn_moe_below_capacity(config)
     b, p = prompt.shape
     cache_len = p + max_new_tokens
     if cache_len > config.max_seq:

@@ -52,10 +52,6 @@ from tony_tpu_torch.ops.xent import fused_cross_entropy, matmul_f32
 
 Params = dict[str, Any]
 
-# The JAX package's MoE presets (tony_tpu/models/moe.py): served there, not
-# yet here.
-MOE_PRESETS = ("moe_tiny", "mixtral_proxy")
-
 
 def _save_flash_policy(ctx, op, *args, **kwargs):
     """Keep the flash forward's (out, lse); recompute everything else."""
@@ -140,10 +136,8 @@ PRESETS = {
 
 
 def get_config(name: str, **overrides) -> LlamaConfig:
-    if name in MOE_PRESETS:
-        raise NotImplementedError(
-            f"{name} is a mixture-of-experts preset; MoE models arrive in "
-            f"the port's later models slice (queue 1 of ROADMAP.md)")
+    """A dense preset; the MoE presets are `models/moe.get_moe_config`'s
+    (the entry points resolve the family with `moe.is_moe_preset`)."""
     return replace(PRESETS[name], **overrides)
 
 
@@ -279,6 +273,20 @@ def swiglu_mlp(h: torch.Tensor, layer: Params) -> torch.Tensor:
     return linear(F.silu(gate) * up, layer["w_down"])
 
 
+def mlp(h: torch.Tensor, layer: Params, config: LlamaConfig) -> torch.Tensor:
+    """The serving stack's MLP, dispatched on the config type: dense
+    SwiGLU, or an MoE config's expert MLP with its aux loss dropped (a
+    training concern). The counterpart of `tony_tpu/models/generate.py`'s
+    `_mlp`: each call routes its own tokens, so below no-drop capacity a
+    decode step's queues overflow where the training forward's do not
+    (`generate._warn_moe_below_capacity`)."""
+    if getattr(config, "n_experts", 0):
+        from tony_tpu_torch.models.moe import moe_mlp
+        out, _aux = moe_mlp(h, layer, config)
+        return out
+    return swiglu_mlp(h, layer)
+
+
 def attention_sublayer(h: torch.Tensor, layer: Params, config: LlamaConfig,
                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """QKV + RoPE + causal flash attention + output projection."""
@@ -306,6 +314,25 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return F.embedding(tokens, embed).to(config.dtype)
 
 
+def layer_blocks(params: Params, config: LlamaConfig, block):
+    """(run, layers): every layer's weights (`layer_params_for_grad`) and
+    `run(x, layer)`, which calls `block(x, layer)`, inside
+    `torch.utils.checkpoint` under config.checkpoint_policy() when
+    config.remat is set and the weights take a gradient. The per-layer
+    loop of `llama_hidden` and `moe.moe_hidden`."""
+    layers = layer_params_for_grad(params)
+    if not (config.remat and any(isinstance(w, torch.Tensor)
+                                 and w.requires_grad
+                                 for w in layers[0].values())):
+        return block, layers
+    context_fn = config.checkpoint_policy()
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(x, layer):
+        return checkpoint(block, x, layer, use_reentrant=False, **kwargs)
+    return run, layers
+
+
 def llama_hidden(params: Params, tokens: torch.Tensor,
                  config: LlamaConfig) -> torch.Tensor:
     """tokens: (B, S) int -> final-normed hidden states (B, S, dim).
@@ -315,19 +342,10 @@ def llama_hidden(params: Params, tokens: torch.Tensor,
     s = tokens.shape[1]
     cos, sin = rope_tables(config, s, tokens.device)
     x = embed_lookup(params["embed"], tokens, config)
-    block = partial(_block, config, cos, sin)
-    layers = layer_params_for_grad(params)
-    remat_kwargs = None
-    if config.remat and any(isinstance(w, torch.Tensor) and w.requires_grad
-                            for w in layers[0].values()):
-        context_fn = config.checkpoint_policy()
-        remat_kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    run, layers = layer_blocks(params, config,
+                               partial(_block, config, cos, sin))
     for layer in layers:
-        if remat_kwargs is None:
-            x = block(x, layer)
-        else:
-            x = checkpoint(block, x, layer, use_reentrant=False,
-                           **remat_kwargs)
+        x = run(x, layer)
     return rms_norm(x, params["final_norm"], config.norm_eps)
 
 

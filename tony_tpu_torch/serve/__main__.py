@@ -15,8 +15,10 @@ W8A16 kernel), ``--quant-cache`` keeps the KV cache in int8,
 ``--prefix-sharing on`` (with ``--kv-page-size``/``--kv-pages``) admits
 through the paged prefix pool, ``--role prefill --migrate-to URL,...``
 hands each request's decode to a ``--role decode`` replica over
-``/v1/migrate``. MoE presets raise NotImplementedError (the port's models
-slice).
+``/v1/migrate``. An MoE preset (``--config moe_tiny``, ``mixtral_proxy``)
+is served at no-drop capacity, ``capacity_factor = max(cf, n_experts /
+top_k)``, so each decode step routes as the training forward would; all
+of the flags above work with it.
 
 As a TonY task (``tony.serving.command=<python> -m tony_tpu_torch.serve
 ...``) it does what the JAX server does toward the AM, each step a no-op
@@ -59,7 +61,8 @@ INIT_SEED = 0
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tony_tpu_torch.serve")
     p.add_argument("--config", default="tiny",
-                   help="model preset (models/llama.py PRESETS)")
+                   help="model preset (models/llama.py or models/moe.py "
+                        "PRESETS)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda or cpu)")
     p.add_argument("--checkpoint-dir", default="",
@@ -117,8 +120,19 @@ def _load_model(args, device):
     import torch
 
     from tony_tpu_torch.models.llama import get_config, llama_init
+    from tony_tpu_torch.models.moe import (
+        get_moe_config, is_moe_preset, moe_init,
+    )
 
-    config = get_config(args.config)
+    if is_moe_preset(args.config):
+        base = get_moe_config(args.config)
+        # no-drop capacity: a decode step routes as the training forward
+        config = get_moe_config(args.config, capacity_factor=max(
+            base.capacity_factor, base.n_experts / base.top_k))
+        init = moe_init
+    else:
+        config = get_config(args.config)
+        init = llama_init
     if args.checkpoint_dir:
         from tony_tpu_torch.models.convert import empty_params
         from tony_tpu_torch.train.checkpoint import (
@@ -136,7 +150,7 @@ def _load_model(args, device):
     else:
         generator = torch.Generator(device=device).manual_seed(INIT_SEED)
         with torch.inference_mode():
-            params = llama_init(config, generator)
+            params = init(config, generator)
     if args.quant == "int8":
         from tony_tpu_torch.models.quant import quantize_params
         with torch.inference_mode():

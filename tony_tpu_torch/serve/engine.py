@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from tony_tpu_torch.models.generate import (
-    _sample, decode_step, empty_cache, prefill,
+    _sample, _warn_moe_below_capacity, decode_step, empty_cache, prefill,
 )
 from tony_tpu_torch.models.llama import LlamaConfig, Params
 from tony_tpu_torch.serve import kvcache as kvc
@@ -272,6 +272,7 @@ class ContinuousBatchingEngine:
         # early as many small ones
         self.queue_token_budget = max(token_budget,
                                       queue_depth * token_budget // 2)
+        _warn_moe_below_capacity(config, who="serve")
         self.params = params
         self.config = config
         self.device = params["embed"].device

@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from tony_tpu_torch.models.llama import (
-    LlamaConfig, Params, embed_lookup, layer_params, linear, lm_head,
-    qkv_proj, rope_tables, swiglu_mlp,
+    LlamaConfig, Params, embed_lookup, layer_params, linear, lm_head, mlp,
+    qkv_proj, rope_tables,
 )
 from tony_tpu_torch.models.quant import dequantize_rows, quantize_rows
 from tony_tpu_torch.ops.attention import NEG_INF
@@ -142,7 +142,8 @@ def prefill_suffix(params: Params, config: LlamaConfig, cache: Cache,
     sees the slot positions j <= start + i, grouped by GQA head group (the
     JAX package takes the whole slot row, whose positions past start+W
     every query masks; here they are left out); the RoPE rows are gathered
-    at the absolute positions."""
+    at the absolute positions. An MoE config's MLP routes the W suffix
+    tokens on their own, as the JAX package's does."""
     quant = "k_scale" in cache
     w = suffix.shape[0]
     end = start + w
@@ -184,7 +185,7 @@ def prefill_suffix(params: Params, config: LlamaConfig, cache: Cache,
         attn = attn.transpose(1, 2).reshape(1, w, -1)
         x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-        x = x + swiglu_mlp(h, layer)
+        x = x + mlp(h, layer, config)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return lm_head(x[:, -1], params["output"]), cache
 

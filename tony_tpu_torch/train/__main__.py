@@ -1,10 +1,12 @@
 """Training entry point: ``python -m tony_tpu_torch.train``.
 
 Counterpart of ``examples/llama-pretrain/pretrain.py`` on one device: it
-builds the Llama config from a preset, a `Trainer` running
-``make_train_step(llama_loss, adamw)`` on `synthetic_tokens` (or, with
-``--data``, on random windows of a raw int32 token shard), trains, and
-prints ``final loss X``.
+builds the config from a preset, a `Trainer` running
+``make_train_step(llama_loss, adamw)`` (``moe_loss`` and ``moe_init`` for
+an MoE preset, ``moe_tiny`` or ``mixtral_proxy``, whose MFU is reckoned on
+the active parameters) on `synthetic_tokens` (or, with ``--data``, on
+random windows of a raw int32 token shard), trains, and prints ``final
+loss X``.
 
 The flags are the JAX script's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels) and
@@ -20,8 +22,7 @@ Run as a TonY task (``--executes`` a script that calls this module), it
 logs structured JSON lines, runs the sampling profiler, and its Trainer
 reports spans, goodput and step metrics to the AM; outside the
 orchestrator those reports are no-ops. ``--pp-micro`` and ``--pp-virtual``
-raise NotImplementedError (the parallel slice); MoE presets raise in
-`get_config`.
+raise NotImplementedError (the parallel slice).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tony_tpu_torch.train")
     p.add_argument("--config", default="tiny",
                    help="preset: tiny|bench_350m|llama3_1b_proxy|"
-                        "llama3_8b|llama3_70b")
+                        "llama3_8b|llama3_70b|moe_tiny|mixtral_proxy")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda or cpu)")
     p.add_argument("--steps", type=int, default=100)
@@ -110,18 +111,26 @@ def _streams(args, seq: int, vocab_size: int, process_index: int):
 def build_trainer(args):
     """The Trainer the entry point runs, and its model config."""
     from tony_tpu_torch.models.llama import get_config, llama_init, llama_loss
+    from tony_tpu_torch.models.moe import (
+        get_moe_config, is_moe_preset, moe_init, moe_loss,
+    )
     from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     _refuse_unported(args)
     overrides = {"n_layers": args.n_layers} if args.n_layers else {}
-    config = get_config(args.config, **overrides)
+    if is_moe_preset(args.config):
+        config = get_moe_config(args.config, **overrides)
+        init_fn, loss_fn = moe_init, moe_loss
+    else:
+        config = get_config(args.config, **overrides)
+        init_fn, loss_fn = llama_init, llama_loss
     seq = args.seq_len or config.max_seq
     process_index = int(os.environ.get("RANK", "0"))
     data_iter, eval_iter = _streams(args, seq, config.vocab_size,
                                     process_index)
     trainer = Trainer(
-        loss_fn=partial(llama_loss, config=config),
-        init_fn=partial(llama_init, config),
+        loss_fn=partial(loss_fn, config=config),
+        init_fn=partial(init_fn, config),
         data_iter=data_iter,
         config=TrainerConfig(num_steps=args.steps, log_every=args.log_every,
                              checkpoint_dir=args.checkpoint_dir,
@@ -129,6 +138,7 @@ def build_trainer(args):
                              grad_accum=args.grad_accum,
                              eval_every=args.eval_every,
                              master_weights=args.master_weights,
+                             # an MoE config's counts active parameters
                              flops_per_token=config.flops_per_token(seq)),
         device=args.device,
         # held-out batches from a disjoint seed of the same source
