@@ -27,8 +27,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
               bit, and print their TFLOP/s and share of the bound. K5
               (the W8A16 int8-weight product) at llama3_8b's decode
               products for 1 and 4 rows (bf16 at 3e-2 and by norm, twice
-              and bit for bit), the sum over one decode step's products,
-              and the tiny f32 path's shapes at 2e-5.
+              and bit for bit), mixtral_proxy's products and its three
+              expert banks (E 8, C 4: one launch a bank, against each
+              expert's plain product), each K5 case's second call after
+              a launch of another shape (a counter of the split sums
+              left non-zero would show), the sum over one decode step's
+              products of each model, and the tiny f32 path's shapes at
+              2e-5; K5's library yardstick is torch._weight_int8pack_mm
+              on the same int8 weight where it launches, and
+              torch.matmul on the bf16 weight beside it.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
@@ -121,7 +128,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
               the 5% normalized RMSE of bf16's, printed beside the
               logits on their own routing and the top-2 choices that
               differ; K5's launches in one decode step exact (16 x (4 +
-              3 x 8) + 1); the int8 decode step profiled; the burst on a
+              3) + 1: one launch a product, one a bank); the int8 decode
+              step profiled; the burst on a
               `--quant int8 --quant-cache` server with exact K1, K4 and
               K5 launches. Train: the train phase's run on mixtral_proxy
               (B4 x S4096, cf 1.25, save_flash, AdamW; 5 steps and a
@@ -263,16 +271,24 @@ INT8_CASES = (("wq/wo", 4096, 4096, False), ("wk/wv", 4096, 1024, False),
               ("w_down", 14336, 4096, False), ("output", 4096, 128256, True))
 INT8_ROWS = (1, 4)
 INT8_SUMMARY = "w_gate/w_up M4"
-# held and not timed: mixtral_proxy's int8 decode products at its 4 slots
-# (an expert's queue holds 4 rows at no-drop capacity), row blocks past
-# one (M 5: a partial block of 8; M 16: two) in bf16, and the tiny f32
-# path's products in f32
-INT8_EXTRA = (("mixtral wq/wo", 2048, 2048, False, 4, "bfloat16"),
-              ("mixtral wk/wv", 2048, 1024, False, 4, "bfloat16"),
-              ("mixtral we_gate/we_up", 2048, 4096, False, 4, "bfloat16"),
-              ("mixtral we_down", 4096, 2048, False, 4, "bfloat16"),
-              ("mixtral output", 2048, 32000, True, 4, "bfloat16"),
-              ("wk/wv", 4096, 1024, False, 5, "bfloat16"),
+# mixtral_proxy's int8 decode products at its 4 slots, timed: the
+# attention products and the LM head, then (label, E, C, K, N) its expert
+# banks, one K5 launch a bank (an expert's queue holds 4 rows at no-drop
+# capacity; we_gate and we_up share their shape)
+INT8_MOE_CASES = (("mixtral wq/wo", 2048, 2048, False),
+                  ("mixtral wk/wv", 2048, 1024, False),
+                  ("mixtral output", 2048, 32000, True))
+INT8_BANK_CASES = (("mixtral we_gate/we_up", 8, 4, 2048, 4096),
+                   ("mixtral we_down", 8, 4, 4096, 2048))
+# held and not timed: banks of one expert, of 16 rows (two row blocks), of
+# an odd count and in f32 (label, E, C, K, N, dtype)
+INT8_BANK_EXTRA = (("bank E1", 1, 4, 2048, 4096, "bfloat16"),
+                   ("bank C16", 8, 16, 2048, 4096, "bfloat16"),
+                   ("bank E3 C5", 3, 5, 4096, 1024, "bfloat16"),
+                   ("tiny bank", 3, 2, 64, 128, "float32"))
+# held and not timed: row blocks past one (M 5: a partial block of 8;
+# M 16: two) in bf16, and the tiny f32 path's products in f32
+INT8_EXTRA = (("wk/wv", 4096, 1024, False, 5, "bfloat16"),
               ("wk/wv", 4096, 1024, False, 16, "bfloat16"),
               ("output", 4096, 128256, True, 16, "bfloat16"),
               ("wk/wv", 4096, 1024, False, 4, "float32"),
@@ -369,14 +385,14 @@ def device_events(prof) -> list:
 
 def log_top(kernels: list, n: int) -> None:
     """The profile's `n` largest device ops, then each of the port's own
-    kernels (by the templates of csrc/: flash_*, rmsnorm_*, w8a16,
-    add_splits) that is not among them."""
+    kernels (by the templates of csrc/: flash_*, rmsnorm_*, w8a16) that
+    is not among them."""
     ranked = sorted(kernels, key=_device_us, reverse=True)
     for e in ranked[:n]:
         log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for e in ranked[n:]:
-        if re.search(r"\b(flash_\w+|rmsnorm_\w+|w8a16|add_splits)<",
+        if re.search(r"\b(flash_\w+|rmsnorm_\w+|w8a16)<",
                      e.key):
             log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
                 f"{e.key[:90]} (a port kernel)")
@@ -801,25 +817,71 @@ def _flash_bwd_case(b: int, h: int, hk: int, s: int, d: int, causal: bool,
     return entries[0], entries[1], fwd
 
 
+def _k5_other() -> None:
+    """One K5 launch of a shape no case has (M 3, K 1024, N 2048: split
+    25 ways in groups of 5, so its counters are used), between a case's
+    two calls: a counter that a launch left non-zero would make the
+    second disagree."""
+    import torch
+
+    from tony_tpu_torch.models.quant import quantize
+    from tony_tpu_torch.ops.int8_matmul import int8_matmul_cuda
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = quantize(torch.randn((1024, 2048), generator=g, device="cuda"))
+    int8_matmul_cuda(torch.randn((3, 1024), generator=g, device="cuda"), t)
+
+
+def _int8_library(r: dict, x, t, out_f32: bool, iters: int) -> None:
+    """K5's library yardsticks on the same inputs: torch.matmul on the
+    weight dequantized to bf16 beforehand, and torch._weight_int8pack_mm
+    (an (N, K) int8 weight, per-channel bf16 scales: the same function)
+    where it launches on the card; `library_ms` is the latter when it
+    does, else the former (the error is kept)."""
+    import torch
+
+    from tony_tpu_torch.models.quant import dequantize
+    from tony_tpu_torch.ops.xent import matmul_f32
+    w = dequantize(t)
+    r["matmul_bf16_ms"], _ = timed(
+        (lambda: matmul_f32(x, w)) if out_f32 else (lambda: x @ w), iters)
+    r["library_ms"] = r["matmul_bf16_ms"]
+    r["library_call"] = "torch.matmul on the dequantized bf16 weight"
+    q_nk = t["int8"].t().contiguous()
+    s_n = t["scale"].reshape(-1).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    try:
+        r["int8pack_ms"], _ = timed(
+            lambda: torch._weight_int8pack_mm(xb, q_nk, s_n), iters)
+    except Exception as e:  # the card's torch may not have it for CUDA
+        r["int8pack_error"] = f"{type(e).__name__}: {e}"[:160]
+        log(f"kernel int8_matmul: torch._weight_int8pack_mm does not run "
+            f"here ({r['int8pack_error']}); library_ms stays torch.matmul "
+            f"on the bf16 weight")
+    else:
+        r["library_ms"] = r["int8pack_ms"]
+        r["library_call"] = (f"torch._weight_int8pack_mm (torch.matmul on "
+                             f"the bf16 weight {r['matmul_bf16_ms']:.4f})")
+
+
 def _int8_case(label: str, k: int, n: int, out_f32: bool, m: int,
                dtype_name: str, peaks, iters: int) -> dict:
     """K5 against its plain version on one random int8 weight (a bf16
-    weight quantized on the card) and x; run twice and compared bit for
-    bit. Timed when `iters`: the plain version, and torch.matmul on the
-    weight dequantized to bf16 beforehand (the library yardstick)."""
+    weight quantized on the card) and x; run twice, with a launch of
+    another shape between, and compared bit for bit. Timed when `iters`:
+    the plain version and the library yardsticks (`_int8_library`)."""
     import torch
 
-    from tony_tpu_torch.models.quant import dequantize, quantize
+    from tony_tpu_torch.models.quant import quantize
     from tony_tpu_torch.ops.int8_matmul import (
         int8_matmul_cuda, int8_matmul_reference, splits_for,
     )
-    from tony_tpu_torch.ops.xent import matmul_f32
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(7 * k + n + m)
     t = quantize((torch.randn((k, n), generator=g, device="cuda")
                   * k ** -0.5).to(torch.bfloat16))
     x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
     out = int8_matmul_cuda(x, t, out_f32)
+    _k5_other()
     again = int8_matmul_cuda(x, t, out_f32)
     ref = int8_matmul_reference(x, t, out_f32)
     torch.cuda.synchronize()
@@ -836,10 +898,7 @@ def _int8_case(label: str, k: int, n: int, out_f32: bool, m: int,
             lambda: int8_matmul_cuda(x, t, out_f32), iters)
         r["plain_ms"], _ = timed(
             lambda: int8_matmul_reference(x, t, out_f32), max(3, iters // 10))
-        w = dequantize(t)
-        r["library_ms"], _ = timed(
-            (lambda: matmul_f32(x, w)) if out_f32 else (lambda: x @ w), iters)
-        r["library_call"] = "torch.matmul on the dequantized bf16 weight"
+        _int8_library(r, x, t, out_f32, iters)
         # each input read once, the output written once; the multiply-adds
         # run on the CUDA cores in f32
         nbytes = (k * n + 4 * n + m * k * x.element_size()
@@ -854,15 +913,72 @@ def _int8_case(label: str, k: int, n: int, out_f32: bool, m: int,
     return r
 
 
-def _k5_step_ms(results: list[dict], key: str) -> float:
-    """The sum, over one llama3_8b decode step's products (32 layers of
-    wq, wk, wv, wo, w_gate, w_up, w_down, then the LM head), of the M 4
-    cases' `key` (ms or bound_ms)."""
-    by = {r["shape"].split(" M")[0]: r[key] for r in results
+def _int8_bank_case(label: str, e: int, c: int, k: int, n: int,
+                    dtype_name: str, peaks, iters: int) -> dict:
+    """K5 on a bank of E int8 expert weights, one launch for the bank,
+    against the plain version (each expert's plain product, stacked); run
+    twice with a launch of another shape between, bit for bit. Timed when
+    `iters`: the plain version and torch.bmm on the bank dequantized to
+    bf16 beforehand (the library yardstick)."""
+    import torch
+
+    from tony_tpu_torch.models.quant import dequantize, quantize
+    from tony_tpu_torch.ops.int8_matmul import (
+        INT8_MATMUL, int8_bmm_cuda, int8_bmm_reference, splits_for,
+    )
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(7 * k + n + c + e)
+    t = quantize((torch.randn((e, k, n), generator=g, device="cuda")
+                  * k ** -0.5).to(torch.bfloat16))
+    x = torch.randn((e, c, k), generator=g, device="cuda").to(dtype)
+    before = INT8_MATMUL.launches
+    out = int8_bmm_cuda(x, t)
+    one_launch = INT8_MATMUL.launches - before == 1
+    _k5_other()
+    again = int8_bmm_cuda(x, t)
+    ref = int8_bmm_reference(x, t)
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    r = hold(out, ref, tol, by_norm=dtype_name == "bfloat16", name=label)
+    r["bitwise"] = bool(torch.equal(out, again))
+    r["ok"] = r["ok"] and r["bitwise"]
+    check(one_launch, f"int8 bank {label}: not one K5 launch")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r.update(shape=f"{label} E{e} M{c} K{k} N{n} (splits "
+                   f"{splits_for(c, k, n, sms, e)})",
+             dtype=dtype_name, tol=tol, summary=False)
+    if iters:
+        r["ms"], r["call_ms"] = timed(lambda: int8_bmm_cuda(x, t), iters)
+        r["plain_ms"], _ = timed(lambda: int8_bmm_reference(x, t),
+                                 max(3, iters // 10))
+        w = dequantize(t, dtype)
+        r["library_ms"], _ = timed(lambda: torch.bmm(x, w), iters)
+        r["library_call"] = "torch.bmm on the dequantized bf16 bank"
+        nbytes = e * (k * n + 4 * n + c * k * x.element_size()
+                      + c * n * out.element_size())
+        bytes_ms = nbytes / peaks[0] * 1e3
+        ops_ms = 2 * e * c * k * n / peaks[2] * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        del w
+    del t, x, out, again, ref
+    torch.cuda.empty_cache()
+    return r
+
+
+def _k5_step_ms(results: list[dict], key: str) -> tuple[float, float]:
+    """The sums, over one decode step's products at M 4, of the cases'
+    `key` (ms, bound_ms, ...): llama3_8b's 32 layers of wq, wk, wv, wo,
+    w_gate, w_up, w_down, then the LM head; mixtral_proxy's 16 layers of
+    wq, wk, wv, wo and its three expert banks, then the LM head."""
+    by = {r["shape"].split(" M")[0].split(" E")[0]: r[key] for r in results
           if r["dtype"] == "bfloat16" and " M4 " in r["shape"] and key in r}
-    layer = (2 * by["wq/wo"] + 2 * by["wk/wv"] + 2 * by["w_gate/w_up"]
-             + by["w_down"])
-    return 32 * layer + by["output"]
+    llama = 32 * (2 * by["wq/wo"] + 2 * by["wk/wv"]
+                  + 2 * by["w_gate/w_up"] + by["w_down"]) + by["output"]
+    mixtral = 16 * (2 * by["mixtral wq/wo"] + 2 * by["mixtral wk/wv"]
+                    + 2 * by["mixtral we_gate/we_up"]
+                    + by["mixtral we_down"]) + by["mixtral output"]
+    return llama, mixtral
 
 
 def _report(name: str, r: dict) -> None:
@@ -931,14 +1047,22 @@ def phase_kernels(peaks) -> dict[str, dict]:
         for m in INT8_ROWS:
             add(INT8_MATMUL.name, _int8_case(label, k, n, out_f32, m,
                                              "bfloat16", peaks, 50))
+    for label, k, n, out_f32 in INT8_MOE_CASES:
+        add(INT8_MATMUL.name, _int8_case(label, k, n, out_f32, 4,
+                                         "bfloat16", peaks, 50))
+    for case in INT8_BANK_CASES:
+        add(INT8_MATMUL.name, _int8_bank_case(*case, "bfloat16", peaks, 50))
+    for case in INT8_BANK_EXTRA:
+        add(INT8_MATMUL.name, _int8_bank_case(*case, peaks, 0))
     for case in INT8_EXTRA:
         add(INT8_MATMUL.name, _int8_case(*case, peaks, 0))
     k5 = cases[INT8_MATMUL.name]
-    log(f"kernel {INT8_MATMUL.name}: one llama3_8b decode step's products "
-        f"at M 4 (32 x 7 and the LM head): {_k5_step_ms(k5, 'ms'):.4f} ms, "
-        f"bound {_k5_step_ms(k5, 'bound_ms'):.4f} ms, plain "
-        f"{_k5_step_ms(k5, 'plain_ms'):.4f} ms, torch.matmul on bf16 "
-        f"{_k5_step_ms(k5, 'library_ms'):.4f} ms")
+    for model, at in (("llama3_8b", 0), ("mixtral_proxy", 1)):
+        log(f"kernel {INT8_MATMUL.name}: one {model} int8 decode step's "
+            f"products at M 4: {_k5_step_ms(k5, 'ms')[at]:.4f} ms, bound "
+            f"{_k5_step_ms(k5, 'bound_ms')[at]:.4f} ms, plain "
+            f"{_k5_step_ms(k5, 'plain_ms')[at]:.4f} ms, library "
+            f"{_k5_step_ms(k5, 'library_ms')[at]:.4f} ms")
     # the backward cases run on K1's (out, lse): a wrong forward fails here,
     # under its own name
     for name in (FLASH_FWD.name, RMSNORM_FWD.name, INT8_MATMUL.name):
@@ -1001,16 +1125,17 @@ def _post(url: str, body: dict, stream: bool, timeout: float = 600.0
 def _k5_per_pass(cfg, rows: int) -> int:
     """K5's launches in one pass of `rows` tokens with int8 weights: per
     layer the 4 attention products, and the 3 MLP products (an MoE
-    config: 3 per expert, each over its queue of capacity rows), each
-    where it has at most KERNEL_MAX_ROWS rows; then the LM head on the
-    last row (a prefill) or the slots' rows (a decode step)."""
+    config: its 3 expert banks, one launch a bank, each expert over its
+    queue of capacity rows), each where it has at most KERNEL_MAX_ROWS
+    rows (an expert's queue); then the LM head on the last row (a
+    prefill) or the slots' rows (a decode step)."""
     from tony_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
     per_layer = 4 * (rows <= KERNEL_MAX_ROWS)
     experts = getattr(cfg, "n_experts", 0)
     if experts:
         capacity = max(1, int(cfg.capacity_factor * rows * cfg.top_k
                               / experts))
-        per_layer += 3 * experts * (capacity <= KERNEL_MAX_ROWS)
+        per_layer += 3 * (capacity <= KERNEL_MAX_ROWS)
     else:
         per_layer += 3 * (rows <= KERNEL_MAX_ROWS)
     return cfg.n_layers * per_layer + 1
@@ -1337,7 +1462,7 @@ def _profile_step(label: str, fn, tag: str, n_experts: int = 0) -> dict:
     kernels = device_events(prof)
     busy = sum(_device_us(e) for e in kernels) / 1e3
     k5 = sum(_device_us(e) for e in kernels
-             if re.search(r"\b(w8a16|add_splits)<", e.key)) / 1e3
+             if re.search(r"\bw8a16<", e.key)) / 1e3
     n_ops = sum(e.count for e in kernels)
     log(f"{tag}: {label}: wall {wall:.2f} ms (median of 5), device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
@@ -2708,7 +2833,23 @@ def _orch_checks_on(am: "_AmStandIn", url: str, parsed: dict,
         time.sleep(0.5)
     traces = json.loads(_http(url + "/v1/traces")[2])
     burst = [t for t in traces["traces"]]
-    check(len(burst) + traced >= len(PROMPT_LENS) + 1
+    # the reporter drains the ring into its pushes while this runs: each
+    # request's trace is in the ring read or in a push, which may land
+    # after the read; counted once by its (trace id, request id)
+
+    def trace_ids(reqs) -> set:
+        return {(t.get("trace_id"), t.get("request_id")) for req in reqs
+                for t in req.get("serving_traces") or []}
+
+    seen = trace_ids(pushes) | trace_ids([{"serving_traces": burst}])
+    deadline = time.monotonic() + 10
+    while (len(seen) < len(PROMPT_LENS) + 1
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+        pushes = [req for _, req in am.take("update_metrics")]
+        seen |= trace_ids(pushes)
+    traced = len(seen) - len(burst)
+    check(len(seen) >= len(PROMPT_LENS) + 1
           and traces["http_requests"].get("/v1/generate")
           == len(PROMPT_LENS) + 1,
           f"orch: /v1/traces holds {len(burst)} traces (drained "
@@ -2950,7 +3091,7 @@ def _moe_serve_checks(server, prompts, finished) -> None:
     want_k5 = _k5_per_pass(cfg, DECODE_SLOTS)
     log(f"moe: K5 launches in one int8 decode step of {DECODE_SLOTS} slots: "
         f"{k5}, expected {want_k5} ({cfg.n_layers} layers x (4 attention "
-        f"products + 3 x {cfg.n_experts} experts) + the LM head)")
+        f"products + 3 expert banks of {cfg.n_experts}) + the LM head)")
     check(k5 == want_k5, f"int8 decode step K5 launches {k5} != {want_k5}")
     with torch.inference_mode():
         int8 = _profile_step(f"decode step, {DECODE_SLOTS} slots, int8 "

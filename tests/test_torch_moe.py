@@ -41,6 +41,7 @@ from tony_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
 from tony_tpu_torch.models import convert, generate, llama, moe, quant
 from tony_tpu_torch.models.convert import params_from_jax
 from tony_tpu_torch.models.llama import layer_params
+from tony_tpu_torch.ops.int8_matmul import int8_matmul
 from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
 from tony_tpu_torch.serve.engine import ContinuousBatchingEngine
 from tony_tpu_torch.train import checkpoint as ckpt
@@ -422,6 +423,40 @@ def test_int8_prefill_and_decode_logits_match_jax(no_drop, weights, cache):
                                  torch.from_numpy(pos).long())
     np.testing.assert_allclose(pd.numpy(), np.asarray(jd), rtol=DECODE_TOL,
                                atol=DECODE_TOL)
+
+
+def test_int8_bank_product_is_one_int8_bmm_per_bank(monkeypatch, no_drop):
+    """An int8 expert bank is one `int8_bmm` (on the card one K5 launch),
+    not a product per expert: 3 banks a layer in a prefill and in a
+    decode step, each over all E experts' queues at once, and the
+    logits those of the banks' per-expert plain products."""
+    _, _, cfg, params = no_drop
+    qparams = quant.quantize_params(params)
+    calls = []
+    real = moe.int8_bmm
+
+    def counting(x, w):
+        calls.append((tuple(x.shape), tuple(w["int8"].shape)))
+        return real(x, w)
+
+    monkeypatch.setattr(moe, "int8_bmm", counting)
+    tokens = torch.from_numpy(_tokens(2, 12, 5)).long()
+    logits, cache = generate.prefill(qparams, tokens, cfg, 16)
+    assert len(calls) == 3 * cfg.n_layers
+    assert all(x[0] == w[0] == cfg.n_experts for x, w in calls)
+    calls.clear()
+    generate.decode_step(qparams, cfg, cache, torch.argmax(logits, -1),
+                         torch.tensor([12, 12]))
+    assert len(calls) == 3 * cfg.n_layers
+
+    def per_expert(x, w):
+        return torch.stack([int8_matmul(x[e], {"int8": w["int8"][e],
+                                               "scale": w["scale"][e]})
+                            for e in range(x.shape[0])])
+
+    monkeypatch.setattr(moe, "int8_bmm", per_expert)
+    looped, _ = generate.prefill(qparams, tokens, cfg, 16)
+    np.testing.assert_array_equal(looped.numpy(), logits.numpy())
 
 
 def test_below_capacity_warns_from_generate_and_the_engine(tiny, no_drop):

@@ -158,17 +158,143 @@ def test_int8_matmul_plain_matches_jax(m, dtype, out_f32, tol):
 
 
 @pytest.mark.parametrize("m,k,n,splits", [
-    (4, 4096, 1024, 128), (4, 4096, 4096, 33), (4, 4096, 14336, 9),
+    (4, 4096, 1024, 64), (4, 4096, 4096, 16), (4, 4096, 14336, 9),
     (4, 14336, 4096, 33), (4, 4096, 128256, 1), (1, 4096, 128256, 1),
-    (1, 4096, 1024, 128), (16, 4096, 1024, 46), (16, 65536, 128256, 11),
-    (3, 64, 128, 2)])
+    (1, 4096, 1024, 64), (16, 4096, 1024, 30), (16, 65536, 128256, 11),
+    (3, 64, 128, 1)])
 def test_k5_split_plan(m, k, n, splits):
-    """K5's split of K on 132 SMs at llama3_8b's decode shapes: whole
-    waves of two blocks per SM where the column tiles fall short, none
-    for the LM head, whose tiles fill a wave; and never below the split
-    that keeps a block's staged x in shared memory (K 65536 at M 16:
-    11)."""
+    """K5's split of K on 132 SMs at llama3_8b's decode shapes, under the
+    time model fitted to the card's sweep: the small products at about
+    one block per SM (the split sums' rounds cost more than a second
+    block a SM gains), w_gate and w_down at about two, none for the LM
+    head, whose tiles fill a wave; and never below the split that keeps a
+    block's staged x in shared memory (K 65536 at M 16: 11)."""
     assert k5.splits_for(m, k, n, 132) == splits
+
+
+@pytest.mark.parametrize("m,k,n,batch,splits", [
+    (4, 2048, 4096, 8, 4), (4, 4096, 2048, 8, 8), (1, 2048, 4096, 8, 4),
+    (16, 2048, 4096, 8, 2), (4, 4096, 14336, 1, 9)])
+def test_k5_split_plan_batched(m, k, n, batch, splits):
+    """The split of K planned over the whole batched grid (column tiles x
+    row blocks x experts before any split), at mixtral_proxy's expert
+    banks (E 8, C 4: K 2048 N 4096 and K 4096 N 2048); a batch of one is
+    the plain product's plan."""
+    assert k5.splits_for(m, k, n, 132, batch) == splits
+    if batch == 1:
+        assert k5.splits_for(m, k, n, 132) == splits
+
+
+@pytest.mark.parametrize("m,n,splits,batch,group,counters", [
+    (4, 4096, 1, 1, 1, 0), (4, 14336, 9, 1, 9, 28 * 2),
+    (4, 1024, 64, 1, 8, 2 * 9), (4, 4096, 16, 1, 4, 8 * 5),
+    (1, 4096, 16, 1, 16, 8 * 2), (1, 4096, 33, 1, 33, 8 * 2),
+    (4, 4096, 33, 1, 6, 8 * 7), (4, 4096, 4, 8, 4, 8 * 8 * 2),
+    (16, 2048, 8, 8, 8, 4 * 2 * 8 * 2), (5, 1024, 36, 3, 6, 2 * 3 * 7)])
+def test_k5_fold_groups_and_counters(m, n, splits, batch, group, counters):
+    """The split sums' groups, whole (one round) or about the square
+    root of the splits (two rounds), whichever the model finds faster for
+    the rows of x, and the arrival counters a grid needs: one per group
+    and one for the groups, per (expert, row block, column tile)."""
+    assert k5.fold_group(splits, m) == group
+    assert group == splits or (group - 1) ** 2 < splits <= group ** 2
+    assert k5.counters_for(m, n, splits, batch) == counters
+
+
+@pytest.mark.parametrize("c", [1, 4, 20])
+@pytest.mark.parametrize("e", [1, 3])
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_int8_bmm_plain_matches_jax(c, e, dtype, tol):
+    """A bank of E int8 expert weights against the JAX package's bank
+    product, jitted: einsum "ecd,edf->ecf" on its dequantize
+    (tony_tpu/models/moe.py:179-182)."""
+    w = np.stack([_weight((96, 48), 10 + i) for i in range(e)]) * 96 ** -0.5
+    x = np.random.RandomState(11).standard_normal((e, c, 96)).astype(
+        np.float32)
+    jt = jquant.quantize(jnp.asarray(w))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    want = jax.jit(lambda x, t: jnp.einsum(
+        "ecd,edf->ecf", x, jquant.dequantize(t)))(jx, jt)
+    t = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in jt.items()}
+    got = k5.int8_bmm(tensor_from_numpy(np.asarray(jax.device_get(jx)),
+                                        "cpu"), t)
+    assert got.dtype == getattr(torch, dtype)
+    assert tuple(got.shape) == (e, c, 48)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("c", [1, 4, 20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_bmm_plain_is_each_experts_product(c, dtype):
+    """The bank's plain version is, bit for bit, each expert's
+    `int8_matmul_reference` stacked, so the int8 MoE path computes on the
+    CPU what it computed expert by expert."""
+    t = quant.quantize(torch.from_numpy(np.stack(
+        [_weight((64, 32), 20 + i) for i in range(3)])))
+    x = torch.from_numpy(np.random.RandomState(21).standard_normal(
+        (3, c, 64)).astype(np.float32)).to(getattr(torch, dtype))
+    want = torch.stack([
+        k5.int8_matmul_reference(x[i], {"int8": t["int8"][i],
+                                        "scale": t["scale"][i]})
+        for i in range(3)])
+    for got in (k5.int8_bmm(x, t), k5.int8_bmm_reference(x, t)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_dequantized_bmm_is_each_experts_dequantized_product():
+    """A prefill's bank product on the card (more rows than K5 takes):
+    the bank dequantized to x's dtype and one library product, the
+    arithmetic of each expert's `_dequantized_matmul` (here on the CPU, at
+    the bf16 tolerance: a batched product may add in another order)."""
+    t = quant.quantize(torch.from_numpy(np.stack(
+        [_weight((64, 32), 30 + i) for i in range(3)]) * 64 ** -0.5))
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        x = torch.from_numpy(np.random.RandomState(31).standard_normal(
+            (3, 20, 64)).astype(np.float32)).to(dtype)
+        got = k5._dequantized_bmm(x, t)
+        want = torch.stack([k5._dequantized_matmul(
+            x[i], {"int8": t["int8"][i], "scale": t["scale"][i]}, False)
+            for i in range(3)])
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(),
+                                   want.float().numpy(), rtol=tol, atol=tol)
+
+
+def test_int8_bmm_refuses_bad_banks():
+    """The bank product refuses what `_qt` refuses, with its messages: a
+    bad shape, a bad dtype, a device other than cuda or cpu."""
+    x = torch.zeros(2, 4, 8)
+    bank = {"int8": torch.zeros(2, 8, 16, dtype=torch.int8),
+            "scale": torch.zeros(2, 1, 16)}
+    with pytest.raises(ValueError, match="int8 weight"):
+        k5.int8_bmm(x, {"int8": bank["int8"][0], "scale": bank["scale"][0]})
+    with pytest.raises(ValueError, match="int8 weight"):
+        k5.int8_bmm(x, {"int8": bank["int8"], "scale": torch.zeros(2, 16)})
+    with pytest.raises(ValueError, match="int8 weight"):
+        k5._qt(bank)
+    with pytest.raises(ValueError, match="does not fit"):
+        k5.int8_bmm(torch.zeros(3, 4, 8), bank)
+    with pytest.raises(TypeError, match="int8 weight and a float32"):
+        k5.int8_bmm(x, {"int8": bank["int8"].float(),
+                        "scale": bank["scale"]})
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+        k5.int8_bmm(x.half(), bank)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k5.int8_bmm(x.to("meta"), {k: v.to("meta") for k, v in
+                                    bank.items()})
+    with pytest.raises(ValueError, match="weight on meta"):
+        k5.int8_bmm(x, {k: v.to("meta") for k, v in bank.items()})
+    assert tuple(k5.int8_bmm(x, bank).shape) == (2, 4, 16)
+    # the kernel's own entries take only a tensor on the card
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k5.int8_bmm_cuda(x, bank)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k5.int8_matmul_cuda(x[0], {"int8": bank["int8"][0],
+                                   "scale": bank["scale"][0]})
 
 
 def test_compiled_dequantize_keeps_the_product_unrounded():

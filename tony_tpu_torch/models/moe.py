@@ -24,8 +24,8 @@ which each token takes its `top_k` choices.
   combine products, the same routing.
 - **The expert banks' products** are batched products over the experts
   (`torch.bmm`), as the JAX package leaves them to XLA; an int8 bank
-  (`models/quant.py`) takes one `ops/int8_matmul.py` product per expert,
-  so K5 at decode row counts.
+  (`models/quant.py`) takes one `ops/int8_matmul.py` `int8_bmm` a bank,
+  so one K5 launch a bank at decode row counts.
 - **Switch aux loss** over the choices before capacity, summed over the
   layers; `moe_loss` adds `aux_loss_weight` times it to the LM loss.
 
@@ -48,7 +48,7 @@ from tony_tpu_torch.models.llama import (
     layer_blocks, llama_init, lm_head, rope_tables, unpack_lm_batch,
 )
 from tony_tpu_torch.models.quant import is_qtensor
-from tony_tpu_torch.ops.int8_matmul import int8_matmul
+from tony_tpu_torch.ops.int8_matmul import int8_bmm
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 
 
@@ -233,11 +233,9 @@ def aux_loss(r: Routing, config: MoEConfig) -> torch.Tensor:
 
 def _bank_product(x: torch.Tensor, w) -> torch.Tensor:
     """(E, C, in) x one layer's bank (E, in, out) -> (E, C, out): one
-    batched product, or for an int8 bank one int8 product per expert."""
+    batched product, an int8 bank's too (`int8_bmm`)."""
     if is_qtensor(w):
-        return torch.stack([
-            int8_matmul(x[e], {"int8": w["int8"][e], "scale": w["scale"][e]})
-            for e in range(x.shape[0])])
+        return int8_bmm(x, w)
     return torch.bmm(x, w)
 
 

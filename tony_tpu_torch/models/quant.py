@@ -32,7 +32,8 @@ import torch
 # second-to-last axis); norms stay full precision, and so does the MoE
 # router (cast to f32 at routing time, and small). we_* are the MoE expert
 # banks: (L, E, d_in, d_out) quantizes per (layer, expert, channel), and
-# each expert's product goes through ops/int8_matmul.py (models/moe.py).
+# each bank's product goes through ops/int8_matmul.py's int8_bmm
+# (models/moe.py).
 LAYER_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                     "we_gate", "we_up", "we_down")
 
