@@ -12,6 +12,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
               name and power limit; count the HGMMA (wgmma) instructions
               in the SASS of each bf16 flash kernel (forward and
               backward, cuobjdump) and fail if one has none.
+   cache    — the kernel build cache: two task starts (`python -c`, the
+              ops imported, `maybe_enable_compile_cache`, every source
+              built and loaded) started together with
+              $TONY_JAX_CACHE_DIR on an empty directory compile each
+              source once between them (the build lock); a third
+              compiles nothing and loads every source (the four that
+              hold the five kernels); `python -m
+              tony_tpu_torch.train --config tiny --steps 2` under the
+              same variable compiles nothing and writes no library into
+              `_build/`. Prints the cold and warm walls and the seconds
+              saved per task start.
 2. kernels  — call each kernel's wrapper at the shapes of the serving
               and training paths and hold it against its plain PyTorch
               version on the same inputs: elementwise (bf16 at 3e-2, f32
@@ -92,6 +103,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
               state's size, snapshot, commit and restore times, a
               checkpointed step against an unchecked one, and the
               master-weights step time, tokens/s, MFU and peak memory.
+              Then the resume again on gs://chip-smoke/run, at the same
+              full width and depth, through a gsutil stand-in (cp, ls
+              and rm mapped onto a local directory, so the run needs no
+              network and no bucket): run A' saves, run B' restores it
+              bit for bit and resumes against run C (as above), retention
+              keeps the pinned step beside the last, and the server on
+              the gs:// checkpoint answers against `generate`; its commit
+              and restore times are the stand-in's local-disk copies,
+              not GCS.
 
 8. orch     — the port as a TonY task, reporting to a recording AM
               stand-in (a gRPC server with the three methods a task calls,
@@ -104,7 +124,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
               launches per step, the gauges, goodput phases (their sum
               within 1% of the wall) and spans the stand-in received, and
               prints stall_s per step, the goodput shares and the step
-              interval beside the train phase's. Serving: `python -m
+              interval beside the train phase's. As the chief with
+              TB_PORT set, the Trainer serves the profiler page: GET /,
+              a 2-step capture requested by POST /v1/profile (202 before
+              the run), its Chrome trace fetched during the run holding
+              the flash and RMSNorm kernels' device events at exactly
+              two steps' launches; the port closes after run(), and a
+              Trainer with IS_CHIEF=false binds nothing. Serving: `python -m
               tony_tpu_torch.serve --config llama3_8b` as a subprocess,
               four times (reports off, on, off, on), with the serve
               phase's burst; each "on" run checks the registration,
@@ -145,9 +171,11 @@ build,moe` runs the MoE slice alone.
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
 orch and moe paths together, split in `launches_by_path`; the orch path
-counts its training run, the moe path its two bursts and its training
-runs), then the card's name and power limit from nvidia-smi; the last
-line is {"ok": true, "device": {...}}.
+counts its training run, the ckpt path its runs and servers on the local
+and the gs:// directory, the moe path its two bursts and its training
+runs; the cache phase's processes are uncounted), then the card's name
+and power limit from nvidia-smi; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -594,6 +622,112 @@ def hgmma_counts(library) -> dict[str, int]:
         elif current is not None and "HGMMA" in line:
             counts[current] += 1
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: the kernel build cache under $TONY_JAX_CACHE_DIR
+# ---------------------------------------------------------------------------
+
+# a task start as far as its kernels: the cache applied, every source built
+# (or found) and loaded; prints what this process compiled and its wall
+CACHE_PROBE = """
+import json, sys, time
+t0 = time.monotonic()
+from tony_tpu_torch.ops import attention, int8_matmul, rmsnorm, cuda_lib
+from tony_tpu_torch.utils.compilecache import maybe_enable_compile_cache
+applied = maybe_enable_compile_cache()
+sources = sorted({k.source for k in cuda_lib.KERNELS.values()})
+compiled = cuda_lib.build(sources)
+for source in sources:
+    cuda_lib.load(source)
+print(json.dumps({"dir": applied, "compiled": sorted(compiled),
+                  "loaded": sources, "wall_s": time.monotonic() - t0}))
+"""
+
+
+def _listing(d) -> set[str]:
+    return set(os.listdir(d)) if os.path.isdir(d) else set()
+
+
+def phase_cache(smi: str) -> None:
+    """Two task starts together on an empty $TONY_JAX_CACHE_DIR compile
+    each source once between them (the build lock), a third compiles
+    nothing and loads all of them, and `python -m tony_tpu_torch.train
+    --config tiny --steps 2` under the same variable compiles nothing and
+    writes no library into the package's `_build/`. Prints the cold and
+    warm walls and the seconds a warm cache saves a task start."""
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.utils.compilecache import KERNELS_SUBDIR
+
+    repo = str(Path(__file__).resolve().parent)
+    root = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+    env = dict(os.environ, PYTHONPATH=repo, TONY_JAX_CACHE_DIR=root)
+    kernels_dir = os.path.join(root, KERNELS_SUBDIR)
+    default_before = _listing(cuda_lib.DEFAULT_BUILD_DIR)
+    cmd = [sys.executable, "-c", CACHE_PROBE]
+    try:
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE) for _ in range(2)]
+        outs = [p.communicate(timeout=600) for p in procs]
+        cold_s = time.monotonic() - t0
+        for p, (out, err) in zip(procs, outs):
+            check(p.returncode == 0, f"cache: a cold start exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+        cold = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        sources = cold[0]["loaded"]
+        compiled = sorted(cold[0]["compiled"] + cold[1]["compiled"])
+        log(f"cache: two task starts together on an empty cache: compiled "
+            f"{cold[0]['compiled']} and {cold[1]['compiled']}, walls "
+            f"{cold[0]['wall_s']:.2f} / {cold[1]['wall_s']:.2f} s in the "
+            f"process ({cold_s:.2f} s from spawn to exit); {smi}")
+        check(compiled == sources,
+              f"cache: compiled {compiled} between the two, not each of "
+              f"{sources} once")
+        check(all(c["dir"] == str(Path(kernels_dir).resolve())
+                  for c in cold), f"cache: build dirs {cold}")
+        t0 = time.monotonic()
+        warm = subprocess.run(cmd, cwd=repo, env=env, text=True,
+                              capture_output=True, timeout=600)
+        warm_s = time.monotonic() - t0
+        check(warm.returncode == 0,
+              f"cache: the warm start exited {warm.returncode}: "
+              f"{warm.stderr[-2000:]}")
+        w = json.loads(warm.stdout.strip().splitlines()[-1])
+        check(w["compiled"] == [] and w["loaded"] == sources,
+              f"cache: the warm start compiled {w['compiled']}, loaded "
+              f"{w['loaded']}")
+        cold_wall = max(c["wall_s"] for c in cold)
+        log(f"cache: a third start compiled nothing and loaded {sources} "
+            f"in {w['wall_s']:.2f} s ({warm_s:.2f} s from spawn to exit); "
+            f"a warm cache saves {cold_wall - w['wall_s']:.2f} s per task "
+            f"start ({cold_wall:.2f} s cold); {smi}")
+
+        cache_before = _listing(kernels_dir)
+        out = subprocess.run(
+            [sys.executable, "-m", "tony_tpu_torch.train", "--config",
+             "tiny", "--steps", "2"], cwd=repo, env=env, text=True,
+            capture_output=True, timeout=600)
+        last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() \
+            else ""
+        check(out.returncode == 0 and last.startswith("final loss "),
+              f"cache: the tiny trainer exited {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        new_cache = _listing(kernels_dir) - cache_before
+        new_default = _listing(cuda_lib.DEFAULT_BUILD_DIR) - default_before
+        log(f"cache: python -m tony_tpu_torch.train --config tiny --steps 2 "
+            f"under the cache: {last!r}; new files in the cache "
+            f"{sorted(new_cache)}, in _build/ {sorted(new_default)}")
+        check("persistent kernel build cache at" in out.stderr
+              and "nvcc compiled" not in out.stderr,
+              f"cache: the trainer did not load from the cache: "
+              f"{out.stderr[-2000:]}")
+        check(not any(n.endswith(".so") for n in new_cache | new_default),
+              f"cache: the trainer wrote libraries {new_cache} "
+              f"{new_default}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2028,6 +2162,8 @@ class _Timings:
         self._patched = []
         for module, attr, key in ((checkpoint, "_snapshot", "snapshot"),
                                   (checkpoint, "_write_snapshot", "write"),
+                                  (checkpoint, "_write_snapshot_store",
+                                   "write"),
                                   (trainer, "restore_checkpoint", "restore")):
             self._patched.append((module, attr, getattr(module, attr)))
             setattr(module, attr, self._timed(getattr(module, attr), key))
@@ -2040,9 +2176,81 @@ class _Timings:
             return out
         return wrapped
 
+    def clear(self) -> None:
+        for times in self.seconds.values():
+            times.clear()
+
+    def line(self) -> str:
+        t = self.seconds
+        ms = ", ".join(f"{x * 1e3:.1f}" for x in t["snapshot"])
+        return (f"snapshot {ms} ms; commit "
+                f"{', '.join(f'{x:.2f}' for x in t['write'])} s; restore "
+                f"{', '.join(f'{x:.2f}' for x in t['restore'])} s")
+
     def close(self) -> None:
         for module, attr, fn in self._patched:
             setattr(module, attr, fn)
+
+
+# a gsutil for the ckpt phase's gs:// run, which needs no network and no
+# bucket: gs://<bucket>/<key> maps onto $FAKE_GCS_ROOT/<bucket>/<key> (cp,
+# ls with wildcards, rm), as the tests' stand-in does
+GSUTIL_STAND_IN = """#!/bin/bash
+set -e
+cmd=$1; shift
+map() { echo "$FAKE_GCS_ROOT/${1#gs://}"; }
+unmap() { echo "gs://${1#"$FAKE_GCS_ROOT/"}"; }
+case "$cmd" in
+  cp)
+    src=$1; dst=$2
+    [[ $src == gs://* ]] && src=$(map "$src")
+    if [[ $dst == gs://* ]]; then dst=$(map "$dst"); mkdir -p "$(dirname "$dst")"; fi
+    cp "$src" "$dst"
+    ;;
+  ls)
+    if [[ $1 == *'*'* ]]; then
+      shopt -s globstar nullglob
+      mapped=$(map "$1")
+      found=0
+      for p in $mapped; do
+        [[ -f $p ]] && { unmap "$p"; found=1; }
+      done
+      [[ $found == 1 ]] || { echo "CommandException: no URLs matched" >&2; exit 1; }
+    else
+      p=$(map "$1"); [[ -e $p ]] || { echo "CommandException: no URLs matched" >&2; exit 1; }
+    fi
+    ;;
+  rm)
+    p=$(map "$1")
+    [[ -f $p ]] || { echo "CommandException: No URLs matched" >&2; exit 1; }
+    rm -f "$p"
+    ;;
+  *) echo "unsupported: $cmd" >&2; exit 2 ;;
+esac
+"""
+
+
+@contextlib.contextmanager
+def _gsutil_stand_in(root: str):
+    """GSUTIL_STAND_IN first on PATH, its objects under `root`/gcs."""
+    bindir = os.path.join(root, "gsutil-bin")
+    os.makedirs(bindir, exist_ok=True)
+    gsutil = os.path.join(bindir, "gsutil")
+    with open(gsutil, "w", encoding="utf-8") as f:
+        f.write(GSUTIL_STAND_IN)
+    os.chmod(gsutil, 0o755)
+    env = {"PATH": f"{bindir}:{os.environ.get('PATH', '')}",
+           "FAKE_GCS_ROOT": os.path.join(root, "gcs")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env["FAKE_GCS_ROOT"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _count_calls(fn, names, per_call: list, after=None):
@@ -2210,7 +2418,104 @@ def _preemption(root: str) -> None:
           f"resumed trainer exited {out.returncode}: {out.stderr[-2000:]}")
 
 
-def phase_ckpt() -> dict[str, int]:
+def _check_restore(b, saved: list, saved_lr: float, tag: str) -> None:
+    """The set-up Trainer `b` restored what run A saved: every leaf bit
+    for bit, the lr and each parameter's torch step."""
+    import torch
+    restored = _leaves(b)
+    check([p for p, _ in restored] == [p for p, _ in saved],
+          f"{tag}: restored tree differs from the saved one")
+    differ = [("/".join(p), None) for (p, x), (_, y) in
+              zip(restored, saved)
+              if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                      else x == y)]
+    lr = b.opt_state.optimizer.param_groups[0]["lr"]
+    per_param_step = {float(s["step"]) for s in
+                      b.opt_state.optimizer.state.values()}
+    log(f"{tag}: restore of step {b.step}: {len(restored)} leaves, "
+        f"{len(differ)} differ from what A saved; lr {lr!r} (A's "
+        f"{saved_lr!r}); torch step {per_param_step}")
+    check(not differ and lr == saved_lr and b.step == CKPT_STEPS
+          and per_param_step == {float(CKPT_STEPS)},
+          f"{tag}: restore not bitwise: {differ[:5]}, lr {lr} vs "
+          f"{saved_lr}")
+
+
+def _check_b_against_c(b, c_losses: list, c_params: list, bitwise: bool,
+                       a_gap: float, tag: str) -> None:
+    """Resumed run B's losses and final parameters against the unbroken
+    run C: bit for bit when A matched C bit for bit, else within 4x A's
+    gap (or 1e-3 relative)."""
+    import torch
+
+    from tony_tpu_torch.train.optim import tree_leaves
+    b_losses = _losses(b)
+    b_params = [t.detach() for t in tree_leaves(b.params)]
+    b_gap = _rel_gap(b_losses, c_losses[CKPT_STEPS:])
+    b_param_gap = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(b_params, c_params))
+    log(f"{tag}: run B losses {b_losses} vs C {c_losses[CKPT_STEPS:]}: "
+        f"loss gap {b_gap:.3e} (relative), final param gap "
+        f"{b_param_gap:.3e}")
+    if bitwise:
+        check(b_losses == c_losses[CKPT_STEPS:]
+              and all(torch.equal(x, y) for x, y in zip(b_params, c_params)),
+              f"{tag}: A matches C bit for bit, but B does not")
+    else:
+        limit = max(4 * a_gap, 1e-3)
+        check(b_gap <= limit, f"{tag}: B's gap {b_gap} > {limit}")
+
+
+def _gs_resume(cfg, c_losses: list, c_params: list, bitwise: bool,
+               a_gap: float, steps: list, timings: "_Timings", smi: str
+               ) -> dict[str, int]:
+    """The ckpt phase's resume on gs://chip-smoke/run (inside
+    `_gsutil_stand_in`), at the same full width and depth, against the
+    same unbroken run C: run A' saves step 2, run B' restores it bit for
+    bit and resumes to step 4 saving every step with keep 1,
+    retention keeps the pinned step 2 beside step 4, and the server on the
+    gs:// checkpoint answers. Returns the served launches."""
+    import torch
+
+    from tony_tpu_torch.train.checkpoint import committed_steps
+    d = "gs://chip-smoke/run"
+    a, _ = _ckpt_trainer(["--steps", str(CKPT_STEPS), "--checkpoint-dir", d])
+    a.setup()
+    _arm(a, cfg, steps)
+    a.run()
+    a_losses = _losses(a)
+    log(f"ckpt gs: run A' losses {a_losses} (C's first {CKPT_STEPS}: "
+        f"{c_losses[:CKPT_STEPS]})")
+    check(a_losses == c_losses[:CKPT_STEPS] or not bitwise,
+          f"ckpt gs: run A' losses {a_losses} differ from C's")
+    check(committed_steps(d) == [CKPT_STEPS],
+          f"ckpt gs: run A' left steps {committed_steps(d)}")
+    saved = _leaves(a)
+    saved_lr = a.opt_state.optimizer.param_groups[0]["lr"]
+    del a
+    torch.cuda.empty_cache()
+    b, _ = _ckpt_trainer(["--steps", str(2 * CKPT_STEPS), "--checkpoint-dir",
+                          d, "--checkpoint-every", "1"], skip=CKPT_STEPS)
+    b.config.checkpoint_keep = 1
+    b.setup()
+    _check_restore(b, saved, saved_lr, "ckpt gs")
+    del saved
+    _arm(b, cfg, steps)
+    b.run()
+    _check_b_against_c(b, c_losses, c_params, bitwise, a_gap, "ckpt gs")
+    check(committed_steps(d) == [CKPT_STEPS, 2 * CKPT_STEPS],
+          f"ckpt gs: run B' left steps {committed_steps(d)} (keep 1, "
+          f"step {CKPT_STEPS} pinned)")
+    log(f"ckpt gs: retention kept steps {committed_steps(d)}; "
+        f"{timings.line()} (commit: uploads through the gsutil stand-in, "
+        f"a local-disk cp per object, not GCS; restore: fetches the same "
+        f"way); {smi}")
+    served = _serve_from_checkpoint(d, b.params, cfg)
+    del b
+    return served
+
+
+def phase_ckpt(smi: str) -> dict[str, int]:
     """Returns each kernel's launches over the phase's training steps,
     evals and served requests."""
     import torch
@@ -2294,55 +2599,31 @@ def phase_ckpt() -> dict[str, int]:
                               "1"], skip=CKPT_STEPS)
         b.config.checkpoint_keep = 1
         b.setup()
-        restored = _leaves(b)
-        check([p for p, _ in restored] == [p for p, _ in saved],
-              "restored tree differs from the saved one")
-        differ = [("/".join(p), None) for (p, x), (_, y) in
-                  zip(restored, saved)
-                  if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
-                          else x == y)]
-        lr = b.opt_state.optimizer.param_groups[0]["lr"]
-        per_param_step = {float(s["step"]) for s in
-                          b.opt_state.optimizer.state.values()}
-        log(f"ckpt: restore of step {b.step}: {len(restored)} leaves, "
-            f"{len(differ)} differ from what A saved; lr {lr!r} (A's "
-            f"{saved_lr!r}); torch step {per_param_step}")
-        check(not differ and lr == saved_lr and b.step == CKPT_STEPS
-              and per_param_step == {float(CKPT_STEPS)},
-              f"restore not bitwise: {differ[:5]}, lr {lr} vs {saved_lr}")
-        del saved, restored
+        _check_restore(b, saved, saved_lr, "ckpt")
+        del saved
         _arm(b, cfg, steps)
         b.run()
-        b_losses = _losses(b)
-        b_params = [t.detach() for t in tree_leaves(b.params)]
-        b_gap = _rel_gap(b_losses, c_losses[CKPT_STEPS:])
-        b_param_gap = max(float((x.float() - y.float()).abs().max())
-                          for x, y in zip(b_params, c_params))
-        log(f"ckpt: run B losses {b_losses} vs C {c_losses[CKPT_STEPS:]}: "
-            f"loss gap {b_gap:.3e} (relative), final param gap "
-            f"{b_param_gap:.3e}")
-        if bitwise:
-            check(b_losses == c_losses[CKPT_STEPS:]
-                  and all(torch.equal(x, y)
-                          for x, y in zip(b_params, c_params)),
-                  "A matches C bit for bit, but B does not")
-        else:
-            limit = max(4 * a_gap, 1e-3)
-            check(b_gap <= limit, f"B's gap {b_gap} > {limit}")
+        _check_b_against_c(b, c_losses, c_params, bitwise, a_gap, "ckpt")
         check(committed_steps(d) == [CKPT_STEPS, 2 * CKPT_STEPS],
               f"run B left steps {committed_steps(d)}")
         b_interval = _interval_s(b, 2 * CKPT_STEPS)
-        t = timings.seconds
-        log(f"ckpt: snapshot {', '.join(f'{x * 1e3:.1f}' for x in t['snapshot'])}"
-            f" ms; commit (file writes and rename) "
-            f"{', '.join(f'{x:.2f}' for x in t['write'])} s; restore "
-            f"{', '.join(f'{x:.2f}' for x in t['restore'])} s; the interval "
-            f"ending at step {2 * CKPT_STEPS}: {b_interval:.4f} s with a "
-            f"save every step, {c_interval:.4f} s without")
-        del c_params
+        log(f"ckpt: {timings.line()} (commit: file writes and rename); the "
+            f"interval ending at step {2 * CKPT_STEPS}: {b_interval:.4f} s "
+            f"with a save every step, {c_interval:.4f} s without; {smi}")
 
         served = _serve_from_checkpoint(d, b.params, cfg)
-        del b, b_params
+        del b
+        shutil.rmtree(d)
+        torch.cuda.empty_cache()
+
+        # the same resume on a gs:// directory, through the stand-in
+        timings.clear()
+        with _gsutil_stand_in(root):
+            gs_served = _gs_resume(cfg, c_losses, c_params, bitwise, a_gap,
+                                   steps, timings, smi)
+        for name, n in gs_served.items():
+            served[name] = served.get(name, 0) + n
+        del c_params
         torch.cuda.empty_cache()
 
         # f32 master weights: params are the cast master after every step
@@ -2479,11 +2760,54 @@ def _write_conf(path: str, values: dict) -> str:
     return path
 
 
-def _orch_train(am: "_AmStandIn", root: str, conf_path: str
+# the kernels of a profiled step's trace, by the port kernel launching
+# each (the trace's demangled names: `void flash_fwd_tc<128>(...)`)
+TRACE_KERNELS = {"flash_fwd": r"\bflash_fwd_(tc|kernel)\b",
+                 "flash_bwd_dq": r"\bflash_bwd_dq_(tc|kernel)\b",
+                 "flash_bwd_dkv": r"\bflash_bwd_dkv_(tc|kernel)\b",
+                 "rmsnorm_fwd": r"\brmsnorm_(vec|scalar)\b",
+                 "int8_matmul": r"\bw8a16\b"}
+# the orch phase's capture through the profiler page: steps, and the step
+# whose data pull fetches the trace (the capture starts at step 1's log
+# boundary, so it covers steps 2 and 3)
+ORCH_PROFILE_STEPS, ORCH_PROFILE_FETCH = 2, 4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def _listening(port: int) -> bool:
+    import socket
+    with socket.socket() as s:
+        s.settimeout(2)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+def _trace_kernels(trace: dict) -> dict[str, int]:
+    """Device kernel events of a Chrome trace, counted by port kernel."""
+    counts = {name: 0 for name in TRACE_KERNELS}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") != "kernel":
+            continue
+        for name, pattern in TRACE_KERNELS.items():
+            if re.search(pattern, e.get("name", "")):
+                counts[name] += 1
+    return counts
+
+
+def _orch_train(am: "_AmStandIn", root: str, conf_path: str, smi: str
                 ) -> dict[str, int]:
     """The `--data` Trainer in this process under the task environment:
     first batch, launches per step, the gauges, goodput and spans the
-    stand-in received, stall_s per step, and the step interval."""
+    stand-in received, stall_s per step, and the step interval. As the
+    chief with TB_PORT set it serves the profiler page: a 2-step capture
+    requested there, its Chrome trace fetched there during the run, holds
+    the port's kernels at the steps' exact launch counts. A task with
+    IS_CHIEF=false binds nothing."""
     import numpy as np
     import torch
 
@@ -2501,8 +2825,15 @@ def _orch_train(am: "_AmStandIn", root: str, conf_path: str
     write_token_file(shard, tokens)
     parent = "0f" * 8
     env = _task_env(am, "worker", "chip-smoke-train", parent, conf_path)
+    tb_port = _free_port()
+    env.update(TB_PORT=str(tb_port), IS_CHIEF="true")
+    page = f"http://127.0.0.1:{tb_port}"
+    profiled: dict = {}
     saved = {k: os.environ.get(k) for k in env}
+    cwd = os.getcwd()
     os.environ.update(env)
+    # the request file lands in the task's cwd
+    os.chdir(root)
     try:
         args = build_arg_parser().parse_args(
             ["--config", TRAIN_CONFIG, "--device", "cuda", "--steps",
@@ -2523,12 +2854,30 @@ def _orch_train(am: "_AmStandIn", root: str, conf_path: str
         trainer.data_iter = recorded()
         t_wall = time.monotonic()
         trainer.setup()
+        status = json.loads(_http(page + "/")[2])
+        ask = _http(page + "/v1/profile", json.dumps(
+            {"num_steps": ORCH_PROFILE_STEPS}).encode())
+        rid = json.loads(ask[2])["request_id"]
+        waiting = _http(f"{page}/v1/profile/{rid}")
+        log(f"orch: train: profiler page on TB_PORT {tb_port}: GET / "
+            f"{status}; POST /v1/profile {ask[0]} {rid}; GET "
+            f"/v1/profile/{rid} {waiting[0]} before the run")
+        check(ask[0] == 200 and waiting[0] == 202
+              and status["active"] is None,
+              f"orch: profiler page answered {status} {ask[0]} {ask[2]!r} "
+              f"{waiting[0]}")
         want = _step_launches(cfg.n_layers)
         step_fn = trainer.train_step
         per_step: list[dict[str, int]] = []
         stalls: list[float] = []
 
         def counted_step(params, opt_state, batch):
+            if len(per_step) == ORCH_PROFILE_FETCH - 1:
+                code, _, body = _http(f"{page}/v1/profile/{rid}")
+                profiled.update(code=code, bytes=len(body),
+                                kernels=_trace_kernels(json.loads(body))
+                                if code == 200 else {},
+                                status=json.loads(_http(page + "/")[2]))
             before = cuda_lib.launches()
             out = step_fn(params, opt_state, batch)
             after = cuda_lib.launches()
@@ -2541,12 +2890,27 @@ def _orch_train(am: "_AmStandIn", root: str, conf_path: str
         trainer.run()
         wall = time.monotonic() - t_wall
         total = cuda_lib.launches()
+        closed = not _listening(tb_port)
     finally:
+        os.chdir(cwd)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+    want_trace = {n: ORCH_PROFILE_STEPS * k for n, k in want.items()}
+    log(f"orch: train: GET /v1/profile/{rid} during step "
+        f"{ORCH_PROFILE_FETCH}'s data pull: {profiled.get('code')}, "
+        f"{profiled.get('bytes', 0)} bytes of Chrome trace; its kernel "
+        f"events {profiled.get('kernels')} (expected {want_trace}: steps 2 "
+        f"and 3); GET / then {profiled.get('status')}; the port closed "
+        f"after run(): {closed}; {smi}")
+    check(profiled.get("code") == 200
+          and profiled["kernels"] == want_trace
+          and rid in profiled["status"]["captures"] and closed,
+          f"orch: the profiler page's capture: {profiled}")
+    _not_chief(tb_port)
 
     # the first batch: a fresh numpy read of the shard at the windows the
     # seed's xorshift64* draws (training seed = process index 0)
@@ -2643,6 +3007,28 @@ def _orch_train(am: "_AmStandIn", root: str, conf_path: str
     del trainer, step_fn
     torch.cuda.empty_cache()
     return total
+
+
+def _not_chief(port: int) -> None:
+    """A Trainer set up with TB_PORT and IS_CHIEF=false binds nothing."""
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+    saved = {k: os.environ.get(k) for k in ("TB_PORT", "IS_CHIEF")}
+    os.environ.update(TB_PORT=str(port), IS_CHIEF="false")
+    try:
+        trainer, _ = build_trainer(build_arg_parser().parse_args(
+            ["--config", "tiny", "--device", "cuda", "--steps", "0"]))
+        trainer.setup()
+        bound = trainer._profiler_server is not None or _listening(port)
+        trainer.run()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"orch: train: with IS_CHIEF=false and TB_PORT {port}, a Trainer's "
+        f"setup() binds the port: {bound}")
+    check(not bound, "orch: a task that is not the chief bound TB_PORT")
 
 
 def _server_up(proc, timeout: float) -> str:
@@ -2883,7 +3269,7 @@ def phase_orch(smi: str) -> dict[str, int]:
     try:
         launches = _orch_train(am, root, _write_conf(
             os.path.join(root, "conf-train.json"),
-            {"tony.task.metrics-interval-ms": 1000}))
+            {"tony.task.metrics-interval-ms": 1000}), smi)
         runs = [_orch_serve_run(kind, am, root, smi)
                 for kind in ORCH_SERVE_RUNS]
     finally:
@@ -3191,8 +3577,8 @@ def phase_moe() -> dict[str, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,serve,engine,profile,quant,"
-                            "kvcache,train,ckpt,orch,moe",
+                    default="build,cache,kernels,serve,engine,profile,"
+                            "quant,kvcache,train,ckpt,orch,moe",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -3222,6 +3608,8 @@ def main(argv=None) -> int:
         launches: dict[str, dict[str, int]] = {}
         if "build" in phases:
             phase_build()
+        if "cache" in phases:
+            phase_cache(smi)
         if "kernels" in phases:
             kernels = phase_kernels(peaks)
         if "serve" in phases:
@@ -3238,7 +3626,7 @@ def main(argv=None) -> int:
             launches["train"] = phase_train()
             phase_train_parity()
         if "ckpt" in phases:
-            launches["ckpt"] = phase_ckpt()
+            launches["ckpt"] = phase_ckpt(smi)
         if "orch" in phases:
             launches["orch"] = phase_orch(smi)
         if "moe" in phases:

@@ -11,13 +11,24 @@ and file bytes exactly. Around that, ports of tests/test_checkpoint.py and
 tests/test_preemption.py for the protocol (no-template assembly, a
 snapshot that survives the next in-place update, `.tmp` ignored, GC with
 keep/pin, the emergency save and SIGTERM -> EXIT_PREEMPTED).
+
+`gs://` directories run against the `fake_gcs` stand-in (tests/conftest.py:
+a `gsutil` on PATH mapping `cp`/`ls`/`rm` onto a local directory): the
+same objects byte for byte as the JAX package's (the port's tree.json
+aside), each package restoring the other's, the COMMIT protocol (an
+uncommitted step invisible, stale manifests ignored, the marker deleted
+first by retention), a failed `ls` raising, the async upload, the
+Trainer resumed bitwise and the server on a `gs://` checkpoint.
 """
 
 import json
 import os
 import shutil
 import signal
+import stat
+import tempfile
 import time
+import urllib.request
 from functools import partial, wraps
 
 import numpy as np
@@ -35,6 +46,7 @@ from tony_tpu.train.trainer import Trainer as JaxTrainer
 from tony_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
 from tony_tpu_torch import constants as C
 from tony_tpu_torch.models import llama
+from tony_tpu_torch.storage import store
 from tony_tpu_torch.train import checkpoint as ckpt
 from tony_tpu_torch.train import data, optim, trainer
 
@@ -456,21 +468,335 @@ def test_template_mismatch_raises(tmp_path):
         ckpt.restore_checkpoint(str(tmp_path), 1, template=renamed)
 
 
-def test_gs_directory_raises(tmp_path):
-    uri = "gs://bucket/ckpts"
-    for call in (lambda: ckpt.save_checkpoint(uri, 1, _state()),
-                 lambda: ckpt.latest_step(uri),
-                 lambda: ckpt.restore_checkpoint(uri, 1),
-                 lambda: ckpt.AsyncCheckpointer(uri)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+# ---------------------------------------------------------------------------
+# gs:// checkpoints (the fake_gcs stand-in)
+# ---------------------------------------------------------------------------
+
+def _objects(root) -> dict:
+    """{key: bytes} of every object under a stand-in bucket prefix."""
+    return {os.path.relpath(os.path.join(d, f), root):
+            open(os.path.join(d, f), "rb").read()
+            for d, _, files in os.walk(root) for f in files}
+
+
+def _assert_state_equal(got, want):
+    assert [p for p, _ in ckpt.flatten_with_paths(got)] == \
+        [p for p, _ in ckpt.flatten_with_paths(want)]
+    for (path, a), (_, b) in zip(ckpt.flatten_with_paths(got),
+                                 ckpt.flatten_with_paths(want)):
+        np.testing.assert_array_equal(_bits(a), _bits(b),
+                                      err_msg="/".join(path))
+
+
+@pytest.fixture
+def restore_tmp(tmp_path, monkeypatch):
+    """A temporary directory of its own for the store's scratch and
+    restore caches, so a test can see that they are removed."""
+    d = tmp_path / "tmpdir"
+    d.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(d))
+    return d
+
+
+def test_store_round_trip_and_uncommitted_step_invisible(fake_gcs,
+                                                         restore_tmp):
+    uri = "gs://bkt/ckpts"
+    assert ckpt.latest_step(uri) is None          # "no URLs matched"
+    state = _state()
+    assert ckpt.save_checkpoint(uri, 7, state) == f"{uri}/step_7"
+    step_dir = fake_gcs / "bkt" / "ckpts" / "step_7"
+    assert json.loads((step_dir / "COMMIT").read_text()) == {
+        "step": 7, "processes": 1}
+    assert ckpt.latest_step(uri) == 7
+    _assert_state_equal(ckpt.restore_checkpoint(uri), state)
+    template = {"w": torch.zeros(8, 8),
+                "b": torch.zeros(8, dtype=torch.bfloat16), "step": 0}
+    _assert_state_equal(ckpt.restore_checkpoint(uri, 7, template), state)
+    # a later save whose COMMIT never landed stays invisible
+    later = {"w": state["w"] + 1, "b": state["b"], "step": 9}
+    ckpt.save_checkpoint(uri, 9, later)
+    os.remove(fake_gcs / "bkt" / "ckpts" / "step_9" / "COMMIT")
+    assert ckpt.committed_steps(uri) == [7]
+    _assert_state_equal(ckpt.restore_checkpoint(uri), state)
+    # a template of the wrong dtype raises part way through the fill
+    with pytest.raises(ValueError, match="bfloat16"):
+        ckpt.restore_checkpoint(uri, 7, {"w": torch.zeros(8, 8),
+                                         "b": torch.zeros(8), "step": 0})
+    # the upload scratch and the restore caches are gone, the failed
+    # restore's too
+    assert os.listdir(restore_tmp) == []
+
+
+def test_store_restore_ignores_stale_manifests(fake_gcs, restore_tmp):
+    """A manifest of an aborted earlier attempt by two processes, naming
+    a poisoned shard over the whole leaf, lies beside the committed one:
+    restore reads exactly the manifests COMMIT names."""
+    uri = "gs://bkt/stale"
+    ckpt.save_checkpoint(uri, 3, _state())
+    step_dir = fake_gcs / "bkt" / "stale" / "step_3"
+    np.save(step_dir / "shards" / "leaf_2.p1_0.npy",
+            np.full((8, 8), -1.0, np.float32))
+    (step_dir / "manifest_p1.json").write_text(json.dumps({
+        "process": 1, "shards": [{"leaf": 2, "file": "leaf_2.p1_0.npy",
+                                  "index": [[0, 8], [0, 8]]}]}))
+    restored = ckpt.restore_checkpoint(uri, 3)
+    np.testing.assert_array_equal(restored["w"].numpy(),
+                                  np.arange(64.0).reshape(8, 8))
+    assert os.listdir(restore_tmp) == []
+
+
+def test_async_checkpointer_on_store(fake_gcs, monkeypatch):
+    """Uploads run on the checkpointer's thread; each snapshot survives
+    the next in-place update. A failed upload surfaces at the next wait
+    and leaves no COMMIT: the step never counts."""
+    uri = "gs://bkt/async"
+    x = torch.arange(16.0)
+    saver = ckpt.AsyncCheckpointer(uri)
+    for step in range(2):
+        saver.save(step, {"x": x})
+        x.mul_(2.0)
+    saver.close()
+    assert ckpt.committed_steps(uri) == [0, 1]
+    np.testing.assert_array_equal(ckpt.restore_checkpoint(uri)["x"].numpy(),
+                                  np.arange(16.0) * 2.0)
+    real_put = store.GCSStore.put
+
+    def failing_put(self, local_path, key):
+        if key == "step_2/index.json":
+            raise RuntimeError("gsutil cp failed rc=1: 503")
+        return real_put(self, local_path, key)
+    monkeypatch.setattr(store.GCSStore, "put", failing_put)
+    saver.save(2, {"x": x})
+    with pytest.raises(RuntimeError, match="async checkpoint failed") as e:
+        saver.close()
+    assert "503" in str(e.value.__cause__)
+    assert ckpt.committed_steps(uri) == [0, 1]
+    assert not (fake_gcs / "bkt" / "async" / "step_2" / "COMMIT").exists()
+
+
+def test_store_prune_deletes_commit_first_and_keeps_pinned(fake_gcs,
+                                                           monkeypatch):
+    uri = "gs://bkt/gc"
+    for step in (1, 2, 3, 4):
+        ckpt.save_checkpoint(uri, step, _state())
+    deleted = []
+    real_delete = store.GCSStore.delete
+    monkeypatch.setattr(store.GCSStore, "delete", lambda self, key: (
+        deleted.append(key), real_delete(self, key))[1])
+    assert ckpt.prune_checkpoints(uri, keep=1, pinned=2) == [1, 3]
+    assert ckpt.committed_steps(uri) == [2, 4]
+    for step in (1, 3):
+        mine = [k for k in deleted if k.startswith(f"step_{step}/")]
+        assert mine[0] == f"step_{step}/COMMIT"
+        assert len(mine) == len(set(mine)) > 5
+        assert not (fake_gcs / "bkt" / "gc" / f"step_{step}").exists() or \
+            _objects(fake_gcs / "bkt" / "gc" / f"step_{step}") == {}
+    assert all(not k.startswith(("step_2/", "step_4/")) for k in deleted)
+    # retention through save: keep 1, the pinned step survives
+    ckpt.save_checkpoint(uri, 5, _state(), keep=1, pinned=2)
+    assert ckpt.committed_steps(uri) == [2, 5]
+    # an object already gone is deleted
+    store.GCSStore(uri).delete("step_1/COMMIT")
+
+
+FAILING_LS = """#!/bin/bash
+if [[ $1 == ls ]]; then
+  echo "AccessDeniedException: 403 caller does not have storage.objects.list" >&2
+  exit 1
+fi
+exec "$REAL_FAKE_GSUTIL" "$@"
+"""
+
+
+def test_store_failing_ls_raises(fake_gcs, tmp_path, monkeypatch):
+    """A listing that fails for another reason than "matched no objects"
+    raises: a resuming trainer must not read it as "no checkpoints" and
+    start again from step 0 over the good ones."""
+    uri = "gs://bkt/denied"
+    ckpt.save_checkpoint(uri, 4, _state())
+    bindir = tmp_path / "denied-bin"
+    bindir.mkdir()
+    gsutil = bindir / "gsutil"
+    gsutil.write_text(FAILING_LS)
+    gsutil.chmod(gsutil.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("REAL_FAKE_GSUTIL", shutil.which("gsutil"))
+    monkeypatch.setenv("PATH", f"{bindir}:{os.environ['PATH']}")
+    for call in (lambda: ckpt.latest_step(uri),
+                 lambda: ckpt.committed_steps(uri),
+                 lambda: ckpt.restore_checkpoint(uri)):
+        with pytest.raises(RuntimeError, match="403"):
             call()
-    cfg = llama.get_config("tiny")
-    t = trainer.Trainer(
-        partial(llama.llama_loss, config=cfg), partial(llama.llama_init, cfg),
-        data.synthetic_tokens(2, 8, cfg.vocab_size),
-        trainer.TrainerConfig(num_steps=1, checkpoint_dir=uri), device="cpu")
-    with pytest.raises(NotImplementedError, match="gs://"):
+    t = _tiny_trainer(uri, data.synthetic_tokens(2, 16, 256), num_steps=1)
+    with pytest.raises(RuntimeError, match="403"):
         t.setup()
+    assert t.step == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_store_objects_equal_the_jax_packages(fake_gcs, dtype):
+    """The same AdamW state saved to gs:// by both packages: the same
+    object keys with the same bytes (bf16 shards under the '<V2' header,
+    COMMIT included), the port's tree.json the one extra object."""
+    jstate = _jax_adamw_state(getattr(jnp, dtype))
+    jckpt.save_checkpoint("gs://bkt/jax", 3, jstate)
+    ckpt.save_checkpoint("gs://bkt/port", 3,
+                         _port_tree(jax.device_get(jstate)))
+    j = _objects(fake_gcs / "bkt" / "jax")
+    p = _objects(fake_gcs / "bkt" / "port")
+    assert sorted(p) == sorted([*j, "step_3/tree.json"])
+    assert "step_3/COMMIT" in j and len(j) > 30
+    for key, data_ in j.items():
+        assert p[key] == data_, key
+
+
+def test_jax_restores_a_port_store_checkpoint(fake_gcs):
+    """A port AdamW state (f32: the JAX package reads no bf16 leaf) on
+    gs://, restored by the JAX package with and without a template."""
+    params, opt = _port_state(torch.float32)
+    for step in range(2):
+        for i, p in enumerate(optim.tree_leaves(params)):
+            p.grad = torch.from_numpy(np.random.RandomState(
+                10 * step + i).standard_normal(p.shape)).to(p.dtype)
+        opt.step()
+    state = {"params": params, "opt_state": opt.tree(), "step": 2}
+    uri = "gs://bkt/port-adamw"
+    ckpt.save_checkpoint(uri, 2, state)
+    assert jckpt.latest_step(uri) == 2
+    template = _jax_adamw_state(jnp.float32)
+    for restored in (jckpt.restore_checkpoint(uri),
+                     jckpt.restore_checkpoint(uri, 2, template)):
+        assert jax.tree.structure(restored) == jax.tree.structure(template)
+        _assert_same_leaves(state, restored)
+
+
+def test_port_restores_a_sharded_jax_store_checkpoint(fake_gcs):
+    """A JAX AdamW state sharded over the 8-device CPU mesh (fsdp on every
+    leaf whose first dimension splits 8 ways) saved to gs://: several
+    shard objects per leaf, pasted region by region into the port's
+    state. Then the step as two processes lay it out (each process's
+    files in its own manifest, COMMIT naming both): the same leaves."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    mesh = Mesh(np.array(jax.devices()[:8]), ("fsdp",))
+
+    def place(x):
+        if getattr(x, "ndim", 0) and x.shape[0] % 8 == 0:
+            return jax.device_put(x, NamedSharding(mesh, P("fsdp")))
+        return x
+    jstate = jax.tree.map(place, _jax_adamw_state(jnp.float32))
+    uri = "gs://bkt/jax-sharded"
+    jckpt.save_checkpoint(uri, 2, jstate)
+    step_dir = fake_gcs / "bkt" / "jax-sharded" / "step_2"
+    manifest = json.loads((step_dir / "manifest_p0.json").read_text())
+    per_leaf = {}
+    for rec in manifest["shards"]:
+        per_leaf[rec["leaf"]] = per_leaf.get(rec["leaf"], 0) + 1
+    assert max(per_leaf.values()) == 8
+    assert not (step_dir / "tree.json").exists()
+
+    def restored():
+        params, opt = _port_state(torch.float32)
+        state = ckpt.restore_checkpoint(uri, None, {
+            "params": params, "opt_state": opt.tree(), "step": 0})
+        opt.load_tree(state["opt_state"])
+        return {"params": params, "opt_state": opt.tree(),
+                "step": state["step"]}
+
+    _assert_same_leaves(restored(), jstate)
+    half = len(manifest["shards"]) // 2
+    for p, recs in enumerate((manifest["shards"][:half],
+                              manifest["shards"][half:])):
+        (step_dir / f"manifest_p{p}.json").write_text(json.dumps(
+            {"process": p, "shards": recs}))
+    (step_dir / "COMMIT").write_text(json.dumps({"step": 2,
+                                                 "processes": 2}))
+    _assert_same_leaves(restored(), jstate)
+
+
+def test_trainer_resumes_from_store_bitwise(fake_gcs):
+    """Run A trains 2 steps and commits to gs://; run B resumes it to step
+    4 saving every step with keep 1; run C trains 4 steps unbroken. B's
+    losses and parameters equal C's bit for bit, and retention keeps the
+    pinned step 2 beside step 4."""
+    uri = "gs://bkt/trainer"
+
+    def run(ckpt_dir, steps, skip, **extra):
+        cfg = llama.get_config("tiny")
+        t = trainer.Trainer(
+            partial(llama.llama_loss, config=cfg),
+            partial(llama.llama_init, cfg),
+            _skipped(data.synthetic_tokens(BATCH, SEQ, cfg.vocab_size),
+                     skip),
+            trainer.TrainerConfig(num_steps=steps, checkpoint_dir=ckpt_dir,
+                                  **TRAIN, **extra),
+            device="cpu")
+        t.run()
+        return t
+
+    a = run(uri, 2, 0)
+    assert ckpt.committed_steps(uri) == [2]
+    b = run(uri, 4, 2, checkpoint_every=1, checkpoint_keep=1)
+    c = run("", 4, 0)
+    assert [m["step"] for m in b.metrics_history] == [3, 4]
+    assert [m["loss"] for m in b.metrics_history] == \
+        [m["loss"] for m in c.metrics_history][2:]
+    assert [m["loss"] for m in a.metrics_history] == \
+        [m["loss"] for m in c.metrics_history][:2]
+    for x, y in zip(optim.tree_leaves(b.params), optim.tree_leaves(c.params)):
+        assert torch.equal(x, y)
+    assert ckpt.committed_steps(uri) == [2, 4]
+
+
+def test_emergency_checkpoint_on_store(fake_gcs):
+    """An error mid-run commits the step it died at on gs://, and the
+    error propagates."""
+    def poisoned():
+        src = data.synthetic_tokens(2, 16, 256)
+        for i in range(10_000):
+            if i == 3:
+                raise RuntimeError("data pipeline exploded")
+            yield next(src)
+
+    uri = "gs://bkt/emergency"
+    t = _tiny_trainer(uri, poisoned(), checkpoint_every=0)
+    with pytest.raises(RuntimeError, match="exploded"):
+        t.run()
+    assert ckpt.latest_step(uri) == t.step == 3
+
+
+def test_server_serves_a_store_checkpoint(fake_gcs):
+    """`build_server --checkpoint-dir gs://...` on the CPU: the latest
+    committed step's params, the greedy tokens of `generate` on them."""
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
+
+    params, opt = _port_state(torch.float32)
+    uri = "gs://bkt/serve"
+    ckpt.save_checkpoint(uri, 4, {"params": params, "opt_state": opt.tree(),
+                                  "step": 4})
+    server = build_server(build_arg_parser().parse_args(
+        ["--device", "cpu", "--config", "tiny", "--checkpoint-dir", uri,
+         "--slots", "1", "--token-budget", "32", "--port", "0",
+         "--host", "127.0.0.1"]))
+    try:
+        for x, y in zip(optim.tree_leaves(server.engine.params),
+                        optim.tree_leaves(params)):
+            assert torch.equal(x, y.detach())
+        prompt = [5, 17, 3, 250, 9]
+        req = urllib.request.Request(
+            server.url + "/v1/generate", data=json.dumps(
+                {"prompt": prompt, "max_new_tokens": 6}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            got = json.loads(r.read())["tokens"]
+    finally:
+        server.stop(drain_timeout=5)
+    with torch.no_grad():
+        want = generate({k: v.detach() if isinstance(v, torch.Tensor) else
+                         {n: w.detach() for n, w in v.items()}
+                         for k, v in params.items()},
+                        llama.get_config("tiny"), torch.tensor([prompt]),
+                        6)[0].tolist()
+    assert got == want
 
 
 def _tiny_trainer(ckpt_dir, data_iter, num_steps=50, checkpoint_every=1):

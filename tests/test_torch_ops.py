@@ -580,6 +580,7 @@ def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
 def test_library_path_is_keyed_by_source_content(monkeypatch, tmp_path):
     (tmp_path / "k.cu").write_text("// one\n")
     monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib, "_compiler", "nvcc: release 12.9\n")
     first = cuda_lib.library_path("k.cu")
     (tmp_path / "k.cu").write_text("// two\n")
     second = cuda_lib.library_path("k.cu")

@@ -367,7 +367,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "observability.prometheus", "observability.trace",
                    "observability.perf", "observability.logs",
                    "observability.profiler", "observability.reqtrace",
-                   "train.metrics", "train.native_data"):
+                   "train.metrics", "train.native_data", "storage.store",
+                   "utils.compilecache", "observability.profiler_server"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -19,6 +19,7 @@ EXIT_PREEMPTED = 12
 JOB_NAME = "JOB_NAME"                # task type, e.g. "worker", "serving"
 TASK_INDEX = "TASK_INDEX"            # index within the task type
 IS_CHIEF = "IS_CHIEF"                # "true" if this task is the chief
+TB_PORT = "TB_PORT"                  # TensorBoard port, chief only
 AM_HOST = "AM_HOST"
 AM_PORT = "AM_PORT"
 METRICS_RPC_PORT = "METRICS_RPC_PORT"
@@ -45,6 +46,10 @@ PROFILE_REQUEST_FILE = "profile_request.json"
 PROFILES_DIR_NAME = "profiles"
 # structured JSON logs unless this is 1/true/yes
 PLAIN_LOGS_ENV = "TONY_LOG_PLAIN"
+
+# the executor's persistent compile cache directory (from
+# tony.executor.jax-cache-dir): the port keeps its kernel builds there
+JAX_CACHE_DIR = "TONY_JAX_CACHE_DIR"
 
 # -- configuration -------------------------------------------------------
 TONY_CONF_PATH = "TONY_CONF_PATH"    # abs path of the frozen tony-final.json

@@ -15,7 +15,9 @@ The port's copy of the task-side half of `tony_tpu/observability/perf.py`:
   cwd; at a log boundary the trainer starts `torch.profiler` for N
   steps, writes its Chrome trace into ``profiles/<request_id>/`` and
   publishes ``{request_id, path, num_steps, duration_ms}`` (the JAX
-  payload's keys) through the metrics RPC.
+  payload's keys) through the metrics RPC. The profiler server on the
+  task's ``TB_PORT`` (`profiler_server.py`) writes the same request file
+  and reads the capture's state.
 The AM-side aggregation and SLO watchdog stay the AM's.
 """
 
@@ -192,8 +194,9 @@ class ProfileCapture:
     a capture for an unseen request id; `on_step()` after each step
     counts it down, stops it and publishes the artifact. A request id
     seen once never restarts a trace, and its file is removed so a
-    relaunched trainer does not replay it. `start_fn`/`stop_fn` replace
-    torch.profiler (tests)."""
+    relaunched trainer does not replay it. `finished` maps each capture
+    written to its directory, `failed` holds the ids that could not start
+    or stop. `start_fn`/`stop_fn` replace torch.profiler (tests)."""
 
     def __init__(self, cwd: str = ".",
                  publish: Optional[Callable[[dict], None]] = None,
@@ -210,10 +213,21 @@ class ProfileCapture:
         self._stop_fn = stop_fn
         self._seen: set[str] = set()
         self._active: Optional[dict] = None
+        self.finished: dict[str, str] = {}
+        self.failed: set[str] = set()
 
     @property
     def active(self) -> bool:
         return self._active is not None
+
+    @property
+    def active_request(self) -> Optional[str]:
+        active = self._active
+        return None if active is None else active["request_id"]
+
+    @property
+    def request_path(self) -> str:
+        return self._request_path
 
     def poll(self) -> None:
         """Start a capture if the request file names an unseen id."""
@@ -239,6 +253,7 @@ class ProfileCapture:
         except Exception:  # noqa: BLE001 — profiling never kills training
             LOG.exception("could not start profiler trace for request %s",
                           rid)
+            self.failed.add(rid)
             return
         LOG.info("profiler capture %s started (%d steps) -> %s", rid,
                  steps, out_dir)
@@ -261,7 +276,9 @@ class ProfileCapture:
         except Exception:  # noqa: BLE001
             LOG.exception("profiler stop failed for request %s",
                           active["request_id"])
+            self.failed.add(active["request_id"])
             return
+        self.finished[active["request_id"]] = active["dir"]
         duration_ms = int(1000 * (time.monotonic() - active["t0"]))
         LOG.info("profiler capture %s finished after %d steps (%d ms)",
                  active["request_id"], active["num_steps"], duration_ms)

@@ -2,11 +2,25 @@
 
 The sources live in `tony_tpu_torch/csrc/`, one `.cu` file per kernel, each
 with a plain C interface. They are compiled by `nvcc` for Hopper
-(`sm_90a`) into shared libraries under `tony_tpu_torch/_build/` (listed in
-`.gitignore`) at first use, one `nvcc` process per source, all started
-together. A library's file name carries a hash of its source, of the
-shared headers in `csrc/` (`*.cuh`) and of the flags, so an edited source
-or header is rebuilt and an unchanged one is loaded as it is.
+(`sm_90a`) into shared libraries at first use, one `nvcc` process per
+source, all started together. The build directory is
+`tony_tpu_torch/_build/` (listed in `.gitignore`) unless `set_build_dir`
+points it elsewhere before the first `load()`: a trainer or server run as
+a TonY task keeps its builds in the executor's cache directory
+(`tony_tpu_torch.utils.compilecache`), so a later task on the same host
+loads them instead of compiling. A library's file name carries a hash of
+its source, of the shared headers in `csrc/` (`*.cuh`), of the flags and
+of `nvcc --version`, so an edited source or header, or another toolkit,
+builds anew and an unchanged one is loaded as it is.
+
+Processes sharing a build directory compile each library once: `build`
+holds an exclusive `fcntl.flock` on `<library>.lock` from its check for
+the library to the rename of the finished one, so a second process
+waits, then loads. The kernel drops the lock when its holder exits, so a
+killed build leaves no stale lock. `flock` over NFS is advisory and may
+not hold across hosts; there two builds may race, and each writes its
+own temporary file and renames it into place whole (`os.replace`), so
+the loser only repeats the work.
 
 There is no fallback: a missing `nvcc`, a failed build or a non-zero
 launch status raises. The plain PyTorch versions beside each kernel run
@@ -16,7 +30,9 @@ only for tensors that lie on the CPU.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -28,15 +44,21 @@ from typing import Optional
 
 import torch
 
+LOG = logging.getLogger(__name__)
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_BUILD_DIR = PACKAGE_DIR / "_build"
+# where library_path and build put the libraries; set_build_dir moves it
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _build_logs: dict[str, str] = {}
+# `nvcc --version`, read once per process
+_compiler: Optional[str] = None
 
 
 def find_nvcc() -> str:
@@ -58,47 +80,109 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
 
 
+def compiler_version() -> str:
+    """`nvcc --version`'s output, read once per process."""
+    global _compiler
+    if _compiler is None:
+        _compiler = subprocess.run([find_nvcc(), "--version"],
+                                   capture_output=True, text=True,
+                                   timeout=120, check=True).stdout
+    return _compiler
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under `path` (created). Call it before
+    the first `load()`: with a library already loaded from another
+    directory it raises RuntimeError."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    with _lock:
+        if _libs and path != BUILD_DIR:
+            raise RuntimeError(
+                f"kernel libraries are already loaded from {BUILD_DIR}; "
+                f"the build directory cannot move to {path}")
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = path
+    return path
+
+
 def library_path(source: str) -> Path:
     """Where the library built from `source` lives: keyed by a hash of the
     source text, of every header in `csrc/` (a source may include any of
-    them) and of the compiler flags."""
+    them), of the compiler flags and of the compiler's version."""
     h = hashlib.sha256((CSRC_DIR / source).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(compiler_version().encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
+def _locked(target: Path):
+    """An open file holding the exclusive lock of `target`'s build (it
+    waits for another process's); closing the file releases it."""
+    f = open(target.with_name(f"{target.name}.lock"), "a")
+    try:
+        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+    except BaseException:
+        f.close()
+        raise
+    return f
+
+
 def build(sources: list[str]) -> dict[str, float]:
     """Compile every source whose library is missing, one `nvcc` each, all
-    at once. Returns {source: seconds} for the ones compiled. Raises with
-    the compiler's output when any of them fails."""
-    todo = [s for s in sources if not library_path(s).exists()]
+    at once, each under its library's lock (taken in sorted order; a
+    library another process finished while this one waited is not
+    compiled again). Returns {source: seconds} for the ones compiled here.
+    Raises with the compiler's output when any of them fails."""
+    todo = sorted(s for s in sources if not library_path(s).exists())
     if not todo:
         return {}
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
-    for source in todo:
-        target = library_path(source)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}."
-                               f"{uuid.uuid4().hex[:8]}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running.append((source, target, tmp, proc, time.monotonic()))
-    seconds: dict[str, float] = {}
-    failures = []
-    for source, target, tmp, proc, started in running:
-        log, _ = proc.communicate()
-        seconds[source] = time.monotonic() - started
-        _build_logs[source] = log
-        if proc.returncode != 0:
-            failures.append(f"nvcc {source} exited {proc.returncode}:\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, target)
+    try:
+        for source in todo:
+            target = library_path(source)
+            lock = _locked(target)
+            if target.exists():
+                lock.close()
+                continue
+            tmp = target.with_name(f"{target.name}.{os.getpid()}."
+                                   f"{uuid.uuid4().hex[:8]}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            except BaseException:
+                lock.close()
+                raise
+            running.append((source, target, tmp, proc, time.monotonic(),
+                            lock))
+        seconds: dict[str, float] = {}
+        failures = []
+        for source, target, tmp, proc, started, lock in running:
+            log, _ = proc.communicate()
+            seconds[source] = time.monotonic() - started
+            _build_logs[source] = log
+            if proc.returncode != 0:
+                failures.append(f"nvcc {source} exited {proc.returncode}:"
+                                f"\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, target)
+                LOG.info("nvcc compiled %s in %.1f s into %s", source,
+                         seconds[source], target)
+            lock.close()
+    finally:
+        for _, _, tmp, proc, _, lock in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+            lock.close()
     if failures:
         raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failures))
     return seconds

@@ -8,10 +8,11 @@ requests, then stops the frontend and the engine.
 
 The flags are the JAX entry point's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels).
-``--checkpoint-dir`` serves the parameters of the latest step there, as
-the port's or the JAX package's Trainer wrote it, loaded onto the serving
-device. ``--quant int8`` quantizes the weights (decode products on the
-W8A16 kernel), ``--quant-cache`` keeps the KV cache in int8,
+``--checkpoint-dir`` (a directory or a ``gs://`` location) serves the
+parameters of the latest step there, as the port's or the JAX package's
+Trainer wrote it, loaded onto the serving device. ``--quant int8``
+quantizes the weights (decode products on the W8A16 kernel),
+``--quant-cache`` keeps the KV cache in int8,
 ``--prefix-sharing on`` (with ``--kv-page-size``/``--kv-pages``) admits
 through the paged prefix pool, ``--role prefill --migrate-to URL,...``
 hands each request's decode to a ``--role decode`` replica over
@@ -23,6 +24,8 @@ of the flags above work with it.
 As a TonY task (``tony.serving.command=<python> -m tony_tpu_torch.serve
 ...``) it does what the JAX server does toward the AM, each step a no-op
 outside the orchestrator:
+- builds its kernels under ``$TONY_JAX_CACHE_DIR`` when the executor set
+  it, so a later replica on the host loads them without ``nvcc``;
 - reads its knobs from the flags, else the frozen conf
   (``TONY_CONF_PATH``: ``tony.serving.*``), else the JAX defaults; the
   port from ``SERVING_PORT``, the role from ``TONY_SERVING_ROLE``;
@@ -123,6 +126,11 @@ def _load_model(args, device):
     from tony_tpu_torch.models.moe import (
         get_moe_config, is_moe_preset, moe_init,
     )
+    from tony_tpu_torch.utils.compilecache import maybe_enable_compile_cache
+
+    # the kernel build cache ($TONY_JAX_CACHE_DIR), before any parameter
+    # is placed or a kernel loaded
+    maybe_enable_compile_cache()
 
     if is_moe_preset(args.config):
         base = get_moe_config(args.config)

@@ -10,8 +10,9 @@ loss X``.
 
 The flags are the JAX script's, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels) and
-``--log-every``. ``--checkpoint-dir`` resumes from the latest step there
-and checkpoints at the end (and every ``--checkpoint-every`` steps);
+``--log-every``. ``--checkpoint-dir`` (a directory or a ``gs://``
+location) resumes from the latest step there and checkpoints at the end
+(and every ``--checkpoint-every`` steps);
 ``--eval-every`` scores a fixed held-out batch from the same source as
 training with a disjoint seed, as the JAX script does: shard windows with
 seed ``1_000_000 + process_index`` (training uses ``process_index``), or
@@ -20,8 +21,9 @@ A SIGTERM commits an emergency checkpoint and exits 12.
 
 Run as a TonY task (``--executes`` a script that calls this module), it
 logs structured JSON lines, runs the sampling profiler, and its Trainer
-reports spans, goodput and step metrics to the AM; outside the
-orchestrator those reports are no-ops. ``--pp-micro`` and ``--pp-virtual``
+reports spans, goodput and step metrics to the AM, keeps its kernel builds
+under ``$TONY_JAX_CACHE_DIR`` and, on the chief, serves on-demand profiles
+on ``TB_PORT``; outside the orchestrator those are no-ops. ``--pp-micro`` and ``--pp-virtual``
 raise NotImplementedError (the parallel slice).
 """
 

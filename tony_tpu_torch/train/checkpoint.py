@@ -40,8 +40,15 @@ before the next step runs: every device-to-host copy is issued into
 pinned buffers before one wait) and writes the files on a thread; at most
 one save is in flight.
 
-A `gs://` directory raises NotImplementedError: the object-store protocol
-comes with the port's orchestrator slice (ROADMAP queue 1 item 4).
+A `gs://` directory (for a fleet with no shared filesystem) holds the same
+objects under `step_<N>/`, through the `gsutil` or `gcloud storage` CLI
+(`tony_tpu_torch/storage/store.py`). An object store has no atomic rename,
+so the protocol is the JAX package's: every file is uploaded, then a
+`COMMIT` marker (`{"step": N, "processes": 1}`) last. A step counts only
+once its marker landed, so a save that dies half way stays invisible;
+retention deletes the marker first. Restore fetches the step's metadata
+and exactly the manifests `COMMIT` names into a temporary cache, fetches
+each shard on first touch, and removes the cache when it is done.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import os
 import re
 import shutil
 import struct
+import tempfile
 import threading
 from typing import Any, Optional
 
@@ -65,18 +73,21 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 _TREE_FILE = "tree.json"
 _TREEDEF_FILE = "tree.pkl"
 _INDEX_FILE = "index.json"
+_COMMIT_FILE = "COMMIT"
 _MANIFEST_RE = re.compile(r"^manifest_p(\d+)\.json$")
+_COMMIT_KEY_RE = re.compile(r"^step_(\d+)/COMMIT$")
 # the header descr the JAX package's np.save gives an ml_dtypes.bfloat16
 # array (numpy's own 2-byte void would be '|V2')
 _BF16_DESCR = "<V2"
 
 
-def _check_local(ckpt_dir: str) -> None:
-    if ckpt_dir.startswith("gs://"):
-        raise NotImplementedError(
-            f"{ckpt_dir}: gs:// checkpoint directories are not ported to "
-            f"tony_tpu_torch yet; the object-store protocol arrives with "
-            f"ROADMAP queue 1 item 4 (the port in the orchestrator)")
+def _is_store_path(path: str) -> bool:
+    return path.startswith("gs://")
+
+
+def _ckpt_store(base: str):
+    from tony_tpu_torch.storage.store import GCSStore
+    return GCSStore(base.rstrip("/"))
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +382,29 @@ def _snapshot(state: Any, buffers: Optional[dict] = None):
             metas, records)
 
 
+def _write_files(out_dir: str, paths, treedef: bytes, metas, records,
+                 put=lambda name: None) -> None:
+    """Write a step's files under `out_dir`: every shard, then
+    manifest_p0.json, index.json, tree.json and tree.pkl. `put(name)` is
+    called with each file's relative name as soon as it is written."""
+    os.makedirs(os.path.join(out_dir, "shards"), exist_ok=True)
+    manifest: dict[str, Any] = {"process": 0, "shards": []}
+    for i, fname, index_spec, data in records:
+        _write_npy(os.path.join(out_dir, "shards", fname), data)
+        put(f"shards/{fname}")
+        manifest["shards"].append({"leaf": i, "file": fname,
+                                   "index": index_spec})
+    for name, obj in (("manifest_p0.json", manifest),
+                      (_INDEX_FILE, {"leaves": metas}),
+                      (_TREE_FILE, {"paths": paths})):
+        with open(os.path.join(out_dir, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+        put(name)
+    with open(os.path.join(out_dir, _TREEDEF_FILE), "wb") as f:
+        f.write(treedef)
+    put(_TREEDEF_FILE)
+
+
 def _write_snapshot(ckpt_dir: str, step: int, paths, treedef: bytes,
                     metas, records) -> str:
     """File IO, then the atomic rename (safe on a background thread)."""
@@ -378,28 +412,47 @@ def _write_snapshot(ckpt_dir: str, step: int, paths, treedef: bytes,
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
-    os.makedirs(os.path.join(tmp, "shards"))
-    manifest: dict[str, Any] = {"process": 0, "shards": []}
-    for i, fname, index_spec, data in records:
-        _write_npy(os.path.join(tmp, "shards", fname), data)
-        manifest["shards"].append({"leaf": i, "file": fname,
-                                   "index": index_spec})
-    for name, obj in (("manifest_p0.json", manifest),
-                      (_INDEX_FILE, {"leaves": metas}),
-                      (_TREE_FILE, {"paths": paths})):
-        with open(os.path.join(tmp, name), "w", encoding="utf-8") as f:
-            json.dump(obj, f)
-    with open(os.path.join(tmp, _TREEDEF_FILE), "wb") as f:
-        f.write(treedef)
+    _write_files(tmp, paths, treedef, metas, records)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
     return final
 
 
+def _write_snapshot_store(base: str, step: int, paths, treedef: bytes,
+                          metas, records) -> str:
+    """The object-store commit: upload every file (each written to a
+    scratch directory and removed once uploaded), then the COMMIT marker
+    last. A failed upload raises before the marker, so the step stays
+    invisible. The marker names the manifest set of this attempt: an
+    aborted earlier upload of the same step by more processes may have
+    left stale manifest_p*.json behind, which restore must not read."""
+    store = _ckpt_store(base)
+    prefix = f"step_{step}"
+    scratch = tempfile.mkdtemp(prefix="tony-ckpt-")
+
+    def put(name: str) -> None:
+        local = os.path.join(scratch, name)
+        store.put(local, f"{prefix}/{name}")
+        os.remove(local)
+
+    try:
+        _write_files(scratch, paths, treedef, metas, records, put)
+        with open(os.path.join(scratch, _COMMIT_FILE), "w",
+                  encoding="utf-8") as f:
+            json.dump({"step": step, "processes": 1}, f)
+        put(_COMMIT_FILE)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return store.uri(prefix)
+
+
 def _write_and_prune(ckpt_dir: str, step: int, snapshot, keep: int = 0,
                      pinned: Optional[int] = None) -> str:
-    final = _write_snapshot(ckpt_dir, step, *snapshot)
+    if _is_store_path(ckpt_dir):
+        final = _write_snapshot_store(ckpt_dir, step, *snapshot)
+    else:
+        final = _write_snapshot(ckpt_dir, step, *snapshot)
     # the step just written is always kept, so a failed prune can never
     # undo the commit that triggered it
     if keep > 0:
@@ -414,19 +467,25 @@ def _write_and_prune(ckpt_dir: str, step: int, snapshot, keep: int = 0,
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, keep: int = 0,
                     pinned: Optional[int] = None) -> str:
     """Write `state` (nested dicts, tuples and namedtuples of tensors and
-    Python numbers) as step `step`; returns the step's directory.
+    Python numbers) as step `step`; returns the step's directory (or its
+    URI on a `gs://` store).
 
     keep > 0 prunes older committed steps down to the newest `keep` after
     the commit; `pinned` names a step kept regardless of age (the step the
     current run restored from)."""
-    _check_local(ckpt_dir)
     return _write_and_prune(ckpt_dir, step, _snapshot(state), keep=keep,
                             pinned=pinned)
 
 
 def committed_steps(ckpt_dir: str) -> list[int]:
-    """Every complete checkpoint step, ascending."""
-    _check_local(ckpt_dir)
+    """Every complete checkpoint step, ascending: a local `step_N`
+    directory (the rename made it whole), or on a store a step whose
+    COMMIT marker landed (a targeted glob of the markers, not a walk of
+    every shard object)."""
+    if _is_store_path(ckpt_dir):
+        return sorted(int(m.group(1))
+                      for key in _ckpt_store(ckpt_dir).glob("step_*/COMMIT")
+                      if (m := _COMMIT_KEY_RE.match(key)))
     if not os.path.isdir(ckpt_dir):
         return []
     return sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
@@ -436,15 +495,26 @@ def committed_steps(ckpt_dir: str) -> list[int]:
 def prune_checkpoints(ckpt_dir: str, keep: int,
                       pinned: Optional[int] = None) -> list[int]:
     """Delete committed `step_N` directories beyond the newest `keep`,
-    oldest first, never `pinned`. Returns the pruned steps."""
+    oldest first, never `pinned`. On a store each step's COMMIT marker
+    goes first, so a reader racing the prune sees an uncommitted step,
+    never half of one. Returns the pruned steps."""
     if keep <= 0:
         return []
     steps = committed_steps(ckpt_dir)
     victims = [s for s in steps[:-keep] if s != pinned] \
         if len(steps) > keep else []
-    for step in victims:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{step}"),
-                      ignore_errors=True)
+    if _is_store_path(ckpt_dir):
+        store = _ckpt_store(ckpt_dir)
+        for step in victims:
+            marker = f"step_{step}/{_COMMIT_FILE}"
+            store.delete(marker)
+            for key in store.list_keys(f"step_{step}"):
+                if key != marker:
+                    store.delete(key)
+    else:
+        for step in victims:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{step}"),
+                          ignore_errors=True)
     if victims:
         LOG.info("checkpoint GC pruned step(s) %s (keep=%d%s)", victims,
                  keep, f", pinned={pinned}" if pinned is not None else "")
@@ -497,21 +567,20 @@ def _paste_region(out: np.ndarray, out_index: tuple, path: str,
 
 
 def _read_leaf(i: int, meta: dict, records: list[dict],
-               shards_dir: str) -> np.ndarray:
-    """Leaf `i` whole, in its storage dtype. A leaf saved as one file
-    covering all of it comes back as that file's copy-on-write map; one
-    saved in shards is pasted region by region into a new array, which
-    must be covered exactly."""
+               resolve) -> np.ndarray:
+    """Leaf `i` whole, in its storage dtype; `resolve(file)` gives a shard
+    file's local path. A leaf saved as one file covering all of it comes
+    back as that file's copy-on-write map; one saved in shards is pasted
+    region by region into a new array, which must be covered exactly."""
     dims = list(meta["shape"])
     storage = _storage_dtype(meta["dtype"])
     whole = [[0, d] for d in dims]
     if len(records) == 1 and records[0]["index"] == whole:
-        return _load_npy(os.path.join(shards_dir, records[0]["file"]),
-                         storage, mmap=bool(dims))
+        return _load_npy(resolve(records[0]["file"]), storage,
+                         mmap=bool(dims))
     target = tuple(slice(0, d) for d in dims)
     out = np.empty(dims, storage)
-    pasted = sum(_paste_region(out, target,
-                               os.path.join(shards_dir, rec["file"]), rec)
+    pasted = sum(_paste_region(out, target, resolve(rec["file"]), rec)
                  for rec in records)
     if pasted != math.prod(dims):
         raise ValueError(f"leaf {i}: its shard files cover {pasted} of "
@@ -530,35 +599,112 @@ def _python_or_tensor(arr: np.ndarray, meta: dict):
     return _as_tensor(np.array(arr), meta["dtype"])
 
 
-def _open_step(ckpt_dir: str, step: Optional[int]):
-    _check_local(ckpt_dir)
+class _Step:
+    """One committed step opened for reading: its leaves' metadata, the
+    key paths of `tree.json` (None for a JAX checkpoint), the shard
+    records by leaf, and `resolve(file)`, a shard's local path. On a store
+    the files land in a temporary cache, which `close()` removes: a `with`
+    block removes it whatever its body raises."""
+
+    def __init__(self, where: str, metas: list, paths, by_leaf: dict,
+                 resolve, cache: Optional[str] = None):
+        self.where = where
+        self.metas = metas
+        self.paths = paths
+        self.by_leaf = by_leaf
+        self.resolve = resolve
+        self._cache = cache
+
+    def leaf(self, i: int) -> np.ndarray:
+        return _read_leaf(i, self.metas[i], self.by_leaf.get(i, []),
+                          self.resolve)
+
+    @torch.no_grad()
+    def fill(self, ref: torch.Tensor, i: int, name: str) -> None:
+        """Copy leaf `i` into the tensor `ref`, in place, on its device."""
+        meta = self.metas[i]
+        if (list(ref.shape) != list(meta["shape"])
+                or _dtype_name(ref.dtype) != meta["dtype"]):
+            raise ValueError(
+                f"{self.where} leaf {i} ({name}): the checkpoint has "
+                f"{meta['dtype']} {meta['shape']}, the template "
+                f"{_dtype_name(ref.dtype)} {list(ref.shape)}")
+        ref.copy_(_as_tensor(self.leaf(i), meta["dtype"]))
+
+    def close(self) -> None:
+        if self._cache is not None:
+            shutil.rmtree(self._cache, ignore_errors=True)
+            self._cache = None
+
+    def __enter__(self) -> "_Step":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _read_json(path: str):
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _open_local_step(ckpt_dir: str, step: int) -> _Step:
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    metas = _read_json(os.path.join(path, _INDEX_FILE))["leaves"]
+    tree_path = os.path.join(path, _TREE_FILE)
+    paths = None
+    if os.path.exists(tree_path):
+        paths = [tuple(p) for p in _read_json(tree_path)["paths"]]
+    shards_dir = os.path.join(path, "shards")
+    return _Step(path, metas, paths, _load_manifests(path),
+                 lambda fname: os.path.join(shards_dir, fname))
+
+
+def _open_store_step(base: str, step: int) -> _Step:
+    """Fetch a store step's index.json, tree.json (where there is one),
+    COMMIT and exactly the manifests COMMIT names into a temporary cache;
+    each shard is fetched on first touch. Manifests of an aborted earlier
+    attempt with more processes may lie beside them and are never read:
+    merging them would paste stale shards over fresh regions."""
+    store = _ckpt_store(base)
+    prefix = f"step_{step}"
+    cache = tempfile.mkdtemp(prefix="tony-ckpt-restore-")
+
+    def fetch(name: str) -> str:
+        return store.fetch(store.uri(f"{prefix}/{name}"),
+                           os.path.join(cache, name))
+
+    try:
+        metas = _read_json(fetch(_INDEX_FILE))["leaves"]
+        paths = None
+        if store.exists(store.uri(f"{prefix}/{_TREE_FILE}")):
+            paths = [tuple(p) for p in _read_json(fetch(_TREE_FILE))["paths"]]
+        commit = _read_json(fetch(_COMMIT_FILE))
+        by_leaf: dict[int, list[dict]] = {}
+        for p in range(int(commit.get("processes", 1))):
+            for rec in _read_json(fetch(f"manifest_p{p}.json"))["shards"]:
+                by_leaf.setdefault(rec["leaf"], []).append(rec)
+    except BaseException:
+        shutil.rmtree(cache, ignore_errors=True)
+        raise
+
+    def resolve(fname: str) -> str:
+        local = os.path.join(cache, "shards", fname)
+        if not os.path.exists(local):
+            store.fetch(store.uri(f"{prefix}/shards/{fname}"), local)
+        return local
+
+    return _Step(store.uri(prefix), metas, paths, by_leaf, resolve, cache)
+
+
+def _open_step(ckpt_dir: str, step: Optional[int]) -> _Step:
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    path = os.path.join(ckpt_dir, f"step_{step}")
-    with open(os.path.join(path, _INDEX_FILE), "r", encoding="utf-8") as f:
-        metas = json.load(f)["leaves"]
-    tree_path = os.path.join(path, _TREE_FILE)
-    paths = None
-    if os.path.exists(tree_path):
-        with open(tree_path, "r", encoding="utf-8") as f:
-            paths = [tuple(p) for p in json.load(f)["paths"]]
-    return path, metas, paths, _load_manifests(path)
-
-
-@torch.no_grad()
-def _fill(ref: torch.Tensor, i: int, meta: dict, by_leaf, shards_dir: str,
-          where: str) -> None:
-    """Copy leaf `i` into the tensor `ref`, in place, on its device."""
-    if (list(ref.shape) != list(meta["shape"])
-            or _dtype_name(ref.dtype) != meta["dtype"]):
-        raise ValueError(
-            f"{where}: the checkpoint has {meta['dtype']} "
-            f"{meta['shape']}, the template {_dtype_name(ref.dtype)} "
-            f"{list(ref.shape)}")
-    arr = _read_leaf(i, meta, by_leaf.get(i, []), shards_dir)
-    ref.copy_(_as_tensor(arr, meta["dtype"]))
+    if _is_store_path(ckpt_dir):
+        return _open_store_step(ckpt_dir, step)
+    return _open_local_step(ckpt_dir, step)
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
@@ -572,37 +718,34 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     template: a state of the same tree. Each tensor leaf is filled in
     place (`copy_`, on its device) and the template's structure is
     returned with its tensors and the checkpoint's Python numbers."""
-    path, metas, paths, by_leaf = _open_step(ckpt_dir, step)
-    shards_dir = os.path.join(path, "shards")
-    if template is None:
-        if paths is None:
-            raise ValueError(
-                f"{path} has no {_TREE_FILE} (a checkpoint of the JAX "
-                f"package, which pickles its tree): restore it with a "
-                f"template")
-        leaves = [_python_or_tensor(
-            _read_leaf(i, meta, by_leaf.get(i, []), shards_dir), meta)
-            for i, meta in enumerate(metas)]
-        return _unflatten_paths([list(p) for p in paths], leaves)
-    t_leaves = flatten_with_paths(template)
-    if len(t_leaves) != len(metas):
-        raise ValueError(f"template has {len(t_leaves)} leaves, checkpoint "
-                         f"{path} {len(metas)}")
-    if paths is not None:
-        for (t_path, _), c_path in zip(t_leaves, paths):
-            if t_path != c_path:
-                raise ValueError(f"template leaf {'/'.join(t_path)} where "
-                                 f"{path} has {'/'.join(c_path)}")
-    out = []
-    for i, ((t_path, ref), meta) in enumerate(zip(t_leaves, metas)):
-        if isinstance(ref, torch.Tensor):
-            _fill(ref, i, meta, by_leaf, shards_dir,
-                  f"{path} leaf {i} ({'/'.join(t_path)})")
-            out.append(ref)
-        else:
-            out.append(_python_or_tensor(
-                _read_leaf(i, meta, by_leaf.get(i, []), shards_dir), meta))
-    return _rebuild(template, iter(out))
+    with _open_step(ckpt_dir, step) as st:
+        if template is None:
+            if st.paths is None:
+                raise ValueError(
+                    f"{st.where} has no {_TREE_FILE} (a checkpoint of the "
+                    f"JAX package, which pickles its tree): restore it with "
+                    f"a template")
+            leaves = [_python_or_tensor(st.leaf(i), meta)
+                      for i, meta in enumerate(st.metas)]
+            return _unflatten_paths([list(p) for p in st.paths], leaves)
+        t_leaves = flatten_with_paths(template)
+        if len(t_leaves) != len(st.metas):
+            raise ValueError(f"template has {len(t_leaves)} leaves, "
+                             f"checkpoint {st.where} {len(st.metas)}")
+        if st.paths is not None:
+            for (t_path, _), c_path in zip(t_leaves, st.paths):
+                if t_path != c_path:
+                    raise ValueError(
+                        f"template leaf {'/'.join(t_path)} where "
+                        f"{st.where} has {'/'.join(c_path)}")
+        out = []
+        for i, ((t_path, ref), meta) in enumerate(zip(t_leaves, st.metas)):
+            if isinstance(ref, torch.Tensor):
+                st.fill(ref, i, "/".join(t_path))
+                out.append(ref)
+            else:
+                out.append(_python_or_tensor(st.leaf(i), meta))
+        return _rebuild(template, iter(out))
 
 
 def trainer_state(params: Any, opt_state: Any, step: int) -> dict:
@@ -621,24 +764,24 @@ def restore_params(ckpt_dir: str, step: Optional[int],
     opt_state..., params..., step, so the params are the leaves just
     before the last, and their shapes and dtypes are checked against the
     template."""
-    path, metas, paths, by_leaf = _open_step(ckpt_dir, step)
-    shards_dir = os.path.join(path, "shards")
     t_leaves = flatten_with_paths(template)
     n = len(t_leaves)
-    if paths is not None:
-        index = [i for i, p in enumerate(paths) if p[:1] == ("params",)]
-        found = [paths[i][1:] for i in index]
-        if found != [p for p, _ in t_leaves]:
-            raise ValueError(f"{path}: its params {found} are not the "
-                             f"template's {[p for p, _ in t_leaves]}")
-    else:
-        if len(metas) < n + 1:
-            raise ValueError(f"{path} has {len(metas)} leaves, fewer than "
-                             f"the template's {n} params and a step")
-        index = list(range(len(metas) - 1 - n, len(metas) - 1))
-    for i, (t_path, ref) in zip(index, t_leaves):
-        _fill(ref, i, metas[i], by_leaf, shards_dir,
-              f"{path} leaf {i} (params/{'/'.join(t_path)})")
+    with _open_step(ckpt_dir, step) as st:
+        if st.paths is not None:
+            index = [i for i, p in enumerate(st.paths)
+                     if p[:1] == ("params",)]
+            found = [st.paths[i][1:] for i in index]
+            if found != [p for p, _ in t_leaves]:
+                raise ValueError(f"{st.where}: its params {found} are not "
+                                 f"the template's {[p for p, _ in t_leaves]}")
+        else:
+            if len(st.metas) < n + 1:
+                raise ValueError(f"{st.where} has {len(st.metas)} leaves, "
+                                 f"fewer than the template's {n} params "
+                                 f"and a step")
+            index = list(range(len(st.metas) - 1 - n, len(st.metas) - 1))
+        for i, (t_path, ref) in zip(index, t_leaves):
+            st.fill(ref, i, f"params/{'/'.join(t_path)}")
     return template
 
 
@@ -651,14 +794,14 @@ class AsyncCheckpointer:
 
     `save(step, state)` snapshots the state into pinned host buffers
     synchronously (the next step updates the tensors in place) and writes
-    the files on a background thread. At most one save is in flight: the
-    next `save` waits for the previous commit first, which also frees its
-    buffers for reuse. Call `wait()` before reading `latest_step` and
+    the files (or uploads them, on a store) on a background thread; an
+    error there is raised by the next `save`, `wait` or `close`. At most
+    one save is in flight: the next `save` waits for the previous commit
+    first, which also frees its buffers for reuse. Call `wait()` before reading `latest_step` and
     `close()` at the end."""
 
     def __init__(self, ckpt_dir: str, keep: int = 0,
                  pinned: Optional[int] = None):
-        _check_local(ckpt_dir)
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.pinned = pinned

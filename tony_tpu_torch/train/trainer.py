@@ -50,8 +50,16 @@ outside it):
   non-blocking `TpuMetricsReporter`; a final push when the run ends.
 - **Profile capture** on request (`ProfileCapture`), and the chaos step
   delay ``TONY_TRAINER_STEP_DELAY_MS``.
-Not ported: the TensorBoard-port profiler server. Sharded parameters
-wait for the parallel slice.
+- **The TensorBoard port**: on the chief (``IS_CHIEF``, default "true")
+  with ``TB_PORT`` set, `setup()` serves the profiler page there
+  (`ProfilerServer`: status, a capture on request, its Chrome trace); a
+  port it cannot bind is logged and training goes on. `run()` stops it.
+- **Kernel build cache**: `setup()` first points the kernel builds at
+  ``$TONY_JAX_CACHE_DIR`` (`maybe_enable_compile_cache`), so a later task
+  loads the kernels an earlier one compiled.
+- **Checkpoint directories** are local (or NFS) paths or ``gs://``
+  locations (with ``gsutil`` or ``gcloud`` on PATH).
+Sharded parameters wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from tony_tpu_torch.device import peak_flops, resolve_device
 from tony_tpu_torch.observability.perf import (
     GoodputLedger, ProfileCapture, mfu_pct, tokens_in_batch,
 )
+from tony_tpu_torch.observability.profiler_server import ProfilerServer
 from tony_tpu_torch.observability.trace import SpanRecorder
 from tony_tpu_torch.train.checkpoint import (
     AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint,
@@ -86,6 +95,13 @@ from tony_tpu_torch.train.metrics import TpuMetricsReporter
 from tony_tpu_torch.train.step import make_eval_step, make_train_step
 
 LOG = logging.getLogger(__name__)
+
+
+def _task_id(env) -> str:
+    """"<job>:<index>" of the executor's task, "" outside it."""
+    if not env.get(C.JOB_NAME):
+        return ""
+    return f"{env[C.JOB_NAME]}:{env.get(C.TASK_INDEX, '0')}"
 
 
 class TrainerPreempted(BaseException):
@@ -164,6 +180,7 @@ class Trainer:
         self._tracer: Optional[SpanRecorder] = None
         self._metrics_reporter: Optional[TpuMetricsReporter] = None
         self._profile: Optional[ProfileCapture] = None
+        self._profiler_server: Optional[ProfilerServer] = None
         self._tokens_per_batch = 0
         self._last_stall_s = 0.0
         self._test_step_delay_s = 0.0
@@ -176,10 +193,7 @@ class Trainer:
         # the reporter's queue: the hot loop never gains an RPC
         env = os.environ
         self._tracer = SpanRecorder.from_env(
-            env,
-            task_id=(f"{env.get(C.JOB_NAME, '')}:"
-                     f"{env.get(C.TASK_INDEX, '0')}"
-                     if env.get(C.JOB_NAME) else ""),
+            env, task_id=_task_id(env),
             attempt=int(env.get(C.TASK_ATTEMPT, "0") or 0))
         # one ledger per process: a re-setup() keeps its clock
         if self.ledger is None:
@@ -201,6 +215,12 @@ class Trainer:
             reporter.report_spans(tracer.drain())
 
     def _setup_inner(self) -> None:
+        # the kernel build cache ($TONY_JAX_CACHE_DIR), before anything
+        # below can load a kernel
+        from tony_tpu_torch.utils.compilecache import (
+            maybe_enable_compile_cache,
+        )
+        maybe_enable_compile_cache()
         if self._metrics_reporter is not None:
             self._metrics_reporter.close()
         self._metrics_reporter = TpuMetricsReporter()
@@ -209,6 +229,7 @@ class Trainer:
         self._profile = ProfileCapture(
             cwd=os.getcwd(),
             publish=self._metrics_reporter.report_profile_done)
+        self._maybe_start_profiler()
         self._last_stall_s = 0.0
         # chaos seam: a fixed per-step host sleep (a steady straggler)
         self._test_step_delay_s = float(
@@ -486,6 +507,9 @@ class Trainer:
             if first_span is not None:      # failed before step 1 ended
                 tracer.end(first_span, "ERROR")
             self._flush_spans()
+            if self._profiler_server is not None:
+                self._profiler_server.stop()
+                self._profiler_server = None
             # close the books: the rest is idle, and the final ledger
             # ships with the last push (never masking the real error)
             try:
@@ -497,6 +521,23 @@ class Trainer:
         return self.last_loss
 
     # ------------------------------------------------------------------
+    def _maybe_start_profiler(self) -> None:
+        """Serve the profiler page on the TB port the executor reserved
+        and registered with the AM, on the chief only; a second setup()
+        keeps the running server. A failure is logged: profiling must
+        never stop training."""
+        env = os.environ
+        port = env.get(C.TB_PORT)
+        if (not port or env.get(C.IS_CHIEF, "true") != "true"
+                or self._profiler_server is not None):
+            return
+        try:
+            self._profiler_server = ProfilerServer(
+                int(port), lambda: self._profile, task=_task_id(env))
+            LOG.info("profiler server on port %s", port)
+        except Exception:  # noqa: BLE001 — profiling never stops training
+            LOG.exception("could not start profiler server")
+
     def _checkpoint_keep(self) -> int:
         """Retention count: config wins, else TONY_CHECKPOINT_KEEP, else
         3."""
