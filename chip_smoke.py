@@ -165,17 +165,40 @@ Phases (any failure exits non-zero, and the result line is not printed):
               each other's, and whose losses are the train run's first
               two.
 
+10. parallel — the parallel layer on the one card. (a) The train phase's
+              model and batch for 5 steps, first in this process on plain
+              tensors, then as `python -m tony_tpu_torch.train` on an NCCL
+              world of one (WORLD=1, RANK=0, INIT_METHOD on a free local
+              port) with the mesh fsdp 1 x tp 1: it must log an nccl group,
+              the mesh and 12 DTensor parameter leaves, never gloo; its 5
+              losses and final parameters (its checkpoint's shard files)
+              equal the plain run's bit for bit, its own logged kernel
+              launches are exactly 5 steps' worth, and both median step
+              times (steps 3-5) are printed. (b) llama3_1b_proxy's
+              attention at B4 H16/8 S4096 D128 bf16 causal with the
+              sequence over sp = 4 virtual ranks of 1024 tokens, in this
+              process: the ring's own `_chunk_mode`, `_chunk_forward`,
+              `merge_partials` and `_chunk_backward` with rotations by
+              index (exactly 10 K1, 10 K2, 10 K3 launches; the 6 future
+              pairs launch nothing), and Ulysses as head slices after the
+              GQA broadcast (4 of each); out, lse, dQ, dK and dV within
+              1e-2 by norm (lse 1e-4) of K1-K3 on the whole sequence and
+              of the plain versions; each path's device time beside
+              K1-K3's on the whole sequence.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
-build,moe` runs the MoE slice alone.
+build,moe` runs the MoE slice alone, `--phases build,parallel` the
+parallel slice.
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch and moe paths together, split in `launches_by_path`; the orch path
-counts its training run, the ckpt path its runs and servers on the local
-and the gs:// directory, the moe path its two bursts and its training
-runs; the cache phase's processes are uncounted), then the card's name
-and power limit from nvidia-smi; the last line is {"ok": true, "device":
-{...}}.
+orch, moe and parallel paths together, split in `launches_by_path`; the
+orch path counts its training run, the ckpt path its runs and servers on
+the local and the gs:// directory, the moe path its two bursts and its
+training runs, the parallel path the mesh run's own count of its
+launches, parallel_sp the ring's and Ulysses' chunk launches; the cache
+phase's processes are uncounted), then the card's name and power limit
+from nvidia-smi; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2161,9 +2184,7 @@ class _Timings:
             "snapshot": [], "write": [], "restore": []}
         self._patched = []
         for module, attr, key in ((checkpoint, "_snapshot", "snapshot"),
-                                  (checkpoint, "_write_snapshot", "write"),
-                                  (checkpoint, "_write_snapshot_store",
-                                   "write"),
+                                  (checkpoint, "_write_rank_files", "write"),
                                   (trainer, "restore_checkpoint", "restore")):
             self._patched.append((module, attr, getattr(module, attr)))
             setattr(module, attr, self._timed(getattr(module, attr), key))
@@ -3574,11 +3595,325 @@ def phase_moe() -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel layer on one card
+# ---------------------------------------------------------------------------
+
+# (a) the train phase's model and batch, PARALLEL_STEPS steps: in this
+# process on plain tensors, then `python -m tony_tpu_torch.train` on an
+# NCCL world of one with a (fsdp 1, tp 1) mesh
+PARALLEL_STEPS = 5
+PARALLEL_MESH = {"TPU_MESH_SHAPE": "1,1", "TPU_MESH_AXES": "fsdp,tp"}
+# (b) llama3_1b_proxy's attention at the train phase's shape, causal, the
+# sequence over SP_RANKS virtual ranks
+SP_SHAPE = (4, 16, 8, 4096, 128)
+SP_RANKS = 4
+
+
+def _step_seconds(elapsed: list[float]) -> float:
+    """The median step interval over steps 3..PARALLEL_STEPS, from the
+    Trainer's log boundaries (log_every 1: in steady state the host waits
+    one step of device time between two)."""
+    gaps = [b - a for a, b in zip(elapsed[1:], elapsed[2:])]
+    return sorted(gaps)[len(gaps) // 2]
+
+
+def _checkpoint_params(step_dir: str) -> dict:
+    """{params key path: the shard file's array (mmap)} of a one-process
+    checkpoint."""
+    import numpy as np
+    with open(os.path.join(step_dir, "tree.json")) as f:
+        paths = json.load(f)["paths"]
+    with open(os.path.join(step_dir, "manifest_p0.json")) as f:
+        files = {r["leaf"]: r["file"] for r in json.load(f)["shards"]}
+    return {tuple(p[1:]): np.load(os.path.join(step_dir, "shards",
+                                               files[i]), mmap_mode="r")
+            for i, p in enumerate(paths) if p[0] == "params"}
+
+
+def _parallel_world_of_one(root: str) -> dict[str, int]:
+    """(a): the plain run's losses, final parameters and step time against
+    the mesh run's. Returns the mesh run's kernel launches."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
+    from tony_tpu_torch.train.checkpoint import flatten_with_paths
+
+    flags = ["--config", TRAIN_CONFIG, "--steps", str(PARALLEL_STEPS),
+             "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+             "--log-every", "1"]
+    trainer, _ = build_trainer(build_arg_parser().parse_args(
+        flags + ["--device", "cuda"]))
+    trainer.run()
+    check(trainer.mesh is None, "the plain run built a mesh")
+    plain_losses = [e["loss"] for e in trainer.metrics_history]
+    plain_step = _step_seconds([e["elapsed_s"]
+                                for e in trainer.metrics_history])
+    plain = {path: leaf.detach().cpu() for path, leaf in
+             flatten_with_paths(trainer.params)}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(root, "mesh")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               TONY_LOG_PLAIN="1", WORLD="1", RANK="0",
+               INIT_METHOD=f"tcp://127.0.0.1:{_free_port()}",
+               **PARALLEL_MESH)
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.train", *flags,
+         "--checkpoint-dir", ckpt_dir], capture_output=True, text=True,
+        env=env, timeout=600)
+    wall = time.monotonic() - t0
+    err = out.stderr
+    check(out.returncode == 0, f"mesh run exit {out.returncode}: "
+          f"{err[-3000:]}")
+    for needle in ("init_process_group(nccl", "mesh: {'fsdp': 1, 'tp': 1}",
+                   "params: 12 DTensor leaves"):
+        check(needle in err, f"the mesh run never logged {needle!r}")
+    check("gloo" not in err, "a gloo group on the card")
+    steps = [re.search(r"step (\d+) loss (\S+) \((\S+)s\)", line)
+             for line in err.splitlines()]
+    steps = [m for m in steps if m]
+    mesh_losses = [float(m.group(2)) for m in steps]
+    mesh_step = _step_seconds([float(m.group(3)) for m in steps])
+    launches = json.loads(re.search(r"kernel launches (\{.*\})",
+                                    err).group(1))
+    log(f"parallel: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{PARALLEL_STEPS} steps: plain losses "
+        f"{[f'{x:.9g}' for x in plain_losses]}; NCCL world of one, mesh "
+        f"{PARALLEL_MESH}: losses {[f'{x:.9g}' for x in mesh_losses]} "
+        f"(subprocess wall {wall:.1f} s, launches {launches})")
+    check([f"{x:.9g}" for x in plain_losses]
+          == [f"{x:.9g}" for x in mesh_losses],
+          "the mesh run's losses are not the plain run's bit for bit")
+    saved = _checkpoint_params(os.path.join(ckpt_dir,
+                                            f"step_{PARALLEL_STEPS}"))
+    check(set(saved) == set(plain), f"param paths {sorted(saved)}")
+    differ = [path for path, leaf in plain.items() if not np.array_equal(
+        np.asarray(saved[path]).view(np.int16 if leaf.dtype ==
+                                     torch.bfloat16 else np.int32),
+        leaf.view(torch.int16 if leaf.dtype == torch.bfloat16
+                  else torch.int32).numpy())]
+    check(not differ, f"final parameters differ from the plain run's: "
+          f"{differ}")
+    log(f"parallel: final parameters of both runs bit for bit "
+        f"({len(plain)} leaves); median step (steps 3-{PARALLEL_STEPS}) "
+        f"plain {plain_step:.4f} s, NCCL mesh of one {mesh_step:.4f} s "
+        f"(+{100 * (mesh_step / plain_step - 1):.2f}%)")
+    want = {name: PARALLEL_STEPS * n for name, n in
+            _step_launches(16).items()}
+    got = {name: launches.get(name, 0) for name in want}
+    check(got == want, f"mesh run launches {got} != {want}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return got
+
+
+def _sp_ring(q, k, v, g, scale: float, n: int):
+    """The ring's per-chunk arithmetic for n virtual ranks in one process:
+    `parallel/ring.py`'s own `_chunk_mode`, `_chunk_forward`,
+    `merge_partials` and `_chunk_backward`, the rotations done by index
+    (each K/V chunk a contiguous buffer, as it arrives), the dK/dV
+    partials summed per chunk as they travel. Returns (out, lse, dq, dk,
+    dv) over the whole sequence."""
+    import torch
+
+    from tony_tpu_torch.ops.attention import NEG_INF, attention_delta
+    from tony_tpu_torch.parallel import ring
+
+    s = q.shape[2] // n
+
+    def chunk(x, i):
+        return x[:, :, i * s:(i + 1) * s]
+
+    kc = [chunk(k, i).contiguous() for i in range(n)]
+    vc = [chunk(v, i).contiguous() for i in range(n)]
+    outs, lses = [], []
+    for me in range(n):
+        out = torch.zeros(chunk(q, me).shape, dtype=torch.float32,
+                          device=q.device)
+        lse = torch.full(out.shape[:3], NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        for t in range(n):
+            src = (me - t) % n
+            part = ring._chunk_forward(chunk(q, me), kc[src], vc[src],
+                                       ring._chunk_mode(src, me, True),
+                                       scale)
+            if part is not None:
+                out, lse = ring.merge_partials(out, lse, *part)
+        outs.append(out.to(q.dtype))
+        lses.append(lse)
+    dqs = []
+    dk = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in kc]
+    dv = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in vc]
+    for me in range(n):
+        gm = chunk(g, me)
+        delta = attention_delta(gm, outs[me])
+        dq = torch.zeros(outs[me].shape, dtype=torch.float32,
+                         device=q.device)
+        for t in range(n):
+            src = (me - t) % n
+            part = ring._chunk_backward(chunk(q, me), kc[src], vc[src],
+                                        outs[me], lses[me], delta, gm,
+                                        ring._chunk_mode(src, me, True),
+                                        scale)
+            if part is not None:
+                dq.add_(part[0])
+                dk[src].add_(part[1])
+                dv[src].add_(part[2])
+        dqs.append(dq.to(q.dtype))
+    return (torch.cat(outs, 2), torch.cat(lses, 2), torch.cat(dqs, 2),
+            torch.cat(dk, 2).to(k.dtype), torch.cat(dv, 2).to(v.dtype))
+
+
+def _sp_ulysses(q, k, v, g, scale: float, n: int):
+    """Ulysses' local attention for n virtual ranks in one process: after
+    the GQA broadcast each rank's H / n heads of the whole sequence
+    through K1 (and K2/K3), the all-to-alls done as head slices. Returns
+    (out, lse, dq, dk, dv), dk and dv summed back to the narrow K/V
+    heads."""
+    import torch
+
+    from tony_tpu_torch.ops.attention import (
+        _gqa_broadcast, _gqa_reduce, attention_delta, flash_bwd_cuda,
+        flash_fwd_cuda,
+    )
+
+    kb, vb = _gqa_broadcast(q, k, v)
+    per = q.shape[1] // n
+    outs, lses, dqs, dks, dvs = [], [], [], [], []
+    for r in range(n):
+        sl = slice(r * per, (r + 1) * per)
+        out, lse = flash_fwd_cuda(q[:, sl], kb[:, sl], vb[:, sl], True,
+                                  scale)
+        dq, dk, dv = flash_bwd_cuda(q[:, sl], kb[:, sl], vb[:, sl],
+                                    g[:, sl], lse,
+                                    attention_delta(g[:, sl], out), True,
+                                    scale)
+        for acc, x in zip((outs, lses, dqs, dks, dvs),
+                          (out, lse, dq, dk, dv)):
+            acc.append(x)
+    dk, dv = _gqa_reduce(torch.cat(dks, 1).float(),
+                         torch.cat(dvs, 1).float(), k.shape[1])
+    return (torch.cat(outs, 1), torch.cat(lses, 1), torch.cat(dqs, 1),
+            dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _sp_hold(tag: str, got, want, plain) -> None:
+    """out, dq, dk, dv by norm (NORM_TOL, whole tensor and worst row) and
+    lse elementwise (LSE_TOL), against K1-K3 on the whole sequence and
+    against the plain versions."""
+    for ref_name, ref in (("K1-K3 whole", want), ("plain", plain)):
+        parts = []
+        for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+            if name == "lse":
+                err, ok = max_err(a, b, LSE_TOL)
+                parts.append(f"lse {err:.2e}")
+            else:
+                total, row, where = norm_err(a, b)
+                ok = total <= NORM_TOL and row <= NORM_TOL
+                parts.append(f"{name} {total:.2e}/{row:.2e}")
+            check(ok, f"{tag} {name} against {ref_name}: "
+                      f"{parts[-1]} {'' if name == 'lse' else where}")
+        log(f"parallel: {tag} vs {ref_name} (norm / worst row): "
+            + ", ".join(parts))
+
+
+def _parallel_sp() -> dict[str, int]:
+    """(b): the ring and Ulysses for SP_RANKS virtual ranks at SP_SHAPE,
+    exact launches, held against K1-K3 on the whole sequence and the
+    plain versions, timed beside them. Returns their launches."""
+    import torch
+
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.ops.attention import (
+        attention_delta, blockwise_backward, blockwise_forward,
+        flash_bwd_cuda, flash_fwd_cuda,
+    )
+
+    b, h, hk, s, d = SP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v, g = rand(b, h, s, d), rand(b, hk, s, d), rand(b, hk, s, d), \
+        rand(b, h, s, d)
+    scale = d ** -0.5
+
+    def whole_fwd():
+        return flash_fwd_cuda(q, k, v, True, scale)
+
+    out, lse = whole_fwd()
+    delta = attention_delta(g, out)
+
+    def whole_bwd():
+        return flash_bwd_cuda(q, k, v, g, lse, delta, True, scale)
+
+    want = (out, lse) + whole_bwd()
+    # the plain versions as the kernels phase holds K1-K3 to them: the
+    # forward on its own, the backward on K1's (out, lse)
+    plain = blockwise_forward(q, k, v, True, scale) + blockwise_backward(
+        q, k, v, out, lse, g, True, scale)
+    n = SP_RANKS
+    pairs = n * (n + 1) // 2
+    launches = {}
+    for tag, fn, want_n in (("ring", _sp_ring, pairs),
+                            ("ulysses", _sp_ulysses, n)):
+        cuda_lib.reset_launches()
+        got = fn(q, k, v, g, scale, n)
+        torch.cuda.synchronize()
+        counts = {name: cuda_lib.launches()[name] for name in
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        log(f"parallel: {tag} sp={n} at B{b} H{h}/{hk} S{s} D{d} bf16 "
+            f"causal: launches {counts}" + (
+                f" ({n * n - pairs} future pairs launch nothing)"
+                if tag == "ring" else ""))
+        check(counts == dict.fromkeys(counts, want_n),
+              f"{tag} launches {counts}, want {want_n} each")
+        _sp_hold(f"{tag} sp={n}", got, want, plain)
+        launches[tag] = counts
+        del got
+    # device time of the whole path (forward and backward, all n ranks'
+    # chunks one after another) beside K1 + K2/K3 on the whole sequence
+    whole_ms = timed(lambda: (whole_fwd(), whole_bwd()), 3)[0]
+    for tag, fn in (("ring", _sp_ring), ("ulysses", _sp_ulysses)):
+        ms = timed(lambda: fn(q, k, v, g, scale, n), 3)[0]
+        log(f"parallel: {tag} sp={n} forward + backward, every rank's "
+            f"chunks: {ms:.4f} ms on the device; K1 + K2/K3 on the whole "
+            f"sequence {whole_ms:.4f} ms ({ms / whole_ms:.2f}x)")
+    cuda_lib.reset_launches()
+    return {name: sum(c[name] for c in launches.values())
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def phase_parallel(smi: str) -> tuple[dict[str, int], dict[str, int]]:
+    """(a) the NCCL world of one through the mesh machinery against the
+    plain run, bit for bit; (b) the ring's and Ulysses' arithmetic for
+    sp = 4 at full width. Returns (a)'s and (b)'s launches."""
+    import torch
+    log(f"parallel: card {smi}")
+    root = tempfile.mkdtemp(prefix="tony-parallel-")
+    try:
+        mesh_launches = _parallel_world_of_one(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sp_launches = _parallel_sp()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mesh_launches, sp_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
-                            "quant,kvcache,train,ckpt,orch,moe",
+                            "quant,kvcache,train,ckpt,orch,moe,parallel",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -3631,6 +3966,9 @@ def main(argv=None) -> int:
             launches["orch"] = phase_orch(smi)
         if "moe" in phases:
             launches["moe"] = phase_moe()
+        if "parallel" in phases:
+            launches["parallel"], launches["parallel_sp"] = \
+                phase_parallel(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -363,6 +363,92 @@ def test_port_trainer_resumes_a_jax_checkpoint(jax_run, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# sharded checkpoints of a 2-rank gloo world
+# ---------------------------------------------------------------------------
+
+def _leaf_list(tree):
+    return [leaf for _, leaf in ckpt.flatten_with_paths(tree)]
+
+
+def test_sharded_port_checkpoint_round_trips(tmp_path, monkeypatch,
+                                             fake_gcs):
+    """tiny f32 on 2 ranks, fsdp = 2 (each rank writes its own shards,
+    then one commit): the JAX package's restore reads the unsharded
+    values bit for bit; the port resumes it on 2 ranks bit for bit
+    against an unbroken run, and restores it onto 1 process bit for bit;
+    a JAX Trainer's checkpoint from a 2-device fsdp mesh resumes on the
+    port's 2 ranks with the JAX Trainer's losses (5e-4); and the same
+    2-rank save on gs:// commits once for 2 processes and reads back
+    (the port and the JAX package) bit for bit."""
+    from test_torch_parallel import (
+        CKPT_BATCH, CKPT_SEQ, CKPT_TRAIN, _ckpt_world, _spawn,
+    )
+
+    monkeypatch.setenv("TPU_MESH_SHAPE", "2")
+    monkeypatch.setenv("TPU_MESH_AXES", "fsdp")
+    jcfg = jllama.get_config("tiny")
+    jt = JaxTrainer(
+        partial(jllama.llama_loss, config=jcfg),
+        partial(jllama.llama_init, jcfg),
+        jdata.synthetic_tokens(CKPT_BATCH, CKPT_SEQ, jcfg.vocab_size),
+        JaxTrainerConfig(num_steps=4, checkpoint_dir=str(tmp_path / "jax"),
+                         checkpoint_every=2, **CKPT_TRAIN),
+        param_axes=jllama.llama_param_axes(jcfg))
+    jt.run()
+    jax_losses = [m["loss"] for m in jt.metrics_history if "loss" in m]
+    monkeypatch.delenv("TPU_MESH_SHAPE")
+    monkeypatch.delenv("TPU_MESH_AXES")
+    root = tmp_path / "port"
+    root.mkdir()
+    got = _spawn(_ckpt_world, 2, tmp_path, str(root),
+                 str(tmp_path / "jax"))[0][0]
+    assert got["placements"] == {"(Shard(dim=1),)"}, got["placements"]
+    a_losses, a_state = got["a"]
+    step_dir = root / "a" / "step_2"
+    assert sorted(os.listdir(step_dir)) == [
+        "index.json", "manifest_p0.json", "manifest_p1.json", "shards",
+        "tree.json", "tree.pkl"]
+    with open(step_dir / "manifest_p1.json") as f:
+        assert json.load(f)["shards"], "rank 1 wrote no shard"
+    # the JAX package reads it: every leaf unsharded, bit for bit
+    restored = jckpt.restore_checkpoint(str(root / "a"), 2)
+    want = {"params": a_state["params"],
+            "opt_state": tuple(a_state["opt_state"][i] for i in range(3)),
+            "step": 2}
+    _assert_same_leaves(want, restored)
+    # resumed on 2 ranks: bitwise the unbroken run's steps 3 and 4
+    c_losses, c_state = got["c"]
+    b_losses, b_state = got["b"]
+    assert got["resumed_steps"] == ([3, 4], [3, 4])
+    assert a_losses == c_losses[:2] and b_losses == c_losses[2:]
+    for x, y in zip(_leaf_list(b_state), _leaf_list(c_state)):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    # restored onto one process, plain tensors
+    cfg = llama.get_config("tiny")
+    t = trainer.Trainer(
+        partial(llama.llama_loss, config=cfg), partial(llama.llama_init, cfg),
+        iter(()), trainer.TrainerConfig(num_steps=2, checkpoint_dir=str(
+            root / "a"), **CKPT_TRAIN), device="cpu")
+    t.setup()
+    t._global_data_iter = None
+    assert t.step == 2 and t.mesh is None
+    for x, y in zip(_leaf_list({"params": t.params,
+                                "opt_state": dict(enumerate(
+                                    t.opt_state.tree()))}),
+                    _leaf_list(a_state)):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    # the JAX 2-device checkpoint, resumed by the port's 2 ranks
+    np.testing.assert_allclose(got["j"], jax_losses[2:], rtol=LOSS_TOL)
+    # the gang's gs:// save: a COMMIT naming both processes' manifests
+    marker = fake_gcs / "bucket" / "gang" / "step_2" / "COMMIT"
+    assert json.loads(marker.read_text()) == {"step": 2, "processes": 2}
+    _assert_same_leaves(ckpt.restore_checkpoint("gs://bucket/gang", 2),
+                        jckpt.restore_checkpoint("gs://bucket/gang", 2))
+    _assert_same_leaves(want, jckpt.restore_checkpoint("gs://bucket/gang",
+                                                       2))
+
+
+# ---------------------------------------------------------------------------
 # the protocol (ports of tests/test_checkpoint.py, tests/test_preemption.py)
 # ---------------------------------------------------------------------------
 

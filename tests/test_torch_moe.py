@@ -591,7 +591,7 @@ def test_train_entry_point_matches_the_jax_trainer():
 
 
 def test_train_entry_point_keeps_refusing_pipeline_flags():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
         build_trainer(train_parser().parse_args(
             ["--device", "cpu", "--config", "moe_tiny", "--pp-micro", "2"]))
 

@@ -72,15 +72,26 @@ def test_rope_frequencies_match_jax(scaling):
     assert np.all(d_inv <= inv_ulp), (d_inv / inv_ulp).max()
     t = np.arange(300, dtype=np.float32)[:, None]
     angle = np.abs(t * jinv)                      # JAX's f32 angles
+    port_angle = t * tinv                         # the port's
     eps = float(np.finfo(np.float32).eps)
     bound = (t.astype(np.float64) * d_inv + np.spacing(angle) + 2 * eps)
     for name, got, want in (("cos", tc, jc), ("sin", ts, js)):
         diff = np.abs(got.numpy().astype(np.float64)
                       - np.asarray(want, np.float64))
         worst = np.unravel_index(np.argmax(diff - bound), diff.shape)
+        exact = getattr(np, name)
+        # which side left its bound: each side's value beside the float64
+        # cos/sin of its own f32 angle
         assert np.all(diff <= bound), (
             f"{name} at (t, i) = {worst}: gap {diff[worst]:.3e} > bound "
-            f"{bound[worst]:.3e} (angle {angle[worst]:.4f})")
+            f"{bound[worst]:.3e} (angle {angle[worst]:.4f}); port "
+            f"{float(got[worst]):.9g} (exact "
+            f"{exact(np.float64(port_angle[worst])):.9g} at its angle "
+            f"{float(port_angle[worst]):.9g}), JAX "
+            f"{float(np.asarray(want)[worst]):.9g} (exact "
+            f"{exact(np.float64(angle[worst])):.9g}); torch "
+            f"{torch.__version__} {torch.backends.cpu.get_cpu_capability()}"
+            f" threads {torch.get_num_threads()}, jax {jax.__version__}")
 
 
 @pytest.mark.parametrize("form", ["none", "shared", "per_row"])

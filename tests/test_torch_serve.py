@@ -368,7 +368,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "observability.perf", "observability.logs",
                    "observability.profiler", "observability.reqtrace",
                    "train.metrics", "train.native_data", "storage.store",
-                   "utils.compilecache", "observability.profiler_server"):
+                   "utils.compilecache", "observability.profiler_server",
+                   "parallel", "parallel.mesh", "parallel.distributed",
+                   "parallel.sharding", "parallel.ring", "parallel.ulysses"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -59,3 +59,19 @@ TONY_CONF_PATH = "TONY_CONF_PATH"    # abs path of the frozen tony-final.json
 TRAINER_STEP_DELAY_MS = "TONY_TRAINER_STEP_DELAY_MS"
 # seed for the RPC client's retry jitter, so a replay draws the same delays
 TEST_SEED = "TONY_TEST_SEED"
+
+# -- rendezvous and the mesh (a gang of training ranks) -----------------
+# the pytorch runtime's env (TonY's parseClusterSpecForPytorch)
+INIT_METHOD = "INIT_METHOD"          # tcp://<worker0 host:port>
+RANK = "RANK"
+WORLD = "WORLD"
+MASTER_ADDR = "MASTER_ADDR"
+MASTER_PORT = "MASTER_PORT"
+# the jax runtime's env, read when the pytorch one is absent
+JAX_COORDINATOR_ADDRESS = "JAX_COORDINATOR_ADDRESS"   # host:port of rank 0
+JAX_PROCESS_ID = "JAX_PROCESS_ID"
+JAX_NUM_PROCESSES = "JAX_NUM_PROCESSES"
+TPU_MESH_SHAPE = "TPU_MESH_SHAPE"    # e.g. "2,2,1": the mesh's axis sizes
+TPU_MESH_AXES = "TPU_MESH_AXES"      # e.g. "dp,fsdp,tp"
+TPU_SLICE_ID = "TPU_SLICE_ID"        # a rank's slice (DCN island) index
+TPU_NUM_SLICES = "TPU_NUM_SLICES"

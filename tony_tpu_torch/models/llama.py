@@ -12,7 +12,14 @@ Counterpart of `tony_tpu/models/llama.py`:
   `config.remat` is set: `remat_policy="save_flash"` keeps exactly the
   flash forward's two outputs (a selective-checkpoint policy on that one
   operator), so the replay never re-runs the flash kernel; `"full"` keeps
-  nothing. There is no ring or pipeline path in this slice.
+  nothing. There is no pipeline path in this slice.
+- **Under a mesh** (parameters and batch are DTensors, sharded by
+  `llama_param_axes` and `parallel/sharding.py`'s rules) the same code
+  runs the global math: each layer weight's fsdp shards are gathered for
+  its product, which runs on the local shards (`linear`), the
+  `constrain` calls sit where the JAX forward has them, and the kernels,
+  RoPE, the embedding lookup and the loss run on each rank's local
+  shards. With sp > 1 attention is ring or Ulysses (`config.sp_mode`).
 - **Stacked weights, per-layer gradients**: the stacked (L, in, out) layout
   stays (`convert.py` and serving read it), but a differentiable pass does
   not slice it with `w[i]`: backprop through L such views runs L
@@ -43,12 +50,22 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from torch.distributed.tensor import DTensor
+
 from tony_tpu_torch.models.quant import is_qtensor
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.ops.int8_matmul import int8_matmul
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from tony_tpu_torch.ops.xent import fused_cross_entropy, matmul_f32
+from tony_tpu_torch.ops.xent import (
+    fused_cross_entropy, loss_over_shards, matmul_f32,
+)
+from tony_tpu_torch.parallel.mesh import axis_size
+from tony_tpu_torch.parallel.ring import ring_attention_sharded
+from tony_tpu_torch.parallel.sharding import (
+    constrain, gather_for_use, gathered_local, local_matmul,
+)
+from tony_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
 Params = dict[str, Any]
 
@@ -144,6 +161,26 @@ def get_config(name: str, **overrides) -> LlamaConfig:
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
+
+def llama_param_axes(config: LlamaConfig) -> Params:
+    """Logical sharding axes, the same tree as the params."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+            "attn_norm": ("layers", "norm"),
+            "mlp_norm": ("layers", "norm"),
+        },
+        "final_norm": ("norm",),
+        "output": ("embed", "vocab"),
+    }
+
 
 def llama_init(config: LlamaConfig, generator: torch.Generator) -> Params:
     """Scaled-normal init on the generator's device; per-layer weights
@@ -243,6 +280,8 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     product is `int8_matmul`'s (the result in x's dtype either way)."""
     if is_qtensor(w):
         return int8_matmul(x, w)
+    if isinstance(x, DTensor):
+        return local_matmul(x, gather_for_use(w))
     return x @ w
 
 
@@ -287,6 +326,19 @@ def mlp(h: torch.Tensor, layer: Params, config: LlamaConfig) -> torch.Tensor:
     return swiglu_mlp(h, layer)
 
 
+def _attention_dispatch(q, k, v, config: LlamaConfig):
+    """Sequence-parallel attention (ring or Ulysses per config.sp_mode)
+    when the mesh splits the sequence over sp > 1 ranks, flash attention
+    otherwise (on each rank's batch and head shards under a mesh).
+    Ulysses broadcasts the GQA groups on each rank; the ring streams the
+    narrow K/V, so its rotations carry 1/group of the broadcast bytes."""
+    if isinstance(q, DTensor) and axis_size(q.device_mesh, "sp") > 1:
+        if config.sp_mode == "ulysses":
+            return ulysses_attention_sharded(q, k, v, causal=True)
+        return ring_attention_sharded(q, k, v, causal=True)
+    return flash_attention(q, k, v, True)
+
+
 def attention_sublayer(h: torch.Tensor, layer: Params, config: LlamaConfig,
                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """QKV + RoPE + causal flash attention + output projection."""
@@ -294,7 +346,10 @@ def attention_sublayer(h: torch.Tensor, layer: Params, config: LlamaConfig,
     q, k, v = qkv_proj(h, layer, config)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = flash_attention(q, k, v, True)
+    q = constrain(q, ("batch", "heads", "seq", None))
+    k = constrain(k, ("batch", "kv_heads", "seq", None))
+    v = constrain(v, ("batch", "kv_heads", "seq", None))
+    attn = _attention_dispatch(q, k, v, config)
     attn = attn.transpose(1, 2).reshape(b, s, config.n_heads
                                         * config.head_dim)
     return linear(attn, layer["wo"])
@@ -304,13 +359,29 @@ def _block(config: LlamaConfig, cos, sin, x: torch.Tensor,
            layer: Params) -> torch.Tensor:
     h = rms_norm(x, layer["attn_norm"], config.norm_eps)
     x = x + attention_sublayer(h, layer, config, cos, sin)
+    x = constrain(x, ("batch", "seq", None))
     h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-    return x + swiglu_mlp(h, layer)
+    # swiglu_mlp inlined, so the mid-activation constraint can sit between
+    # its products as in the JAX block
+    gate = linear(h, layer["w_gate"])
+    up = linear(h, layer["w_up"])
+    ff = F.silu(gate) * up
+    ff = constrain(ff, ("batch", "seq", "mlp"))
+    x = x + linear(ff, layer["w_down"])
+    return constrain(x, ("batch", "seq", None))
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
                  config: LlamaConfig) -> torch.Tensor:
-    """(V, D) table x (B, S) ids -> (B, S, D) in the compute dtype."""
+    """(V, D) table x (B, S) ids -> (B, S, D) in the compute dtype. Under
+    a mesh each rank looks its own tokens up in the whole table (the
+    FSDP gather of the table), and the table's gradient sums over the
+    ranks' tokens."""
+    if isinstance(tokens, DTensor):
+        tokens = constrain(tokens, ("batch", "seq"))
+        x = F.embedding(tokens.to_local(), gathered_local(embed, tokens))
+        return DTensor.from_local(x.to(config.dtype), tokens.device_mesh,
+                                  tokens.placements, run_check=False)
     return F.embedding(tokens, embed).to(config.dtype)
 
 
@@ -381,6 +452,10 @@ def _head_loss(x: torch.Tensor, params: Params, targets: torch.Tensor,
                config: LlamaConfig) -> torch.Tensor:
     """LM head + mean CE on final hidden states; fused and chunked when
     config.xent_chunk > 0 (no full (B, S, V) logits)."""
+    if isinstance(x, DTensor):
+        return loss_over_shards(
+            lambda x_, w_, t_: _head_loss(x_, {"output": w_}, t_, config),
+            x, params["output"], targets)
     if config.xent_chunk > 0:
         return fused_cross_entropy(x, params["output"], targets,
                                    chunk=config.xent_chunk)

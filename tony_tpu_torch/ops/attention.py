@@ -28,9 +28,15 @@ differentiable.
 - On a CPU tensor it runs `blockwise_forward` and `blockwise_backward`,
   the same math over key blocks in plain PyTorch.
 
-The JAX package's TPU workarounds have no counterpart here: the
-long-sequence segmentation, the shard_map wrapping of the Mosaic call and
-the lcm padding.
+Under a mesh, q, k and v are DTensors and `flash_attention` runs the
+kernels on each rank's local shards (`_local_flash`), the counterpart of
+`_kernel_shard_axes`/`_shard_kernel_call`: batch over (dp, fsdp), heads
+over tp, no collective. DTensor has no sharding rule for the custom op
+or the ctypes launches, so they only ever see local tensors.
+`merge_partials` is the ring's online merge of normalized partials.
+
+The JAX package's other TPU workarounds have no counterpart here: the
+long-sequence segmentation and the lcm padding.
 """
 
 from __future__ import annotations
@@ -39,8 +45,11 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from tony_tpu_torch.ops.cuda_lib import Kernel, dtype_code
+from tony_tpu_torch.parallel.mesh import axis_size
+from tony_tpu_torch.parallel.sharding import to_placements
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 512
@@ -396,13 +405,73 @@ flash_fwd_op.register_autograd(_flash_backward_rule,
                                setup_context=_flash_setup_context)
 
 
+def merge_partials(out_acc: torch.Tensor, lse_acc: torch.Tensor,
+                   o_c: torch.Tensor, l_c: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact online merge of normalized attention partials (out f32, lse
+    f32): new weights from the joint log-sum-exp. A skipped or empty
+    partial (lse = NEG_INF) is a strict no-op: its weight underflows to
+    0 and the accumulator's to exactly 1."""
+    lse_new = torch.logaddexp(lse_acc, l_c)
+    out_new = (out_acc * torch.exp(lse_acc - lse_new)[..., None]
+               + o_c.float() * torch.exp(l_c - lse_new)[..., None])
+    return out_new, lse_new
+
+
+def kernel_placements(mesh, batch: int, nh: int, nkv: int,
+                      seq_axis: Optional[str] = None) -> tuple:
+    """The placements q, k and v take for the kernels on `mesh`: batch
+    over (dp, fsdp), else fsdp alone, else dp alone (the first that
+    divides the batch), else replicated; heads over tp when it divides
+    both head counts; the sequence over `seq_axis` when given; every
+    other axis replicated. Attention is independent across batch rows and
+    heads, so each rank then runs on its own shards with no collective."""
+    present = tuple(a for a in ("dp", "fsdp") if axis_size(mesh, a) > 1)
+
+    def divides(axes):
+        prod = 1
+        for a in axes:
+            prod *= axis_size(mesh, a)
+        return batch % prod == 0
+
+    options = [present] + [(a,) for a in reversed(present)]
+    batch_axes = next((o for o in options if o and divides(o)), ())
+    tp = axis_size(mesh, "tp")
+    dim_of = {a: 0 for a in batch_axes}
+    if tp > 1 and nh % tp == 0 and nkv % tp == 0:
+        dim_of["tp"] = 1
+    if seq_axis is not None:
+        dim_of[seq_axis] = 2
+    return tuple(Shard(dim_of[name]) if name in dim_of else Replicate()
+                 for name in mesh.mesh_dim_names)
+
+
+def _local_flash(q: DTensor, k: DTensor, v: DTensor, causal: bool,
+                 sm_scale: float) -> DTensor:
+    """`flash_attention` on each rank's (batch, heads) shards."""
+    mesh = q.device_mesh
+    placements = kernel_placements(mesh, q.shape[0], q.shape[1],
+                                   k.shape[1])
+    q, k, v = (to_placements(x, placements) for x in (q, k, v))
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal,
+                          sm_scale)
+    return DTensor.from_local(out, mesh, placements, run_check=False)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     return_lse: bool = False):
     """Memory-efficient attention. q: (B, H, S, D); k/v: (B, Hkv, S, D)
     with H % Hkv == 0, any S. Returns out (B, H, S, D) in q's dtype (a view
     of (B, S, H, D) memory), and with return_lse=True also lse (B, H, S)
-    f32. Differentiable in q, k and v."""
+    f32. Differentiable in q, k and v. DTensors (under a mesh) run on
+    their local batch and head shards (`_local_flash`)."""
+    if isinstance(q, DTensor):
+        if return_lse:
+            raise ValueError("flash_attention on DTensors returns out only")
+        return _local_flash(q, k, v, causal, sm_scale
+                            if sm_scale is not None
+                            else q.shape[-1] ** -0.5)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \

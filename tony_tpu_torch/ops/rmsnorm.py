@@ -8,7 +8,8 @@ whole number of them, and element by element otherwise (the same
 arithmetic); `rms_norm_reference` is the same math in plain PyTorch.
 Dispatch is on the tensor's device: a CUDA tensor goes to the kernel (or
 raises), a CPU tensor to the plain version. The backward is
-`rms_norm_backward`, in plain PyTorch on both devices.
+`rms_norm_backward`, in plain PyTorch on both devices. Under a mesh (x a
+DTensor) the kernel runs on each rank's local rows.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from tony_tpu_torch.ops.cuda_lib import Kernel, dtype_code
+from tony_tpu_torch.parallel.sharding import gathered_local, to_placements
 
 RMSNORM_FWD = Kernel(
     "rmsnorm_fwd", "rmsnorm.cu", "tt_rmsnorm_fwd",
@@ -106,9 +109,22 @@ class RMSNormFunction(torch.autograd.Function):
         return dx, dw, None
 
 
+def _local_rms_norm(x: DTensor, weight, eps: float) -> DTensor:
+    """`rms_norm` of a DTensor on each rank's rows (the last dim whole);
+    the weight's gradient sums over the ranks that split the rows."""
+    last = x.ndim - 1
+    placements = tuple(Replicate() if p.is_shard() and p.dim in (last, -1)
+                       else p for p in x.placements)
+    x = to_placements(x, placements)
+    y = rms_norm(x.to_local(), gathered_local(weight, x), eps)
+    return DTensor.from_local(y, x.device_mesh, placements, run_check=False)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2) + eps) * weight, over the last dim."""
+    if isinstance(x, DTensor):
+        return _local_rms_norm(x, weight, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return RMSNormFunction.apply(x, weight, eps)
     return _rms_norm_forward(x, weight, eps)

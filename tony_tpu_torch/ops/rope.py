@@ -4,7 +4,9 @@ Counterpart of `tony_tpu/ops/rope.py`, in plain PyTorch ops: RoPE is
 elementwise, and the JAX package has no kernel for it either. The
 half-rotation form (pairs (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos),
 with x1 and x2 the two halves of the head dim) and f32 tables, built in
-f32 as the JAX package builds them.
+f32 as the JAX package builds them. A DTensor (under a mesh) rotates its
+local shard at its GLOBAL positions: a sequence-parallel rank's chunk
+starts where the previous rank's ends, not at 0.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from tony_tpu_torch.parallel.sharding import local_region
 
 
 def scale_rope_frequencies(inv_freq: torch.Tensor, factor: float,
@@ -71,6 +76,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, H, S, D). cos/sin: (max_seq, D/2). positions: None (arange),
     (S,) shared or (B, S) per-row absolute positions."""
+    if isinstance(x, DTensor):
+        return _apply_rope_local(x, cos, sin, positions)
     s = x.shape[2]
     if positions is None:
         cos_s, sin_s = cos[:s][None, None], sin[:s][None, None]
@@ -86,3 +93,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     rotated = torch.cat((x1 * cos_s - x2 * sin_s, x1 * sin_s + x2 * cos_s),
                         dim=-1)
     return rotated.to(x.dtype)
+
+
+def _apply_rope_local(x: DTensor, cos: torch.Tensor, sin: torch.Tensor,
+                      positions: Optional[torch.Tensor]) -> DTensor:
+    """`apply_rope` on each rank's shard of a DTensor x, at the global
+    positions of its rows: shared positions (None or (S,)) only; RoPE is
+    elementwise, so no collective runs."""
+    if positions is not None and positions.ndim != 1:
+        raise ValueError("a DTensor takes shared (S,) positions or none")
+    start, stop = local_region(x.shape, x.device_mesh, x.placements)[2]
+    if positions is None and (start, stop) != (0, x.shape[2]):
+        positions = torch.arange(start, stop, device=cos.device)
+    elif positions is not None:
+        positions = positions[start:stop]
+    y = apply_rope(x.to_local(), cos, sin, positions)
+    return DTensor.from_local(y, x.device_mesh, x.placements,
+                              run_check=False)

@@ -19,11 +19,21 @@ leaves to XLA, so they stay `torch.matmul`; the logits come out in f32
 (`matmul_f32`, which the model's head and generation use too), and the
 backward's products take the f32 dlogits with the weights cast to f32, as
 XLA promotes them.
+
+Under a mesh (`loss_over_shards`) each rank runs the loss on its own rows
+with the head weight gathered whole: dx stays on the rows' shards and dw
+is reduce-scattered onto the weight's, where the JAX version constrains
+them to ("batch", "seq", None) and ("embed", "vocab").
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from tony_tpu_torch.parallel.sharding import (
+    constrain, data_shards, gathered_local, sum_over_shards,
+)
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -99,3 +109,16 @@ def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     up to f32 summation order, at O(B * chunk * V) logits memory."""
     chunk = max(1, min(chunk, x.shape[1]))
     return FusedCrossEntropy.apply(x, w, targets.long(), chunk)
+
+
+def loss_over_shards(loss_fn, x: DTensor, w, targets: DTensor
+                     ) -> torch.Tensor:
+    """`loss_fn(x, w, targets)` (a mean over tokens) of the DTensors x
+    (B, S, D) and targets (B, S): each rank on its local rows with the
+    head weight gathered (`gathered_local`), each rank's mean weighted by
+    its share of the rows and summed over the ranks that hold different
+    rows. Returns the global mean, a plain tensor equal on every rank."""
+    x = constrain(x, ("batch", "seq", None))
+    targets = constrain(targets, ("batch", "seq"))
+    local = loss_fn(x.to_local(), gathered_local(w, x), targets.to_local())
+    return sum_over_shards(local / data_shards(x), x)

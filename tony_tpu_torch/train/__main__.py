@@ -23,14 +23,23 @@ Run as a TonY task (``--executes`` a script that calls this module), it
 logs structured JSON lines, runs the sampling profiler, and its Trainer
 reports spans, goodput and step metrics to the AM, keeps its kernel builds
 under ``$TONY_JAX_CACHE_DIR`` and, on the chief, serves on-demand profiles
-on ``TB_PORT``; outside the orchestrator those are no-ops. ``--pp-micro`` and ``--pp-virtual``
-raise NotImplementedError (the parallel slice).
+on ``TB_PORT``; outside the orchestrator those are no-ops.
+
+As a gang (``tony.worker.instances`` > 1, framework ``pytorch`` or
+``jax``), every rank joins one process group from the rendezvous env the
+executor renders and trains on the mesh of ``TPU_MESH_SHAPE`` /
+``TPU_MESH_AXES`` (pure fsdp over the world when unset), the dense
+presets' parameters sharded by `llama_param_axes`; each rank's data
+stream is seeded by its (dp, fsdp) coordinate, so the ranks that share
+one feed the same rows. ``--pp-micro`` and ``--pp-virtual`` raise
+NotImplementedError (the pipeline slice), and so does an MoE preset on a
+mesh that splits anything (the ``ep`` slice).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
+import json
 import sys
 from functools import partial
 
@@ -79,8 +88,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Raise NotImplementedError for every flag this slice does not port."""
     unported = [
-        (args.pp_micro > 0, "--pp-micro", "the parallel slice"),
-        (args.pp_virtual != 1, "--pp-virtual", "the parallel slice"),
+        (args.pp_micro > 0, "--pp-micro", "the pipeline slice"),
+        (args.pp_virtual != 1, "--pp-virtual", "the pipeline slice"),
     ]
     for hit, what, slice_name in unported:
         if hit:
@@ -112,22 +121,34 @@ def _streams(args, seq: int, vocab_size: int, process_index: int):
 
 def build_trainer(args):
     """The Trainer the entry point runs, and its model config."""
-    from tony_tpu_torch.models.llama import get_config, llama_init, llama_loss
+    from tony_tpu_torch.models.llama import (
+        get_config, llama_init, llama_loss, llama_param_axes,
+    )
     from tony_tpu_torch.models.moe import (
         get_moe_config, is_moe_preset, moe_init, moe_loss,
     )
+    from tony_tpu_torch.parallel.distributed import gang
+    from tony_tpu_torch.parallel.mesh import data_index, plan_from_env
     from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     _refuse_unported(args)
+    world, rank = gang()
     overrides = {"n_layers": args.n_layers} if args.n_layers else {}
     if is_moe_preset(args.config):
+        if plan_from_env(world)[0].num_devices > 1:
+            raise NotImplementedError(
+                "an MoE preset on a mesh that splits it is not ported to "
+                "tony_tpu_torch yet; it arrives with the ep slice (expert "
+                "parallelism, moe_param_axes; ROADMAP.md, queue 1)")
         config = get_moe_config(args.config, **overrides)
-        init_fn, loss_fn = moe_init, moe_loss
+        init_fn, loss_fn, param_axes = moe_init, moe_loss, None
     else:
         config = get_config(args.config, **overrides)
         init_fn, loss_fn = llama_init, llama_loss
+        param_axes = llama_param_axes(config)
     seq = args.seq_len or config.max_seq
-    process_index = int(os.environ.get("RANK", "0"))
+    # the ranks that share a (dp, fsdp) coordinate hold the same rows
+    process_index = data_index(world, rank) if world > 1 else rank
     data_iter, eval_iter = _streams(args, seq, config.vocab_size,
                                     process_index)
     trainer = Trainer(
@@ -144,14 +165,27 @@ def build_trainer(args):
                              flops_per_token=config.flops_per_token(seq)),
         device=args.device,
         # held-out batches from a disjoint seed of the same source
-        eval_data_iter=eval_iter)
+        eval_data_iter=eval_iter, param_axes=param_axes)
     return trainer, config
 
 
 def main(argv=None) -> int:
+    import logging
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.ops import cuda_lib
+
     args = build_arg_parser().parse_args(argv)
     trainer, _ = build_trainer(args)
-    final_loss = trainer.run()
+    try:
+        final_loss = trainer.run()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    # every launch of this process's kernels (all 0 on the CPU)
+    logging.getLogger(__name__).info("kernel launches %s",
+                                     json.dumps(cuda_lib.launches()))
     print(f"final loss {final_loss:.4f}")
     return 0
 

@@ -1,7 +1,7 @@
 """Step-keyed checkpoints in the JAX package's on-disk layout.
 
-Counterpart of `tony_tpu/train/checkpoint.py`, for one process. A
-checkpoint written by either package reads back in the other:
+Counterpart of `tony_tpu/train/checkpoint.py`. A checkpoint written by
+either package reads back in the other:
 
 - `step_<N>.tmp/` is written, then renamed to `step_<N>/` in one
   `os.replace`: a save that dies half way leaves a `.tmp` directory that
@@ -11,9 +11,19 @@ checkpoint written by either package reads back in the other:
   sorted, a namedtuple's fields and a tuple's items in order (the optax
   layout of `train/optim.py`). `"py"` marks a plain Python number, such as
   the trainer's `step`.
-- `manifest_p0.json` lists each shard file with the global index region it
-  covers; `shards/leaf_{i}.p0_{k}.npy` holds the data (`p0_full` for a
-  Python number). One device writes one shard per tensor leaf (`p0_0`).
+- `manifest_p{rank}.json` lists each shard file with the global index
+  region it covers; `shards/leaf_{i}.p{rank}_{k}.npy` holds the data
+  (`p0_full` for a Python number). A plain tensor is one shard (`p0_0`,
+  written by rank 0); a DTensor (under a mesh) is written by each rank
+  that holds replica 0 of its local shard, as `p{rank}_0` with that
+  shard's region.
+- Under a gang of ranks every rank writes its own files into
+  `step_<N>.tmp/` (rank 0 also the index and tree files), then all meet
+  at a barrier and rank 0 makes the same atomic commit; on a store rank 0
+  writes `COMMIT` with `"processes"` the world size. The barriers run on
+  the caller's thread: `AsyncCheckpointer` writes the files on its
+  thread and commits in `wait()`, so no collective ever runs beside the
+  training step's.
 - bf16 has no numpy dtype here: a bf16 shard is written and read by its
   bits, under the header the JAX package's `np.save` gives an
   `ml_dtypes.bfloat16` array (`'<V2'`), and `index.json` says "bfloat16".
@@ -32,7 +42,10 @@ Restore reads shard files mmap-backed and pastes the regions each leaf
 needs, so a JAX checkpoint written from a sharded mesh (several shard
 files per leaf) assembles into whole tensors. With a template, each leaf
 is copied in place into the template's tensor on its device, one leaf at a
-time: the state is never held twice on the host.
+time: the state is never held twice on the host. A DTensor leaf of the
+template takes only this rank's region, pasted from whatever shards
+cover it, so a checkpoint restores onto another mesh (or onto one
+process) as the JAX template restore does.
 
 `AsyncCheckpointer` takes the snapshot synchronously (the train step
 updates parameters and moments in place, so the copy must be complete
@@ -66,6 +79,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from tony_tpu_torch.parallel.distributed import barrier, rank, world_size
+from tony_tpu_torch.parallel.sharding import local_region
 
 LOG = logging.getLogger(__name__)
 
@@ -342,40 +359,70 @@ def _load_npy(path: str, storage: np.dtype, mmap: bool) -> np.ndarray:
 # save
 # ---------------------------------------------------------------------------
 
+def _host_copy(src: torch.Tensor, i: int, buffers: Optional[dict],
+               synced: set) -> torch.Tensor:
+    """A host copy of `src`: a device tensor into a pinned buffer (reused
+    from `buffers` where shape and dtype still match), issued without a
+    wait; a CPU tensor cloned."""
+    if src.device.type != "cuda":
+        return src.clone()
+    host = None if buffers is None else buffers.get(i)
+    if host is None or host.shape != src.shape or host.dtype != src.dtype:
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        if buffers is not None:
+            buffers[i] = host
+    host.copy_(src, non_blocking=True)
+    synced.add(src.device)
+    return host
+
+
+def _local_shard(leaf: DTensor) -> Optional[tuple[list, torch.Tensor]]:
+    """(global index region, local tensor) of this rank's shard of a
+    DTensor, or None when another rank holds replica 0 of it."""
+    mesh = leaf.device_mesh
+    coord = mesh.get_coordinate()
+    if any(c != 0 for c, p in zip(coord, leaf.placements)
+           if not p.is_shard()):
+        return None
+    return (local_region(leaf.shape, mesh, leaf.placements),
+            leaf.to_local())
+
+
 def _snapshot(state: Any, buffers: Optional[dict] = None):
-    """The state on the host, complete when this returns: every
-    device-to-host copy is issued (into pinned buffers, reused from
-    `buffers` where shape and dtype still match) before one wait, and a
-    CPU tensor is cloned, since the next step updates it in place.
-    Returns (paths, pickled treedef, metas, records), each record (leaf
-    index, shard file, index region, host data)."""
+    """This rank's share of the state on the host, complete when this
+    returns: every device-to-host copy is issued (into pinned buffers,
+    reused from `buffers` where shape and dtype still match) before one
+    wait, and a CPU tensor is cloned, since the next step updates it in
+    place. Returns (paths, pickled treedef, metas, records), each record
+    (leaf index, shard file, index region, host data)."""
     leaves = flatten_with_paths(state)
+    pidx = rank()
     metas, records, synced = [], [], set()
     for i, (_, leaf) in enumerate(leaves):
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
             src = leaf.detach()
-            if src.device.type == "cuda":
-                host = None if buffers is None else buffers.get(i)
-                if (host is None or host.shape != src.shape
-                        or host.dtype != src.dtype):
-                    host = torch.empty(src.shape, dtype=src.dtype,
-                                       pin_memory=True)
-                    if buffers is not None:
-                        buffers[i] = host
-                host.copy_(src, non_blocking=True)
-                synced.add(src.device)
-            else:
-                host = src.clone()
             metas.append({"shape": list(src.shape),
                           "dtype": _dtype_name(src.dtype)})
-            records.append((i, f"leaf_{i}.p0_0.npy",
-                            [[0, d] for d in src.shape], host))
+            shard = _local_shard(src)
+            if shard is not None:
+                region, local = shard
+                records.append((i, f"leaf_{i}.p{pidx}_0.npy", region,
+                                _host_copy(local, i, buffers, synced)))
+        elif isinstance(leaf, torch.Tensor):
+            src = leaf.detach()
+            metas.append({"shape": list(src.shape),
+                          "dtype": _dtype_name(src.dtype)})
+            if pidx == 0:
+                records.append((i, f"leaf_{i}.p0_0.npy",
+                                [[0, d] for d in src.shape],
+                                _host_copy(src, i, buffers, synced)))
         else:
             arr = np.asarray(leaf)
             metas.append({"shape": list(arr.shape), "dtype": str(arr.dtype),
                           "py": not isinstance(leaf, np.ndarray)})
-            records.append((i, f"leaf_{i}.p0_full.npy",
-                            [[0, d] for d in arr.shape], arr))
+            if pidx == 0:
+                records.append((i, f"leaf_{i}.p0_full.npy",
+                                [[0, d] for d in arr.shape], arr))
     for device in synced:
         torch.cuda.synchronize(device)
     return ([list(path) for path, _ in leaves], _treedef_pickle(state),
@@ -384,50 +431,56 @@ def _snapshot(state: Any, buffers: Optional[dict] = None):
 
 def _write_files(out_dir: str, paths, treedef: bytes, metas, records,
                  put=lambda name: None) -> None:
-    """Write a step's files under `out_dir`: every shard, then
-    manifest_p0.json, index.json, tree.json and tree.pkl. `put(name)` is
-    called with each file's relative name as soon as it is written."""
+    """Write this rank's files of a step under `out_dir`: its shards and
+    manifest_p{rank}.json, and on rank 0 index.json, tree.json and
+    tree.pkl. `put(name)` is called with each file's relative name as
+    soon as it is written."""
+    pidx = rank()
     os.makedirs(os.path.join(out_dir, "shards"), exist_ok=True)
-    manifest: dict[str, Any] = {"process": 0, "shards": []}
+    manifest: dict[str, Any] = {"process": pidx, "shards": []}
     for i, fname, index_spec, data in records:
         _write_npy(os.path.join(out_dir, "shards", fname), data)
         put(f"shards/{fname}")
         manifest["shards"].append({"leaf": i, "file": fname,
                                    "index": index_spec})
-    for name, obj in (("manifest_p0.json", manifest),
-                      (_INDEX_FILE, {"leaves": metas}),
-                      (_TREE_FILE, {"paths": paths})):
+    files = [(f"manifest_p{pidx}.json", manifest)]
+    if pidx == 0:
+        files += [(_INDEX_FILE, {"leaves": metas}),
+                  (_TREE_FILE, {"paths": paths})]
+    for name, obj in files:
         with open(os.path.join(out_dir, name), "w", encoding="utf-8") as f:
             json.dump(obj, f)
         put(name)
-    with open(os.path.join(out_dir, _TREEDEF_FILE), "wb") as f:
-        f.write(treedef)
-    put(_TREEDEF_FILE)
+    if pidx == 0:
+        with open(os.path.join(out_dir, _TREEDEF_FILE), "wb") as f:
+            f.write(treedef)
+        put(_TREEDEF_FILE)
 
 
-def _write_snapshot(ckpt_dir: str, step: int, paths, treedef: bytes,
-                    metas, records) -> str:
-    """File IO, then the atomic rename (safe on a background thread)."""
-    final = os.path.join(ckpt_dir, f"step_{step}")
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
+def _tmp_dir(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step}") + ".tmp"
+
+
+def _clear_tmp(ckpt_dir: str, step: int) -> None:
+    """Remove a stale `.tmp` of the step (rank 0) before any rank writes
+    into it; every rank waits for that."""
+    tmp = _tmp_dir(ckpt_dir, step)
+    if rank() == 0 and not _is_store_path(ckpt_dir) and \
+            os.path.exists(tmp):
         shutil.rmtree(tmp)
-    _write_files(tmp, paths, treedef, metas, records)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    return final
+    barrier()
 
 
-def _write_snapshot_store(base: str, step: int, paths, treedef: bytes,
-                          metas, records) -> str:
-    """The object-store commit: upload every file (each written to a
-    scratch directory and removed once uploaded), then the COMMIT marker
-    last. A failed upload raises before the marker, so the step stays
-    invisible. The marker names the manifest set of this attempt: an
-    aborted earlier upload of the same step by more processes may have
-    left stale manifest_p*.json behind, which restore must not read."""
-    store = _ckpt_store(base)
+def _write_rank_files(ckpt_dir: str, step: int, paths, treedef: bytes,
+                      metas, records) -> None:
+    """This rank's files: under `step_<N>.tmp/`, or uploaded under
+    `step_<N>/` on a store (each written to a scratch directory and
+    removed once uploaded)."""
+    if not _is_store_path(ckpt_dir):
+        _write_files(_tmp_dir(ckpt_dir, step), paths, treedef, metas,
+                     records)
+        return
+    store = _ckpt_store(ckpt_dir)
     prefix = f"step_{step}"
     scratch = tempfile.mkdtemp(prefix="tony-ckpt-")
 
@@ -438,21 +491,35 @@ def _write_snapshot_store(base: str, step: int, paths, treedef: bytes,
 
     try:
         _write_files(scratch, paths, treedef, metas, records, put)
-        with open(os.path.join(scratch, _COMMIT_FILE), "w",
-                  encoding="utf-8") as f:
-            json.dump({"step": step, "processes": 1}, f)
-        put(_COMMIT_FILE)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    return store.uri(prefix)
 
 
-def _write_and_prune(ckpt_dir: str, step: int, snapshot, keep: int = 0,
-                     pinned: Optional[int] = None) -> str:
+def _commit(ckpt_dir: str, step: int, keep: int = 0,
+            pinned: Optional[int] = None) -> str:
+    """Rank 0's commit of a step every rank has written: the atomic
+    rename of the local `.tmp`, or on a store the COMMIT marker, last,
+    naming the manifest set of this attempt (an aborted earlier upload of
+    the same step by more processes may have left stale manifest_p*.json
+    behind, which restore must not read); then the retention prune.
+    Returns the step's directory (or URI)."""
     if _is_store_path(ckpt_dir):
-        final = _write_snapshot_store(ckpt_dir, step, *snapshot)
+        store = _ckpt_store(ckpt_dir)
+        prefix = f"step_{step}"
+        scratch = tempfile.mkdtemp(prefix="tony-ckpt-")
+        try:
+            marker = os.path.join(scratch, _COMMIT_FILE)
+            with open(marker, "w", encoding="utf-8") as f:
+                json.dump({"step": step, "processes": world_size()}, f)
+            store.put(marker, f"{prefix}/{_COMMIT_FILE}")
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        final = store.uri(prefix)
     else:
-        final = _write_snapshot(ckpt_dir, step, *snapshot)
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(_tmp_dir(ckpt_dir, step), final)
     # the step just written is always kept, so a failed prune can never
     # undo the commit that triggered it
     if keep > 0:
@@ -464,17 +531,31 @@ def _write_and_prune(ckpt_dir: str, step: int, snapshot, keep: int = 0,
     return final
 
 
+def _commit_gang(ckpt_dir: str, step: int, keep: int,
+                 pinned: Optional[int]) -> str:
+    """Every rank's files are written: meet, rank 0 commits, meet again
+    (so no rank reads `latest_step` before the commit). A no-op meeting
+    on one process."""
+    barrier()
+    final = _commit(ckpt_dir, step, keep, pinned) if rank() == 0 else ""
+    barrier()
+    return final
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, keep: int = 0,
                     pinned: Optional[int] = None) -> str:
-    """Write `state` (nested dicts, tuples and namedtuples of tensors and
-    Python numbers) as step `step`; returns the step's directory (or its
-    URI on a `gs://` store).
+    """Write `state` (nested dicts, tuples and namedtuples of tensors,
+    DTensors and Python numbers) as step `step`; returns the step's
+    directory (or its URI on a `gs://` store; "" on ranks other than 0).
+    Under a gang every rank calls it with its shards.
 
     keep > 0 prunes older committed steps down to the newest `keep` after
     the commit; `pinned` names a step kept regardless of age (the step the
     current run restored from)."""
-    return _write_and_prune(ckpt_dir, step, _snapshot(state), keep=keep,
-                            pinned=pinned)
+    snapshot = _snapshot(state)
+    _clear_tmp(ckpt_dir, step)
+    _write_rank_files(ckpt_dir, step, *snapshot)
+    return _commit_gang(ckpt_dir, step, keep, pinned)
 
 
 def committed_steps(ckpt_dir: str) -> list[int]:
@@ -566,25 +647,28 @@ def _paste_region(out: np.ndarray, out_index: tuple, path: str,
     return math.prod(sl.stop - sl.start for sl in dst_sl)
 
 
-def _read_leaf(i: int, meta: dict, records: list[dict],
-               resolve) -> np.ndarray:
-    """Leaf `i` whole, in its storage dtype; `resolve(file)` gives a shard
-    file's local path. A leaf saved as one file covering all of it comes
-    back as that file's copy-on-write map; one saved in shards is pasted
-    region by region into a new array, which must be covered exactly."""
+def _read_leaf(i: int, meta: dict, records: list[dict], resolve,
+               region: Optional[list] = None) -> np.ndarray:
+    """Leaf `i` (or its `region`, [[start, stop], ...] per dim), in its
+    storage dtype; `resolve(file)` gives a shard file's local path. A
+    region saved as one file covering exactly it comes back as that
+    file's copy-on-write map; anything else is pasted from every shard
+    that overlaps it into a new array, which must be covered exactly."""
     dims = list(meta["shape"])
     storage = _storage_dtype(meta["dtype"])
-    whole = [[0, d] for d in dims]
-    if len(records) == 1 and records[0]["index"] == whole:
+    if region is None:
+        region = [[0, d] for d in dims]
+    if len(records) == 1 and records[0]["index"] == region:
         return _load_npy(resolve(records[0]["file"]), storage,
                          mmap=bool(dims))
-    target = tuple(slice(0, d) for d in dims)
-    out = np.empty(dims, storage)
+    target = tuple(slice(a, b) for a, b in region)
+    shape = [b - a for a, b in region]
+    out = np.empty(shape, storage)
     pasted = sum(_paste_region(out, target, resolve(rec["file"]), rec)
                  for rec in records)
-    if pasted != math.prod(dims):
+    if pasted != math.prod(shape):
         raise ValueError(f"leaf {i}: its shard files cover {pasted} of "
-                         f"{math.prod(dims)} elements")
+                         f"{math.prod(shape)} elements (region {region})")
     return out
 
 
@@ -615,13 +699,14 @@ class _Step:
         self.resolve = resolve
         self._cache = cache
 
-    def leaf(self, i: int) -> np.ndarray:
+    def leaf(self, i: int, region: Optional[list] = None) -> np.ndarray:
         return _read_leaf(i, self.metas[i], self.by_leaf.get(i, []),
-                          self.resolve)
+                          self.resolve, region)
 
     @torch.no_grad()
     def fill(self, ref: torch.Tensor, i: int, name: str) -> None:
-        """Copy leaf `i` into the tensor `ref`, in place, on its device."""
+        """Copy leaf `i` into the tensor `ref`, in place, on its device: a
+        DTensor takes this rank's region of it."""
         meta = self.metas[i]
         if (list(ref.shape) != list(meta["shape"])
                 or _dtype_name(ref.dtype) != meta["dtype"]):
@@ -629,6 +714,12 @@ class _Step:
                 f"{self.where} leaf {i} ({name}): the checkpoint has "
                 f"{meta['dtype']} {meta['shape']}, the template "
                 f"{_dtype_name(ref.dtype)} {list(ref.shape)}")
+        if isinstance(ref, DTensor):
+            region = local_region(ref.shape, ref.device_mesh,
+                                  ref.placements)
+            ref.to_local().copy_(_as_tensor(self.leaf(i, region),
+                                            meta["dtype"]))
+            return
         ref.copy_(_as_tensor(self.leaf(i), meta["dtype"]))
 
     def close(self) -> None:
@@ -797,7 +888,9 @@ class AsyncCheckpointer:
     the files (or uploads them, on a store) on a background thread; an
     error there is raised by the next `save`, `wait` or `close`. At most
     one save is in flight: the next `save` waits for the previous commit
-    first, which also frees its buffers for reuse. Call `wait()` before reading `latest_step` and
+    first, which also frees its buffers for reuse. Under a gang the
+    commit (barriers, rank 0's rename or marker) runs in `wait()`, on the
+    caller's thread. Call `wait()` before reading `latest_step` and
     `close()` at the end."""
 
     def __init__(self, ckpt_dir: str, keep: int = 0,
@@ -809,20 +902,27 @@ class AsyncCheckpointer:
         self._buffers: dict[int, torch.Tensor] = {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # the step whose files are written and whose commit is due
+        self._pending: Optional[int] = None
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
         snapshot = _snapshot(state, self._buffers)
+        gang = world_size() > 1
+        if gang:
+            _clear_tmp(self.ckpt_dir, step)
 
         def work():
             try:
-                _write_and_prune(self.ckpt_dir, step, snapshot,
-                                 keep=self.keep, pinned=self.pinned)
+                _write_rank_files(self.ckpt_dir, step, *snapshot)
+                if not gang:
+                    _commit(self.ckpt_dir, step, self.keep, self.pinned)
             except BaseException as e:  # noqa: BLE001 — surfaced in wait()
                 self._error = e
                 LOG.exception("async checkpoint step %d failed", step)
 
         self.last_step = step
+        self._pending = step if gang else None
         self._thread = threading.Thread(target=work, name=f"ckpt-{step}",
                                         daemon=True)
         self._thread.start()
@@ -831,9 +931,12 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        step, self._pending = self._pending, None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("async checkpoint failed") from err
+        if step is not None:
+            _commit_gang(self.ckpt_dir, step, self.keep, self.pinned)
 
     def close(self) -> None:
         try:

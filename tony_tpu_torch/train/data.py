@@ -17,8 +17,14 @@ Counterpart of `tony_tpu/train/data.py`:
   buffer is not reused before its copy ends.
 
 The consumer's blocked seconds also count into the health registry's
-`tony_prefetch_stall_seconds_total`. Single process only: the multi-host
-global-array assembly waits for the parallel slice.
+`tony_prefetch_stall_seconds_total`.
+
+Under a mesh (`mesh=`), each rank's local batch becomes its shard of the
+global batch: a DTensor split over (dp, fsdp) on its leading dim and
+replicated over the other axes, so the ranks that share a (dp, fsdp)
+coordinate must be fed the same batches (the entry point seeds its
+streams by that coordinate, `parallel/mesh.py` `data_index`). The
+counterpart of `jax.make_array_from_process_local_data`.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from tony_tpu_torch.parallel.sharding import logical_to_mesh_axes
 
 LOG = logging.getLogger(__name__)
 
@@ -76,9 +85,19 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int,
 
 class DeviceBatch(dict):
     """A batch of device tensors and, for a card, the event recorded after
-    their copies (`ready`), on the side stream that made them."""
+    their copies (`ready`), on the side stream that made them; under a
+    mesh, the mesh its tensors are this rank's shards on."""
 
     ready: Optional[torch.cuda.Event] = None
+    mesh: Any = None
+
+
+def global_batch(batch: dict, mesh) -> dict:
+    """This rank's local batch as its shard of the global batch: DTensors
+    split over (dp, fsdp) on the leading dim, replicated elsewhere."""
+    placements = logical_to_mesh_axes(("batch",), mesh=mesh)
+    return {k: DTensor.from_local(v, mesh, placements, run_check=False)
+            for k, v in batch.items()}
 
 
 def side_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
@@ -88,14 +107,16 @@ def side_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
 
 
 def device_put_batch(batch: dict, device: torch.device | str,
-                     stream: Optional[torch.cuda.Stream] = None
-                     ) -> DeviceBatch:
+                     stream: Optional[torch.cuda.Stream] = None,
+                     mesh=None) -> DeviceBatch:
     """Transfer ONE host batch to `device`. On a card: pinned host copy,
     then a non-blocking copy on `stream` (a side stream), then an event
     (`ready`) that the consumer waits on (`hand_over`). On the CPU:
-    tensors that share the numpy arrays' memory."""
+    tensors that share the numpy arrays' memory. With a mesh, `hand_over`
+    makes them this rank's shards of the global batch."""
     device = torch.device(device)
     out = DeviceBatch()
+    out.mesh = mesh
     if device.type != "cuda":
         for k, v in batch.items():
             out[k] = torch.as_tensor(np.asarray(v), device=device)
@@ -111,7 +132,9 @@ def device_put_batch(batch: dict, device: torch.device | str,
 
 def hand_over(batch: Any) -> Any:
     """Make the current stream wait for a DeviceBatch's copies and tell
-    the allocator the tensors are used there; a no-op for anything else."""
+    the allocator the tensors are used there, then, under a mesh, return
+    the global batch (`global_batch`); anything else comes back as it
+    is."""
     ready = getattr(batch, "ready", None)
     if ready is not None:
         current = torch.cuda.current_stream()
@@ -119,18 +142,21 @@ def hand_over(batch: Any) -> Any:
         for t in batch.values():
             t.record_stream(current)
         batch.ready = None
+    mesh = getattr(batch, "mesh", None)
+    if mesh is not None:
+        return global_batch(batch, mesh)
     return batch
 
 
 def global_batch_iterator(local_iter: Iterator[dict],
-                          device: torch.device | str = "cuda"
-                          ) -> Iterator[dict]:
+                          device: torch.device | str = "cuda",
+                          mesh=None) -> Iterator[dict]:
     """Synchronous reference path: one batch at a time, transferred on the
     caller's thread. PrefetchIterator is the overlapped equivalent."""
     device = torch.device(device)
     stream = side_stream(device)
     for batch in local_iter:
-        yield hand_over(device_put_batch(batch, device, stream))
+        yield hand_over(device_put_batch(batch, device, stream, mesh))
 
 
 _DONE = object()
@@ -163,7 +189,7 @@ class PrefetchIterator:
     def __init__(self, local_iter: Iterator[dict],
                  device: torch.device | str = "cuda", depth: int = 2,
                  transfer: Optional[Callable[[dict], Any]] = None,
-                 initial: Any = ()):
+                 initial: Any = (), mesh=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.depth = int(depth)
@@ -174,7 +200,7 @@ class PrefetchIterator:
         if transfer is None:
             stream = side_stream(self.device)
             transfer = lambda b: device_put_batch(  # noqa: E731
-                b, self.device, stream)
+                b, self.device, stream, mesh)
         self._transfer = transfer
         self._local_iter = local_iter
         self._q: queue.Queue = queue.Queue(maxsize=self.depth)

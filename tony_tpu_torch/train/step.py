@@ -1,7 +1,9 @@
 """The train step: forward, backward and one optimizer update.
 
-Counterpart of `tony_tpu/train/step.py` on one device. There is no `jit`
-(PyTorch runs eagerly) and no dp*fsdp shard check (one device). Parameters
+Counterpart of `tony_tpu/train/step.py`. There is no `jit` (PyTorch runs
+eagerly). Under a mesh the parameters and the batch are DTensors and the
+same code runs the global step; the batch's split over (dp, fsdp) is
+checked where the batch is made (`train/data.py`). Parameters
 and optimizer state update in place, where the JAX step donated their
 buffers; `train_step` still returns (params, opt_state, loss) so it reads
 like the JAX one. The loss stays a device tensor: nothing in the step
@@ -81,8 +83,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
         if grad_accum <= 1:
             loss = backward(params, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
             for micro in split_microbatches(batch, grad_accum):

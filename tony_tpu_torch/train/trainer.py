@@ -59,7 +59,16 @@ outside it):
   loads the kernels an earlier one compiled.
 - **Checkpoint directories** are local (or NFS) paths or ``gs://``
   locations (with ``gsutil`` or ``gcloud`` on PATH).
-Sharded parameters wait for the parallel slice.
+- **A gang of ranks** (`setup()`): the rendezvous from the executor's env
+  (`parallel/distributed.py`; nccl on a card, gloo on the CPU), then
+  `mesh_from_env`, then the parameters built from the seeded generator on
+  every rank and sharded by `param_axes` (replicated without it), then
+  the optimizer state built over the shards, so f32 masters and Adam
+  moments are sharded as their parameters are (`opt_state_specs`
+  checks it). Each rank's batch is its shard of the global batch.
+  Metrics, goodput, spans and the profiler run on every rank; only rank
+  0 logs the step line. A world of one with no TPU_MESH_SHAPE builds no
+  process group and runs on plain tensors.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from tony_tpu_torch import constants as C
 from tony_tpu_torch.device import peak_flops, resolve_device
@@ -82,13 +92,22 @@ from tony_tpu_torch.observability.perf import (
 )
 from tony_tpu_torch.observability.profiler_server import ProfilerServer
 from tony_tpu_torch.observability.trace import SpanRecorder
+from tony_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed, rank, world_size,
+)
+from tony_tpu_torch.parallel.mesh import mesh_from_env
+from tony_tpu_torch.parallel.sharding import (
+    is_placements, opt_state_specs, replicated, shard_pytree, tree_paths,
+)
 from tony_tpu_torch.train.checkpoint import (
     AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint,
     trainer_state,
 )
-from tony_tpu_torch.train.data import PrefetchIterator, global_batch_iterator
+from tony_tpu_torch.train.data import (
+    PrefetchIterator, global_batch_iterator, hand_over,
+)
 from tony_tpu_torch.train.optim import (
-    Optimizer, adamw, tree_leaves, warmup_cosine_decay_schedule,
+    Optimizer, adamw, tree_leaves, tree_map, warmup_cosine_decay_schedule,
 )
 from tony_tpu_torch.train.precision import with_f32_master
 from tony_tpu_torch.train.metrics import TpuMetricsReporter
@@ -144,15 +163,19 @@ class TrainerConfig:
 class Trainer:
     """loss_fn(params, batch) -> scalar; init_fn(generator) -> params on
     the generator's device; data_iter (and eval_data_iter) yield host
-    batches (numpy)."""
+    batches (numpy); param_axes: the params' logical axes (the JAX
+    Trainer's), which shard them under a mesh."""
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor],
                  init_fn: Callable[[torch.Generator], Any],
                  data_iter: Iterator[Any], config: TrainerConfig,
                  device: torch.device | str = "cuda",
-                 eval_data_iter: Optional[Iterator[Any]] = None):
+                 eval_data_iter: Optional[Iterator[Any]] = None,
+                 param_axes: Any = None):
         self.loss_fn = loss_fn
         self.init_fn = init_fn
+        self.param_axes = param_axes
+        self.mesh = None
         self.data_iter = data_iter
         self.eval_data_iter = eval_data_iter
         self.last_eval_loss: Optional[float] = None
@@ -236,6 +259,11 @@ class Trainer:
             os.environ.get(C.TRAINER_STEP_DELAY_MS, "0") or 0) / 1000.0
         cfg = self.config
         self.device = resolve_device(str(self.device_name))
+        if maybe_initialize_distributed(self.device):
+            self.mesh = mesh_from_env(self.device.type)
+            LOG.info("mesh: %s over %d ranks (rank %d)",
+                     dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)),
+                     self.mesh.size(), rank())
         if cfg.optimizer is not None:
             self.optimizer = cfg.optimizer
         else:
@@ -253,10 +281,16 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         with torch.no_grad():
             params = self.init_fn(generator)
+            if self.mesh is not None:
+                params = self._shard(params)
         for leaf in tree_leaves(params):
             leaf.requires_grad_(True)
         self.params = params
         self.opt_state = self.optimizer.init(params)
+        if self.mesh is not None:
+            self._check_opt_state_sharded()
+            LOG.info("params: %d DTensor leaves on the mesh",
+                     sum(isinstance(p, DTensor) for p in tree_leaves(params)))
         self._updating = False
         # a state with no optax layout (a custom Optimizer) cannot be
         # saved: refuse now, not at the first save
@@ -289,15 +323,16 @@ class Trainer:
         if depth > 0:
             self._carry = []
             self._global_data_iter = PrefetchIterator(
-                self.data_iter, self.device, depth=depth, initial=carry)
+                self.data_iter, self.device, depth=depth, initial=carry,
+                mesh=self.mesh)
         else:
             self._carry = carry
 
             def _sync_with_carry():
                 while self._carry:
-                    yield self._carry.pop(0)
+                    yield hand_over(self._carry.pop(0))
                 yield from global_batch_iterator(self.data_iter,
-                                                 self.device)
+                                                 self.device, self.mesh)
 
             self._global_data_iter = _sync_with_carry()
         if cfg.eval_every and self.eval_data_iter is not None:
@@ -310,8 +345,32 @@ class Trainer:
                 n = max(1, cfg.eval_batches)
                 with PrefetchIterator(
                         itertools.islice(self.eval_data_iter, n),
-                        self.device, depth=n) as stream:
+                        self.device, depth=n, mesh=self.mesh) as stream:
                     self._eval_set = [next(stream) for _ in range(n)]
+
+    def _shard(self, params):
+        """The full parameters every rank built from the seed, as DTensors
+        on the mesh: placed by `param_axes`, else replicated."""
+        if self.param_axes is None:
+            return tree_map(lambda p: replicated(p, self.mesh), params)
+        return shard_pytree(params, self.param_axes, self.mesh)
+
+    def _check_opt_state_sharded(self) -> None:
+        """Every optimizer-state leaf that mirrors a parameter (f32 master,
+        Adam moments) carries that parameter's placements: sharded where
+        it is, never replicated."""
+        try:
+            tree = self.opt_state.tree()
+        except NotImplementedError:        # a custom Optimizer
+            return
+        specs = opt_state_specs(tree, tree_map(lambda p: tuple(
+            p.placements), self.params))
+        for (path, leaf), (_, spec) in zip(
+                tree_paths(tree), tree_paths(specs, is_placements)):
+            if spec is not None and tuple(leaf.placements) != spec:
+                raise RuntimeError(
+                    f"optimizer state {'/'.join(path)} is placed "
+                    f"{leaf.placements}, its parameter {spec}")
 
     def _state(self, step: Optional[int] = None) -> dict:
         """What a checkpoint holds, as the JAX Trainer saves it."""
@@ -349,8 +408,9 @@ class Trainer:
             out.append({"name": "TRAIN_STEP_TIME_MS",
                         "value": round(1000.0 * step_dt / d_steps, 3)})
             if self._tokens_per_batch:
-                # one device: the per-chip rate is the rate
-                tok_s = self._tokens_per_batch * d_steps / dt
+                # the batch is the global one: each rank drives one card
+                tok_s = (self._tokens_per_batch * d_steps / dt
+                         / world_size())
                 out.append({"name": "TRAIN_TOKENS_PER_SEC_PER_CHIP",
                             "value": round(tok_s, 2)})
                 if self.config.flops_per_token > 0:
@@ -413,7 +473,9 @@ class Trainer:
             entry = {"step": step, "loss": loss_f, "elapsed_s": dt}
             entry.update(interval)
             self.metrics_history.append(entry)
-            LOG.info("step %d loss %.4f (%.1fs)", step, loss_f, dt)
+            if rank() == 0:
+                # %.9g: the loss's f32 value exactly
+                LOG.info("step %d loss %.9g (%.4fs)", step, loss_f, dt)
 
         try:
             while self.step < cfg.num_steps:
@@ -445,9 +507,9 @@ class Trainer:
                     if tokens_per_batch and now > last_t:
                         # host time between boundaries: in steady state
                         # the device is a fixed lag behind, so this is
-                        # the achieved rate
+                        # the achieved rate, per card
                         tok_s = (tokens_per_batch * (self.step - last_step)
-                                 / (now - last_t))
+                                 / (now - last_t) / world_size())
                         interval["tokens_per_s"] = tok_s
                         if peak and cfg.flops_per_token > 0:
                             interval["mfu_pct"] = (100.0 * tok_s
