@@ -186,19 +186,46 @@ Phases (any failure exits non-zero, and the result line is not printed):
               of the plain versions; each path's device time beside
               K1-K3's on the whole sequence.
 
+11. pipeline — pipeline and expert parallelism on the one card. (a) The
+              train phase's model (llama3_1b_proxy, random weights from a
+              fixed seed) and batch (B4 x S4096) through
+              `llama_loss_pipelined` on `LocalStages(4)`: the 16 layers
+              as 4 stages run one after another in this process, a copy
+              standing in for each send, with M 4 microbatches and v 1
+              and v 2 chunks a stage, 3 runs each: every run's K1-K4
+              launches exactly 128 / 64 / 64 / 385 (per layer and
+              microbatch K1 in the forward tick and the recompute, K2
+              and K3 once, RMSNorm in the forward tick, the recompute and
+              its replay; the final norm once), the loss within 1e-3
+              relative and every gradient within 1e-2 by norm of the
+              plain step (forward and backward) on the same weights and
+              batch, both timed; then K1-K4 held against their plain
+              versions at the microbatch's shapes (B1 H16/8 S4096 D128
+              causal; 4096 rows x 2048), K1-K3 twice and bit for bit.
+              (b) `python -m tony_tpu_torch.train --pp-micro 4` on an NCCL
+              world of one with a (pp 1, fsdp 1) mesh: 3 losses within
+              1e-3 relative of the plain run's, its own count of its
+              launches exact, both median steps. (c) mixtral_proxy at full
+              width and 4 layers through the entry point on an NCCL world
+              of one with an (ep 1, fsdp 1) mesh (`moe_param_axes`, the
+              sharded MoE MLP): losses and checkpointed parameters bit for
+              bit the plain run's, launches exact.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
-parallel slice.
+parallel slice, `--phases build,pipeline` the pipeline and ep slice.
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe and parallel paths together, split in `launches_by_path`; the
-orch path counts its training run, the ckpt path its runs and servers on
-the local and the gs:// directory, the moe path its two bursts and its
-training runs, the parallel path the mesh run's own count of its
-launches, parallel_sp the ring's and Ulysses' chunk launches; the cache
-phase's processes are uncounted), then the card's name and power limit
-from nvidia-smi; the last line is {"ok": true, "device": {...}}.
+orch, moe, parallel and pipeline paths together, split in
+`launches_by_path`; the orch path counts its training run, the ckpt path
+its runs and servers on the local and the gs:// directory, the moe path
+its two bursts and its training runs, the parallel path the mesh run's
+own count of its launches, parallel_sp the ring's and Ulysses' chunk
+launches, pipeline the one-process pipelined runs, pipeline_entry and
+ep the pipelined and the (ep, fsdp) entry-point runs' own counts; the
+cache phase's processes are uncounted), then the card's name and power
+limit from nvidia-smi; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3631,66 +3658,67 @@ def _checkpoint_params(step_dir: str) -> dict:
             for i, p in enumerate(paths) if p[0] == "params"}
 
 
-def _parallel_world_of_one(root: str) -> dict[str, int]:
-    """(a): the plain run's losses, final parameters and step time against
-    the mesh run's. Returns the mesh run's kernel launches."""
-    import numpy as np
+def _plain_run(flags: list[str]) -> tuple[list[float], float, dict]:
+    """The entry point's Trainer (`flags`) in this process on the card, on
+    plain tensors: (its losses, its median step, its final parameters on
+    the host by key path)."""
     import torch
 
     from tony_tpu_torch.train.__main__ import build_arg_parser, build_trainer
     from tony_tpu_torch.train.checkpoint import flatten_with_paths
 
-    flags = ["--config", TRAIN_CONFIG, "--steps", str(PARALLEL_STEPS),
-             "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
-             "--log-every", "1"]
     trainer, _ = build_trainer(build_arg_parser().parse_args(
         flags + ["--device", "cuda"]))
     trainer.run()
     check(trainer.mesh is None, "the plain run built a mesh")
-    plain_losses = [e["loss"] for e in trainer.metrics_history]
-    plain_step = _step_seconds([e["elapsed_s"]
-                                for e in trainer.metrics_history])
-    plain = {path: leaf.detach().cpu() for path, leaf in
-             flatten_with_paths(trainer.params)}
+    losses = [e["loss"] for e in trainer.metrics_history]
+    step = _step_seconds([e["elapsed_s"] for e in trainer.metrics_history])
+    params = {path: leaf.detach().cpu() for path, leaf in
+              flatten_with_paths(trainer.params)}
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    return losses, step, params
 
-    ckpt_dir = os.path.join(root, "mesh")
+
+def _mesh_run(flags: list[str], mesh_env: dict, needles: tuple,
+              ckpt_dir: str = "") -> dict:
+    """`python -m tony_tpu_torch.train` (`flags`) on an NCCL world of one
+    with the mesh of `mesh_env`: its log must hold each of `needles` and
+    no gloo group. Returns {"losses", "step" (median), "launches" (its own
+    count), "wall"}."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
                TONY_LOG_PLAIN="1", WORLD="1", RANK="0",
-               INIT_METHOD=f"tcp://127.0.0.1:{_free_port()}",
-               **PARALLEL_MESH)
+               INIT_METHOD=f"tcp://127.0.0.1:{_free_port()}", **mesh_env)
     t0 = time.monotonic()
     out = subprocess.run(
-        [sys.executable, "-m", "tony_tpu_torch.train", *flags,
-         "--checkpoint-dir", ckpt_dir], capture_output=True, text=True,
-        env=env, timeout=600)
+        [sys.executable, "-m", "tony_tpu_torch.train", *flags]
+        + (["--checkpoint-dir", ckpt_dir] if ckpt_dir else []),
+        capture_output=True, text=True, env=env, timeout=600)
     wall = time.monotonic() - t0
     err = out.stderr
     check(out.returncode == 0, f"mesh run exit {out.returncode}: "
           f"{err[-3000:]}")
-    for needle in ("init_process_group(nccl", "mesh: {'fsdp': 1, 'tp': 1}",
-                   "params: 12 DTensor leaves"):
+    for needle in ("init_process_group(nccl",) + needles:
         check(needle in err, f"the mesh run never logged {needle!r}")
     check("gloo" not in err, "a gloo group on the card")
     steps = [re.search(r"step (\d+) loss (\S+) \((\S+)s\)", line)
              for line in err.splitlines()]
     steps = [m for m in steps if m]
-    mesh_losses = [float(m.group(2)) for m in steps]
-    mesh_step = _step_seconds([float(m.group(3)) for m in steps])
-    launches = json.loads(re.search(r"kernel launches (\{.*\})",
-                                    err).group(1))
-    log(f"parallel: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
-        f"{PARALLEL_STEPS} steps: plain losses "
-        f"{[f'{x:.9g}' for x in plain_losses]}; NCCL world of one, mesh "
-        f"{PARALLEL_MESH}: losses {[f'{x:.9g}' for x in mesh_losses]} "
-        f"(subprocess wall {wall:.1f} s, launches {launches})")
-    check([f"{x:.9g}" for x in plain_losses]
-          == [f"{x:.9g}" for x in mesh_losses],
-          "the mesh run's losses are not the plain run's bit for bit")
-    saved = _checkpoint_params(os.path.join(ckpt_dir,
-                                            f"step_{PARALLEL_STEPS}"))
+    return {"losses": [float(m.group(2)) for m in steps],
+            "step": _step_seconds([float(m.group(3)) for m in steps]),
+            "launches": json.loads(re.search(r"kernel launches (\{.*\})",
+                                             err).group(1)),
+            "wall": wall}
+
+
+def _bitwise_params(ckpt_dir: str, plain: dict) -> None:
+    """The mesh run's checkpointed parameters equal the plain run's
+    `plain` bit for bit."""
+    import numpy as np
+    import torch
+
+    saved = _checkpoint_params(ckpt_dir)
     check(set(saved) == set(plain), f"param paths {sorted(saved)}")
     differ = [path for path, leaf in plain.items() if not np.array_equal(
         np.asarray(saved[path]).view(np.int16 if leaf.dtype ==
@@ -3699,10 +3727,33 @@ def _parallel_world_of_one(root: str) -> dict[str, int]:
                   else torch.int32).numpy())]
     check(not differ, f"final parameters differ from the plain run's: "
           f"{differ}")
+
+
+def _parallel_world_of_one(root: str) -> dict[str, int]:
+    """(a): the plain run's losses, final parameters and step time against
+    the mesh run's. Returns the mesh run's kernel launches."""
+    flags = ["--config", TRAIN_CONFIG, "--steps", str(PARALLEL_STEPS),
+             "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+             "--log-every", "1"]
+    plain_losses, plain_step, plain = _plain_run(flags)
+    ckpt_dir = os.path.join(root, "mesh")
+    run = _mesh_run(flags, PARALLEL_MESH, (
+        "mesh: {'fsdp': 1, 'tp': 1}", "params: 12 DTensor leaves"),
+        ckpt_dir)
+    mesh_losses, launches = run["losses"], run["launches"]
+    log(f"parallel: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{PARALLEL_STEPS} steps: plain losses "
+        f"{[f'{x:.9g}' for x in plain_losses]}; NCCL world of one, mesh "
+        f"{PARALLEL_MESH}: losses {[f'{x:.9g}' for x in mesh_losses]} "
+        f"(subprocess wall {run['wall']:.1f} s, launches {launches})")
+    check([f"{x:.9g}" for x in plain_losses]
+          == [f"{x:.9g}" for x in mesh_losses],
+          "the mesh run's losses are not the plain run's bit for bit")
+    _bitwise_params(os.path.join(ckpt_dir, f"step_{PARALLEL_STEPS}"), plain)
     log(f"parallel: final parameters of both runs bit for bit "
         f"({len(plain)} leaves); median step (steps 3-{PARALLEL_STEPS}) "
-        f"plain {plain_step:.4f} s, NCCL mesh of one {mesh_step:.4f} s "
-        f"(+{100 * (mesh_step / plain_step - 1):.2f}%)")
+        f"plain {plain_step:.4f} s, NCCL mesh of one {run['step']:.4f} s "
+        f"(+{100 * (run['step'] / plain_step - 1):.2f}%)")
     want = {name: PARALLEL_STEPS * n for name, n in
             _step_launches(16).items()}
     got = {name: launches.get(name, 0) for name in want}
@@ -3909,11 +3960,236 @@ def phase_parallel(smi: str) -> tuple[dict[str, int], dict[str, int]]:
     return mesh_launches, sp_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: pipeline and expert parallelism on one card
+# ---------------------------------------------------------------------------
+
+# (a) the train phase's model, weights and batch through the schedule of
+# PIPE_STAGES stages in this process (`LocalStages`: a copy stands in for
+# each send), each (n_micro, n_virtual) of PIPE_RUNS PIPE_TIMED times
+PIPE_STAGES = 4
+PIPE_RUNS = ((4, 1), (4, 2))
+PIPE_TIMED = 3
+# the pipelined loss against the plain step's on the same batch and
+# weights, relative (the same math in another grouping of rows: bf16
+# products of other shapes, the weight gradients summed over microbatches
+# in f32); each gradient by norm
+PIPE_LOSS_RTOL = 1e-3
+PIPE_GRAD_TOL = 1e-2
+# (b) `--pp-micro` through the entry point on an NCCL world of one, its
+# PIPE_STEPS losses beside the plain run's (PIPE_LOSS_RTOL each)
+PIPE_STEPS = 3
+PIPE_MESH = {"TPU_MESH_SHAPE": "1,1", "TPU_MESH_AXES": "pp,fsdp"}
+# (c) mixtral_proxy at full width, EP_LAYERS of its 16 layers, through the
+# entry point on an NCCL world of one with an (ep, fsdp) mesh: bit for bit
+# the plain run
+EP_MESH = {"TPU_MESH_SHAPE": "1,1", "TPU_MESH_AXES": "ep,fsdp"}
+EP_LAYERS = 4
+
+
+def _pipeline_launches(n_layers: int, n_micro: int) -> dict[str, int]:
+    """The kernel launches of one pipelined save_flash step: per layer and
+    microbatch, K1 in the forward tick and again in the backward tick's
+    recompute (the recompute's replay keeps its out and lse), K2 and K3
+    once, RMSNorm twice in each of the forward tick, the recompute and
+    its replay; and the final norm once."""
+    lm = n_layers * n_micro
+    return {"flash_fwd": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
+            "rmsnorm_fwd": 6 * lm + 1, "int8_matmul": 0}
+
+
+def _grad_norm_err(got, want) -> float:
+    """||got - want|| / ||want||, in f32."""
+    import torch
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+def _pipeline_one_process(peaks) -> dict[str, int]:
+    """(a): the plain step's loss and gradients (forward and backward, no
+    update) against `llama_loss_pipelined` on `LocalStages(PIPE_STAGES)`
+    for each of PIPE_RUNS, exact launches on every pipelined run, both
+    timed; then K1-K4 against their plain versions at the microbatch's
+    shapes. Returns the pipelined runs' launches."""
+    import torch
+
+    from tony_tpu_torch.models.llama import (
+        get_config, llama_init, llama_loss, llama_loss_pipelined,
+    )
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.parallel.pipeline import LocalStages
+    from tony_tpu_torch.train.checkpoint import flatten_with_paths
+    from tony_tpu_torch.train.data import synthetic_tokens
+
+    cfg = get_config(TRAIN_CONFIG)
+    params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = flatten_with_paths(params)
+    for _, leaf in leaves:
+        leaf.requires_grad_(True)
+    tokens = next(synthetic_tokens(TRAIN_BATCH, TRAIN_SEQ,
+                                   cfg.vocab_size))["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    def step(loss_fn) -> tuple[float, float]:
+        for _, leaf in leaves:
+            leaf.grad = None
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = loss_fn(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.monotonic() - t0
+
+    runs = [step(lambda p, b: llama_loss(p, b, cfg))
+            for _ in range(PIPE_TIMED)]
+    plain_loss = runs[-1][0]
+    plain_s = sorted(w for _, w in runs)[len(runs) // 2]
+    plain_grads = {path: leaf.grad.clone() for path, leaf in leaves}
+    total = dict.fromkeys(_pipeline_launches(cfg.n_layers, 1), 0)
+    for n_micro, v in PIPE_RUNS:
+        want = _pipeline_launches(cfg.n_layers, n_micro)
+        tag = f"pp={PIPE_STAGES} M={n_micro} v={v}"
+        walls, losses = [], []
+        for _ in range(PIPE_TIMED):
+            cuda_lib.reset_launches()
+            loss, wall = step(lambda p, b: llama_loss_pipelined(
+                p, b, cfg, LocalStages(PIPE_STAGES), n_micro,
+                n_virtual=v))
+            got = {name: cuda_lib.launches()[name] for name in want}
+            check(got == want, f"pipeline {tag} launches {got} != {want}")
+            for name in want:
+                total[name] += got[name]
+            walls.append(wall)
+            losses.append(loss)
+        rel = abs(losses[-1] - plain_loss) / abs(plain_loss)
+        errs = {path: _grad_norm_err(leaf.grad, plain_grads[path])
+                for path, leaf in leaves}
+        worst = max(errs, key=errs.get)
+        wall = sorted(walls)[len(walls) // 2]
+        log(f"pipeline: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ} "
+            f"{tag}, one process: loss {losses[-1]:.9g} against the plain "
+            f"step's {plain_loss:.9g} (relative {rel:.2e}, tol "
+            f"{PIPE_LOSS_RTOL}); worst gradient by norm {errs[worst]:.2e} "
+            f"({'/'.join(worst)}, tol {PIPE_GRAD_TOL}); launches "
+            f"{want} each run; forward + backward {wall:.4f} s against "
+            f"the plain {plain_s:.4f} s ({wall / plain_s:.2f}x; walls "
+            f"{[round(w, 4) for w in walls]})")
+        check(rel <= PIPE_LOSS_RTOL, f"pipeline {tag} loss {losses[-1]} "
+              f"against {plain_loss}")
+        check(errs[worst] <= PIPE_GRAD_TOL,
+              f"pipeline {tag} gradient {'/'.join(worst)} {errs[worst]}")
+    del plain_grads, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at the microbatch's shapes, held as the kernels phase
+    # holds them (K1 also run twice, bit for bit)
+    mb = TRAIN_BATCH // PIPE_RUNS[0][0]
+    dq, dkv, fwd = _flash_bwd_case(mb, cfg.n_heads, cfg.n_kv_heads,
+                                   TRAIN_SEQ, cfg.head_dim, True,
+                                   "bfloat16", "bshd", peaks,
+                                   timed_case=True)
+    flush = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size
+                        // 4, device="cuda")
+    rms = _rms_case(mb * TRAIN_SEQ, cfg.dim, torch.bfloat16, peaks, 50,
+                    flush)
+    del flush
+    for name, r in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
+                    ("flash_bwd_dkv", dkv), ("rmsnorm_fwd", rms)):
+        log(f"pipeline: the microbatch's shape (B{mb}):")
+        _report(name, r)
+        _hold_all(name, [r])
+    torch.cuda.empty_cache()
+    return total
+
+
+def _pipeline_entry() -> dict[str, int]:
+    """(b): `--pp-micro` through the entry point on an NCCL world of one
+    (a pp of 1, so the pipelined loss with no send) beside the plain run.
+    Returns its launches."""
+    flags = ["--config", TRAIN_CONFIG, "--steps", str(PIPE_STEPS),
+             "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+             "--log-every", "1"]
+    n_micro = PIPE_RUNS[0][0]
+    plain_losses, plain_step, _ = _plain_run(flags)
+    run = _mesh_run(flags + ["--pp-micro", str(n_micro)], PIPE_MESH, (
+        "mesh: {'fsdp': 1, 'pp': 1}", "params: 12 DTensor leaves"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                               plain_losses)]
+    log(f"pipeline: `python -m tony_tpu_torch.train --pp-micro {n_micro}` "
+        f"on an NCCL world of one, mesh {PIPE_MESH}: losses "
+        f"{[f'{x:.9g}' for x in run['losses']]}, plain "
+        f"{[f'{x:.9g}' for x in plain_losses]} (relative "
+        f"{[f'{x:.2e}' for x in rel]}, tol {PIPE_LOSS_RTOL}); median step "
+        f"{run['step']:.4f} s, plain {plain_step:.4f} s; subprocess wall "
+        f"{run['wall']:.1f} s")
+    check(len(rel) == PIPE_STEPS and max(rel) <= PIPE_LOSS_RTOL,
+          f"entry point pipelined losses {run['losses']} against "
+          f"{plain_losses}")
+    want = {name: PIPE_STEPS * n for name, n in
+            _pipeline_launches(16, n_micro).items()}
+    got = {name: run["launches"].get(name, 0) for name in want}
+    check(got == want, f"pipelined entry point launches {got} != {want}")
+    return got
+
+
+def _ep_world_of_one(root: str) -> dict[str, int]:
+    """(c): mixtral_proxy through the entry point on an NCCL world of one
+    with an (ep, fsdp) mesh (`moe_param_axes`, the sharded MLP) against
+    the plain run, bit for bit. Returns the mesh run's launches."""
+    flags = ["--config", MOE_CONFIG, "--n-layers", str(EP_LAYERS),
+             "--steps", str(PIPE_STEPS), "--batch-size",
+             str(MOE_TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+             "--log-every", "1"]
+    plain_losses, plain_step, plain = _plain_run(flags)
+    ckpt_dir = os.path.join(root, "ep")
+    run = _mesh_run(flags, EP_MESH, ("mesh: {'fsdp': 1, 'ep': 1}",
+                                     "params: 13 DTensor leaves"), ckpt_dir)
+    log(f"pipeline: {MOE_CONFIG} ({EP_LAYERS} layers) B{MOE_TRAIN_BATCH} x "
+        f"S{TRAIN_SEQ} on an NCCL world of one, mesh {EP_MESH}: losses "
+        f"{[f'{x:.9g}' for x in run['losses']]}, plain "
+        f"{[f'{x:.9g}' for x in plain_losses]}; median step "
+        f"{run['step']:.4f} s, plain {plain_step:.4f} s; subprocess wall "
+        f"{run['wall']:.1f} s")
+    check([f"{x:.9g}" for x in plain_losses]
+          == [f"{x:.9g}" for x in run["losses"]],
+          "the ep mesh run's losses are not the plain run's bit for bit")
+    _bitwise_params(os.path.join(ckpt_dir, f"step_{PIPE_STEPS}"), plain)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want = {name: PIPE_STEPS * n for name, n in
+            _step_launches(EP_LAYERS).items()}
+    got = {name: run["launches"].get(name, 0) for name in want}
+    check(got == want, f"ep mesh run launches {got} != {want}")
+    return got
+
+
+def phase_pipeline(smi: str, peaks) -> dict[str, dict[str, int]]:
+    """(a) the pipeline schedule in one process at full width; (b) the
+    entry point's pipelined loss on an NCCL world of one; (c) MoE on an
+    (ep, fsdp) mesh of one through the entry point. Returns each part's
+    launches, by path."""
+    import torch
+    log(f"pipeline: card {smi}")
+    t0 = time.monotonic()
+    launches = {"pipeline": _pipeline_one_process(peaks),
+                "pipeline_entry": _pipeline_entry()}
+    root = tempfile.mkdtemp(prefix="tony-ep-")
+    try:
+        launches["ep"] = _ep_world_of_one(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pipeline: phase done in {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
-                            "quant,kvcache,train,ckpt,orch,moe,parallel",
+                            "quant,kvcache,train,ckpt,orch,moe,parallel,"
+                            "pipeline",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -3969,6 +4245,8 @@ def main(argv=None) -> int:
         if "parallel" in phases:
             launches["parallel"], launches["parallel_sp"] = \
                 phase_parallel(smi)
+        if "pipeline" in phases:
+            launches.update(phase_pipeline(smi, peaks))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

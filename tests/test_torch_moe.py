@@ -590,8 +590,11 @@ def test_train_entry_point_matches_the_jax_trainer():
     np.testing.assert_allclose(got, want, rtol=GRAD_TOL)
 
 
-def test_train_entry_point_keeps_refusing_pipeline_flags():
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
+def test_train_entry_point_keeps_refusing_pipeline_flags(monkeypatch):
+    """An MoE preset with --pp-micro on a mesh with a pp axis exits, as
+    the JAX script does: the pipeline is the dense model's path."""
+    monkeypatch.setenv("TPU_MESH_AXES", "pp")
+    with pytest.raises(SystemExit, match="MoE scales via the ep/fsdp axes"):
         build_trainer(train_parser().parse_args(
             ["--device", "cpu", "--config", "moe_tiny", "--pp-micro", "2"]))
 

@@ -632,20 +632,6 @@ def test_entry_point_as_a_gang_under_either_runtimes_env(tmp_path):
     assert torch_env == jax_env
 
 
-def test_entry_point_refuses_a_sharded_moe_preset(monkeypatch):
-    from tony_tpu_torch.train.__main__ import main as train_main
-
-    monkeypatch.setenv("TPU_MESH_SHAPE", "2")
-    monkeypatch.setenv("TPU_MESH_AXES", "fsdp")
-    monkeypatch.setenv("WORLD", "2")
-    with pytest.raises(NotImplementedError, match="ep slice"):
-        train_main(["--device", "cpu", "--config", "moe_tiny",
-                    "--steps", "1"])
-    for flag in (["--pp-micro", "2"], ["--pp-virtual", "2"]):
-        with pytest.raises(NotImplementedError, match="pipeline slice"):
-            train_main(["--device", "cpu", "--steps", "1", *flag])
-
-
 # ---------------------------------------------------------------------------
 # sharded checkpoints (the test is tests/test_torch_checkpoint.py's; the
 # worker lives here, in a module the ranks import without JAX)

@@ -468,13 +468,6 @@ def test_trainer_loss_falls_on_tiny_cpu():
     assert t.opt_state.count == 30
 
 
-@pytest.mark.parametrize("flag", [["--pp-micro", "2"],
-                                  ["--pp-virtual", "2"]])
-def test_entry_point_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="slice"):
-        train_main(["--device", "cpu", "--steps", "1", *flag])
-
-
 def test_entry_point_needs_a_card_unless_told_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device would be used")

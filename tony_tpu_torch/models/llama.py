@@ -12,7 +12,14 @@ Counterpart of `tony_tpu/models/llama.py`:
   `config.remat` is set: `remat_policy="save_flash"` keeps exactly the
   flash forward's two outputs (a selective-checkpoint policy on that one
   operator), so the replay never re-runs the flash kernel; `"full"` keeps
-  nothing. There is no pipeline path in this slice.
+  nothing.
+- **The pipelined loss** (`llama_loss_pipelined`, a mesh with a `pp`
+  axis): the embedding, final norm and head run on every pp rank as in
+  `llama_loss`; the layers run as pipeline stages
+  (`parallel/pipeline.py`), each stage the same blocks, with its own
+  RoPE tables, remat policy and, on the stage's mesh without pp, the
+  fsdp gathers, local products and sequence parallelism of the plain
+  path.
 - **Under a mesh** (parameters and batch are DTensors, sharded by
   `llama_param_axes` and `parallel/sharding.py`'s rules) the same code
   runs the global math: each layer weight's fsdp shards are gathered for
@@ -60,10 +67,15 @@ from tony_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from tony_tpu_torch.ops.xent import (
     fused_cross_entropy, loss_over_shards, matmul_f32,
 )
-from tony_tpu_torch.parallel.mesh import axis_size
+from tony_tpu_torch.parallel.mesh import axis_index, axis_size, drop_axis
+from tony_tpu_torch.parallel.pipeline import (
+    LocalStages, make_pipelined_fn, virtual_stage_layers,
+)
 from tony_tpu_torch.parallel.ring import ring_attention_sharded
 from tony_tpu_torch.parallel.sharding import (
     constrain, gather_for_use, gathered_local, local_matmul,
+    logical_to_mesh_axes, splits_dim0, stage_local, to_placements,
+    whole_dim0,
 )
 from tony_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
@@ -241,11 +253,20 @@ def layer_params_for_grad(params: Params) -> list[Params]:
     summed over the stack. The stacked weight itself stays out of the
     graph; its `.grad` is the gradient. Any other weight (inference,
     frozen weights, int8 weights) hands each layer its plain `w[i]`
-    view."""
+    view. A stack split over pp (a mesh with pp > 1 whose loss is not
+    pipelined) is gathered whole first, as GSPMD gathers it for the JAX
+    package, and each layer takes its slice of that through autograd: an
+    index of the split DTensor would gather a copy per layer, and a
+    gradient preset on it would never reach the stack."""
     n = params["layers"]["attn_norm"].shape[0]
     layers: list[Params] = [{} for _ in range(n)]
     grad_mode = torch.is_grad_enabled()
     for name, w in params["layers"].items():
+        if splits_dim0(w):
+            whole = whole_dim0(w)
+            for i in range(n):
+                layers[i][name] = whole[i]
+            continue
         if is_qtensor(w) or not (grad_mode and w.requires_grad):
             for i in range(n):
                 layers[i][name] = _layer_slice(w, i)
@@ -468,4 +489,107 @@ def llama_loss(params: Params, batch: dict[str, torch.Tensor],
     {'inputs': (B,S), 'targets': (B,S)}."""
     inputs, targets = unpack_lm_batch(batch)
     x = llama_hidden(params, inputs, config)
+    return _head_loss(x, params, targets, config)
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def llama_pipeline_param_axes(config: LlamaConfig) -> Params:
+    """Logical axes of the STAGED layer tree ((pp, L/pp, ...) layout): the
+    stage dim on pp, the inner dims keeping their fsdp/tp layout."""
+    return {k: ("stage",) + tuple(v)
+            for k, v in llama_param_axes(config)["layers"].items()}
+
+
+def _pipeline_stage(config: LlamaConfig, seq: int, inner):
+    """(stage_fn, wrap): the per-tick stage body over a chunk's layers
+    and the form a local chunk takes for it. On a stage mesh (`inner`,
+    the mesh without pp) chunks and activations are DTensors there, so
+    the blocks run exactly as `llama_hidden`'s; without one, plain
+    tensors."""
+    staged = llama_pipeline_param_axes(config)
+    act = (logical_to_mesh_axes(("batch", "seq", None), mesh=inner)
+           if inner is not None else None)
+
+    def wrap(name, t):
+        if inner is None:
+            return t
+        return DTensor.from_local(
+            t, inner, logical_to_mesh_axes(staged[name][1:], mesh=inner),
+            run_check=False)
+
+    def stage_fn(layers: Params, x_local: torch.Tensor) -> torch.Tensor:
+        # the stage's own RoPE tables (at global positions: a DTensor's
+        # rows are its sequence shard's)
+        cos, sin = rope_tables(config, seq, x_local.device)
+        x = x_local if inner is None else DTensor.from_local(
+            x_local, inner, act, run_check=False)
+        run, per_layer = layer_blocks({"layers": layers}, config,
+                                      partial(_block, config, cos, sin))
+        for layer in per_layer:
+            x = run(x, layer)
+        return x if inner is None else to_placements(x, act).to_local()
+
+    return stage_fn, wrap
+
+
+def llama_hidden_pipelined(params: Params, tokens: torch.Tensor,
+                           config: LlamaConfig, mesh, n_micro: int,
+                           n_virtual: int = 1) -> torch.Tensor:
+    """The pipeline-parallel backbone up to the final norm (the head is
+    the caller's). `mesh`: the run's DeviceMesh (its pp axis; absent or
+    None: one stage), or `pipeline.LocalStages(n)` for n stages in this
+    process on plain tensors. The layers split into pp * n_virtual
+    chunks of consecutive layers, chunk j of pp rank d being virtual
+    stage j * pp + d; embedding, final norm and head run on every pp
+    rank. Needs n_layers % (pp * n_virtual) == 0 and each rank's batch
+    rows % n_micro == 0."""
+    local = isinstance(mesh, LocalStages)
+    pp = mesh.n if local else axis_size(mesh, "pp")
+    L = config.n_layers
+    if L % (pp * n_virtual) != 0:
+        raise ValueError(f"n_layers {L} not divisible by "
+                         f"pp*n_virtual={pp}*{n_virtual}")
+    per_chunk = L // (pp * n_virtual)
+    x = embed_lookup(params["embed"], tokens, config)
+    sharded = isinstance(x, DTensor)
+    pp_dim = (mesh.mesh_dim_names.index("pp") if sharded
+              and "pp" in mesh.mesh_dim_names else None)
+    devices = range(pp) if local else (axis_index(mesh, "pp"),)
+    per_device = [{k: stage_local(w, pp_dim, pp, virtual_stage_layers(
+        d, pp, n_virtual, per_chunk)) for k, w in params["layers"].items()}
+        for d in devices]
+    stage_fn, wrap = _pipeline_stage(
+        config, tokens.shape[1], drop_axis(mesh, "pp") if sharded else None)
+    pipe = make_pipelined_fn(stage_fn, mesh, n_micro, n_virtual=n_virtual,
+                             wrap=wrap)
+    if sharded:
+        x = constrain(x, ("batch", "seq", None))
+        y = DTensor.from_local(pipe(per_device, x.to_local()),
+                               x.device_mesh, x.placements,
+                               run_check=False)
+    else:
+        y = pipe(per_device, x)
+    return rms_norm(y, params["final_norm"], config.norm_eps)
+
+
+def llama_forward_pipelined(params: Params, tokens: torch.Tensor,
+                            config: LlamaConfig, mesh, n_micro: int,
+                            n_virtual: int = 1) -> torch.Tensor:
+    """The pipelined forward -> logits (B, S, vocab) f32."""
+    with torch.no_grad():
+        x = llama_hidden_pipelined(params, tokens, config, mesh, n_micro,
+                                   n_virtual=n_virtual)
+        return lm_head(x, params["output"])
+
+
+def llama_loss_pipelined(params: Params, batch: dict[str, torch.Tensor],
+                         config: LlamaConfig, mesh, n_micro: int,
+                         n_virtual: int = 1) -> torch.Tensor:
+    """`llama_loss` through the pipelined backbone."""
+    inputs, targets = unpack_lm_batch(batch)
+    x = llama_hidden_pipelined(params, inputs, config, mesh, n_micro,
+                               n_virtual=n_virtual)
     return _head_loss(x, params, targets, config)

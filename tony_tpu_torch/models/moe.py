@@ -28,6 +28,22 @@ which each token takes its `top_k` choices.
   so one K5 launch a bank at decode row counts.
 - **Switch aux loss** over the choices before capacity, summed over the
   layers; `moe_loss` adds `aux_loss_weight` times it to the LM loss.
+- **Under a mesh** (`moe_param_axes`: the expert dim over `ep`, embed
+  and mlp over fsdp and tp, the router at ("layers", "embed", None)) the
+  MLP routes the GLOBAL token set, as the JAX package's `moe_mlp` does
+  over the batch and sequence it sees whole: each rank gathers every
+  rank's tokens (over dp, fsdp and sp), so the capacity comes from the
+  global T, each token's queue position is its place in global token
+  order, every expert's queue fills from every batch rank's tokens, and
+  the aux loss is the mean over the global T. A routing per rank would
+  drop other tokens below no-drop capacity and train another model.
+  Each ep rank runs its E / ep experts' products over every slot of
+  those experts (tp: its columns, the down product summed over tp), and
+  the bank outputs are gathered over ep for the combine. The work after
+  the gather is the same on every data rank (the JAX package leaves the
+  expert bank unsplit over the batch axes too), so each rank keeps its
+  own tokens' rows of the output, and the gradients of everything the
+  ranks share are whole on each.
 
 The attention, RoPE, norms, per-layer loop (`layer_blocks`: per-layer
 gradients, save_flash remat) and LM head are `models/llama.py`'s.
@@ -38,18 +54,23 @@ from __future__ import annotations
 import contextlib
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from tony_tpu_torch.models.llama import (
     LlamaConfig, Params, _head_loss, attention_sublayer, embed_lookup,
-    layer_blocks, llama_init, lm_head, rope_tables, unpack_lm_batch,
+    layer_blocks, llama_init, llama_param_axes, lm_head, rope_tables,
+    unpack_lm_batch,
 )
 from tony_tpu_torch.models.quant import is_qtensor
 from tony_tpu_torch.ops.int8_matmul import int8_bmm
 from tony_tpu_torch.ops.rmsnorm import rms_norm
+from tony_tpu_torch.parallel.mesh import axis_index, axis_size
+from tony_tpu_torch.parallel.sharding import constrain, gather_for_use
 
 
 @dataclass(frozen=True)
@@ -139,6 +160,22 @@ def moe_init(config: MoEConfig, generator: torch.Generator) -> Params:
     layers["we_up"] = normal((L, E, d, f), d ** -0.5)
     layers["we_down"] = normal((L, E, f, d), f ** -0.5)
     return params
+
+
+def moe_param_axes(config: MoEConfig) -> Params:
+    """`llama_param_axes` with the dense MLP swapped for the router
+    ("layers", "embed", None) and the expert banks, whose expert dim is
+    the `ep` axis's."""
+    axes = llama_param_axes(config)
+    layers = dict(axes["layers"])
+    for dense_key in ("w_gate", "w_up", "w_down"):
+        del layers[dense_key]
+    layers["router"] = ("layers", "embed", None)
+    layers["we_gate"] = ("layers", "expert", "embed", "mlp")
+    layers["we_up"] = ("layers", "expert", "embed", "mlp")
+    layers["we_down"] = ("layers", "expert", "mlp", "embed")
+    axes["layers"] = layers
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -246,14 +283,29 @@ def expert_bank(expert_in: torch.Tensor, layer: Params) -> torch.Tensor:
     return _bank_product(F.silu(gate) * up, layer["we_down"])
 
 
-def _dense_dispatch(xt: torch.Tensor, layer: Params, r: Routing,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """One-hot dispatch and combine products, (T, E, C) each."""
+class _Experts(NamedTuple):
+    """The experts this rank's bank runs, [first, first + count), and
+    `bank`: their (count, C, D) queues -> every expert's (E, C, D)
+    outputs."""
+    first: int
+    count: int
+    bank: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _all_experts(layer: Params, n_experts: int) -> _Experts:
+    return _Experts(0, n_experts, lambda x: expert_bank(x, layer))
+
+
+def _dense_dispatch(xt: torch.Tensor, r: Routing, dtype: torch.dtype,
+                    experts: _Experts) -> torch.Tensor:
+    """One-hot dispatch and combine products, (T, E, C) each; the
+    dispatch of this rank's experts only."""
     slot = torch.where(r.keep, r.position, 0)
     dispatch = r.keep[..., None] * F.one_hot(slot, r.capacity).to(dtype)
     combine = dispatch * r.gates[..., None].to(dtype)
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xt)
-    return torch.einsum("tec,ecd->td", combine, expert_bank(expert_in, layer))
+    own = dispatch[:, experts.first:experts.first + experts.count]
+    expert_in = torch.einsum("tec,td->ecd", own, xt)
+    return torch.einsum("tec,ecd->td", combine, experts.bank(expert_in))
 
 
 class _GatherRows(torch.autograd.Function):
@@ -278,10 +330,11 @@ class _GatherRows(torch.autograd.Function):
         return grad, None, None
 
 
-def _sparse_dispatch(xt: torch.Tensor, layer: Params, r: Routing,
-                     dtype: torch.dtype) -> torch.Tensor:
+def _sparse_dispatch(xt: torch.Tensor, r: Routing, dtype: torch.dtype,
+                     experts: _Experts) -> torch.Tensor:
     """Slot-indexed dispatch: (token, choice) -> slot `expert * C + pos`,
-    one gather into the banks, one gather of the k choices' rows back."""
+    one gather into this rank's banks, one gather of the k choices' rows
+    back from every expert's outputs."""
     n_tokens, d = xt.shape
     E, C = r.gates.shape[-1], r.capacity
     k = len(r.topk_idx)
@@ -307,9 +360,16 @@ def _sparse_dispatch(xt: torch.Tensor, layer: Params, r: Routing,
         slot_valid[slot_k] = 1
         slot_row[slot_k] = j * n_tokens + token_ids
     slot_row[sentinel] = k * n_tokens
-    expert_in = (_GatherRows.apply(xt, slot_token[:n_slots], tuple(slots_k))
-                 * slot_valid[:n_slots, None])
-    expert_out = expert_bank(expert_in.view(E, C, d), layer)
+    lo, n_own = experts.first * C, experts.count * C
+    inverse = tuple(slots_k)
+    if n_own != n_slots:
+        # this rank's slots, renumbered from 0; the others name the zero
+        # row n_own of the gather's backward
+        inverse = tuple(torch.where((s >= lo) & (s < lo + n_own), s - lo,
+                                    n_own) for s in slots_k)
+    expert_in = (_GatherRows.apply(xt, slot_token[lo:lo + n_own], inverse)
+                 * slot_valid[lo:lo + n_own, None])
+    expert_out = experts.bank(expert_in.view(experts.count, C, d))
     flat_out = torch.cat([expert_out.reshape(n_slots, d),
                           expert_out.new_zeros((1, d))])
     picked = _GatherRows.apply(flat_out, torch.cat(slots_k), (slot_row,))
@@ -324,14 +384,109 @@ def _sparse_dispatch(xt: torch.Tensor, layer: Params, r: Routing,
 def moe_mlp(x: torch.Tensor, layer: Params, config: MoEConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux loss): top-k routing with
-    capacity over the B * S tokens, dispatched per config.dispatch_mode."""
+    capacity over the B * S tokens, dispatched per config.dispatch_mode.
+    A DTensor x (under a mesh) routes the global tokens
+    (`_moe_mlp_sharded`)."""
+    if isinstance(x, DTensor):
+        return _moe_mlp_sharded(x, layer, config)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     r = route(xt, layer["router"], config)
-    dispatch = (_dense_dispatch if config.dispatch_mode == "dense"
-                else _sparse_dispatch)
-    out = dispatch(xt, layer, r, x.dtype)
+    out = _dispatch(config)(xt, r, x.dtype,
+                            _all_experts(layer, config.n_experts))
     return out.reshape(b, s, d).to(x.dtype), aux_loss(r, config)
+
+
+def _dispatch(config: MoEConfig):
+    return (_dense_dispatch if config.dispatch_mode == "dense"
+            else _sparse_dispatch)
+
+
+def _placed(mesh, **by_axis) -> list:
+    """One placement per mesh dim: by_axis[name] where given, else
+    Replicate()."""
+    return [by_axis.get(name, Replicate()) for name in mesh.mesh_dim_names]
+
+
+def _local_weight(w) -> torch.Tensor:
+    """A layer weight with its dp/fsdp shards gathered, as a local tensor
+    (its ep and tp shards stay). Every data rank computes the same with
+    it, so its gradient is whole on each rank, and the gather's backward
+    keeps each rank's own shard of it."""
+    w = gather_for_use(w)
+    return w.to_local() if isinstance(w, DTensor) else w
+
+
+def _ep_bank(layer: Params, mesh, first: int, count: int):
+    """The bank of this rank's `count` experts from `first`: their SwiGLU
+    on their local tp columns, the down product summed over tp, then the
+    outputs of every ep rank's experts gathered. The gathered outputs'
+    gradient is the same on every ep rank, so the gather's backward keeps
+    this rank's experts' rows."""
+    tp, ep = axis_size(mesh, "tp") > 1, axis_size(mesh, "ep") > 1
+    weights = [_local_weight(layer[k]) for k in ("we_gate", "we_up",
+                                                 "we_down")]
+
+    def bank(expert_in: torch.Tensor) -> torch.Tensor:
+        gate = _bank_product(expert_in, weights[0])
+        up = _bank_product(expert_in, weights[1])
+        out = _bank_product(F.silu(gate) * up, weights[2])
+        if not (tp or ep):
+            return out
+        split = {"tp": Partial()} if tp else {}
+        if ep:
+            split["ep"] = Shard(0)
+        return DTensor.from_local(out, mesh, _placed(mesh, **split),
+                                  run_check=False).redistribute(
+            mesh, _placed(mesh)).to_local()
+
+    return _Experts(first, count, bank)
+
+
+class _GradSummedOver(torch.autograd.Function):
+    """x itself, its gradient summed over the process groups given (each
+    rank of them holds a part of it), one all-reduce a group."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+def _grad_summed_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    groups = [mesh.get_group(a) for a in axes if axis_size(mesh, a) > 1]
+    return _GradSummedOver.apply(x, groups) if groups else x
+
+
+def _moe_mlp_sharded(x: DTensor, layer: Params, config: MoEConfig
+                     ) -> tuple[DTensor, torch.Tensor]:
+    """`moe_mlp` of a DTensor x on its mesh, over the global tokens: x
+    gathered whole on every rank (every rank then routes the same T
+    tokens, JAX's global order b * S + s), this rank's experts' bank
+    (`_ep_bank`), the combine of every token, and this rank's rows of the
+    result in x's placements. The aux loss, the same on every rank, is a
+    plain tensor."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    xt = x.redistribute(mesh, _placed(mesh)).to_local().reshape(b * s, d)
+    r = route(xt, _local_weight(layer["router"]), config)
+    ep = axis_size(mesh, "ep")
+    count = config.n_experts // ep
+    experts = _ep_bank(layer, mesh, axis_index(mesh, "ep") * count, count)
+    # the bank's queues read the tokens on each ep rank's experts and on
+    # each tp rank's columns: their gradient is summed over both
+    xd = _grad_summed_over(xt, mesh, ("ep", "tp"))
+    out = _dispatch(config)(xd, r, x.dtype, experts)
+    out = DTensor.from_local(out.reshape(b, s, d).to(x.dtype), mesh,
+                             _placed(mesh), run_check=False)
+    return out.redistribute(mesh, x.placements), aux_loss(r, config)
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +497,10 @@ def _moe_block(config: MoEConfig, cos, sin, x: torch.Tensor,
                layer: Params) -> tuple[torch.Tensor, torch.Tensor]:
     h = rms_norm(x, layer["attn_norm"], config.norm_eps)
     x = x + attention_sublayer(h, layer, config, cos, sin)
+    x = constrain(x, ("batch", "seq", None))
     h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
     out, aux = moe_mlp(h, layer, config)
-    return x + out, aux
+    return constrain(x + out, ("batch", "seq", None)), aux
 
 
 def moe_hidden(params: Params, tokens: torch.Tensor, config: MoEConfig

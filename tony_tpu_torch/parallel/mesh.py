@@ -217,6 +217,44 @@ def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
+def axis_index(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """This rank's coordinate along `axis` (0 when absent or no mesh)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def pp_neighbours(mesh: DeviceMesh, axis: str = "pp") -> tuple[int, int]:
+    """(previous, next) global ranks of this rank along pp: its own
+    coordinates on every other axis, pp - 1 and pp + 1 (mod the pp
+    size). The pipeline's sends go to `next`, its receives come from
+    `previous` (the reverse in the backward)."""
+    grid = mesh.mesh
+    coord = list(mesh.get_coordinate())
+    dim = mesh.mesh_dim_names.index(axis)
+    n = grid.shape[dim]
+    out = []
+    for step in (-1, 1):
+        at = list(coord)
+        at[dim] = (coord[dim] + step) % n
+        out.append(int(grid[tuple(at)]))
+    return out[0], out[1]
+
+
+def drop_axis(mesh: Optional[DeviceMesh], axis: str
+              ) -> Optional[DeviceMesh]:
+    """The submesh of this rank's other axes (the mesh a pipeline stage
+    runs on, without pp): None when no mesh, or when those axes hold
+    this rank alone, so the stage runs on plain tensors."""
+    if mesh is None:
+        return None
+    names = tuple(a for a in mesh.mesh_dim_names if a != axis)
+    if not names or math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                              for a in names) == 1:
+        return None
+    return mesh[names]
+
+
 def env_rank_grid(world: int) -> tuple[MeshPlan, np.ndarray]:
     """The plan and rank grid `mesh_from_env` lays out for `world` ranks,
     without a process group (the entry point needs them before the

@@ -336,3 +336,51 @@ def local_matmul(x: DTensor, w: DTensor) -> DTensor:
     x = to_placements(x, want)
     y = x.to_local(grad_placements=gx) @ w.to_local(grad_placements=gw)
     return DTensor.from_local(y, x.device_mesh, out, run_check=False)
+
+
+def splits_dim0(w) -> bool:
+    """Whether the DTensor `w` splits its leading dim over a mesh dim (a
+    layer stack over pp)."""
+    return isinstance(w, DTensor) and any(
+        p.is_shard() and p.dim == 0 for p in w.placements)
+
+
+def whole_dim0(w: DTensor) -> DTensor:
+    """`w` with its leading dim gathered whole on every rank (GSPMD's
+    gather of a pp-split layer stack for a loss that is not pipelined);
+    differentiable, the gradient of each rank's slice its own."""
+    return to_placements(w, tuple(
+        Replicate() if p.is_shard() and p.dim == 0 else p
+        for p in w.placements))
+
+
+def stage_local(w, pp_dim: Optional[int], pp: int, layers: list[int]
+                ) -> torch.Tensor:
+    """This pp rank's stage stack of the layer stack `w` as a local
+    tensor (inner dims still split as `w` splits them), its layers in the
+    order `layers` lists them (global indices).
+
+    At rest the stack lies contiguous on pp, so with one chunk a rank
+    (`layers` its own contiguous block) it is the local shard itself. The
+    interleaved schedule's round-robin chunks instead gather the stack
+    over pp and take this rank's layers: the move the JAX package makes
+    with an all-gather and a re-slice. Its gradient goes back by the
+    inverse move: each rank's chunk gradients scattered into a zero
+    stack, a partial sum over pp, reduce-scattered onto the owners."""
+    if not isinstance(w, DTensor):
+        return w if layers == list(range(w.shape[0])) else \
+            w.index_select(0, torch.tensor(layers, device=w.device))
+    if pp_dim is None or pp == 1:
+        local = w.to_local()
+        return local if layers == list(range(local.shape[0])) else \
+            local.index_select(0, torch.tensor(layers, device=local.device))
+    per = w.shape[0] // pp
+    me = w.device_mesh.get_local_rank(pp_dim)
+    if layers == list(range(me * per, (me + 1) * per)):
+        return w.to_local()
+    whole = to_placements(w, tuple(Replicate() if i == pp_dim else p
+                                   for i, p in enumerate(w.placements)))
+    local = whole.to_local(grad_placements=[
+        Partial() if i == pp_dim else p
+        for i, p in enumerate(whole.placements)])
+    return local.index_select(0, torch.tensor(layers, device=local.device))

@@ -31,9 +31,14 @@ executor renders and trains on the mesh of ``TPU_MESH_SHAPE`` /
 ``TPU_MESH_AXES`` (pure fsdp over the world when unset), the dense
 presets' parameters sharded by `llama_param_axes`; each rank's data
 stream is seeded by its (dp, fsdp) coordinate, so the ranks that share
-one feed the same rows. ``--pp-micro`` and ``--pp-virtual`` raise
-NotImplementedError (the pipeline slice), and so does an MoE preset on a
-mesh that splits anything (the ``ep`` slice).
+one feed the same rows. An MoE preset's parameters are sharded by
+`moe_param_axes` (the experts over ``ep``), and its MLP routes the
+global batch. ``--pp-micro M`` with a ``pp`` axis in ``TPU_MESH_AXES``
+(even a pp of 1) trains the dense model through the pipelined loss
+(``llama_loss_pipelined``: M microbatches, 1F1B; ``--pp-virtual v`` > 1
+the interleaved schedule); with no ``pp`` axis it logs a warning and
+trains without the pipeline; an MoE preset with it exits, as the JAX
+script does.
 """
 
 from __future__ import annotations
@@ -79,23 +84,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="raw int32 token shard (write_token_file); "
                         "default: synthetic tokens")
     p.add_argument("--pp-micro", type=int, default=0,
-                   help="pipeline microbatches (not yet ported)")
+                   help="pipeline microbatches; >0 with a pp axis in "
+                        "TPU_MESH_AXES selects the pipelined loss")
     p.add_argument("--pp-virtual", type=int, default=1,
-                   help="virtual pipeline stages (not yet ported)")
+                   help="virtual chunks per pipeline stage (>1 = "
+                        "interleaved schedule, bubble/(v))")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for every flag this slice does not port."""
-    unported = [
-        (args.pp_micro > 0, "--pp-micro", "the pipeline slice"),
-        (args.pp_virtual != 1, "--pp-virtual", "the pipeline slice"),
-    ]
-    for hit, what, slice_name in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to tony_tpu_torch yet; it arrives "
-                f"with {slice_name} (ROADMAP.md, queue 1)")
 
 
 def _streams(args, seq: int, vocab_size: int, process_index: int):
@@ -121,38 +115,56 @@ def _streams(args, seq: int, vocab_size: int, process_index: int):
 
 def build_trainer(args):
     """The Trainer the entry point runs, and its model config."""
+    import logging
+    import os
+
+    from tony_tpu_torch import constants as C
     from tony_tpu_torch.models.llama import (
-        get_config, llama_init, llama_loss, llama_param_axes,
+        get_config, llama_init, llama_loss, llama_loss_pipelined,
+        llama_param_axes,
     )
     from tony_tpu_torch.models.moe import (
-        get_moe_config, is_moe_preset, moe_init, moe_loss,
+        get_moe_config, is_moe_preset, moe_init, moe_loss, moe_param_axes,
     )
     from tony_tpu_torch.parallel.distributed import gang
-    from tony_tpu_torch.parallel.mesh import data_index, plan_from_env
+    from tony_tpu_torch.parallel.mesh import data_index
     from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    _refuse_unported(args)
     world, rank = gang()
     overrides = {"n_layers": args.n_layers} if args.n_layers else {}
-    if is_moe_preset(args.config):
-        if plan_from_env(world)[0].num_devices > 1:
-            raise NotImplementedError(
-                "an MoE preset on a mesh that splits it is not ported to "
-                "tony_tpu_torch yet; it arrives with the ep slice (expert "
-                "parallelism, moe_param_axes; ROADMAP.md, queue 1)")
+    is_moe = is_moe_preset(args.config)
+    if is_moe:
         config = get_moe_config(args.config, **overrides)
-        init_fn, loss_fn, param_axes = moe_init, moe_loss, None
+        init_fn, loss_fn = moe_init, moe_loss
+        param_axes = moe_param_axes(config)
     else:
         config = get_config(args.config, **overrides)
         init_fn, loss_fn = llama_init, llama_loss
         param_axes = llama_param_axes(config)
+    loss_fn = partial(loss_fn, config=config)
+    # the pipelined loss when asked for and the mesh has a pp axis; the
+    # Trainer binds the mesh after the rendezvous
+    mesh_axes = [a.strip() for a in
+                 os.environ.get(C.TPU_MESH_AXES, "").split(",")]
+    pipelined = args.pp_micro > 0 and "pp" in mesh_axes
+    if pipelined:
+        if is_moe:
+            raise SystemExit("pipelined training is the dense-Llama "
+                             "path; MoE scales via the ep/fsdp axes")
+        loss_fn = partial(llama_loss_pipelined, config=config,
+                          n_micro=args.pp_micro, n_virtual=args.pp_virtual)
+    elif args.pp_micro > 0:
+        logging.getLogger(__name__).warning(
+            "--pp-micro %d requested but TPU_MESH_AXES (%s) has no pp "
+            "axis — training WITHOUT pipeline parallelism", args.pp_micro,
+            os.environ.get(C.TPU_MESH_AXES, ""))
     seq = args.seq_len or config.max_seq
     # the ranks that share a (dp, fsdp) coordinate hold the same rows
     process_index = data_index(world, rank) if world > 1 else rank
     data_iter, eval_iter = _streams(args, seq, config.vocab_size,
                                     process_index)
     trainer = Trainer(
-        loss_fn=partial(loss_fn, config=config),
+        loss_fn=loss_fn, loss_takes_mesh=pipelined,
         init_fn=partial(init_fn, config),
         data_iter=data_iter,
         config=TrainerConfig(num_steps=args.steps, log_every=args.log_every,
@@ -172,6 +184,7 @@ def build_trainer(args):
 def main(argv=None) -> int:
     import logging
 
+    import torch
     import torch.distributed as dist
 
     from tony_tpu_torch.ops import cuda_lib
@@ -183,9 +196,12 @@ def main(argv=None) -> int:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    log = logging.getLogger(__name__)
     # every launch of this process's kernels (all 0 on the CPU)
-    logging.getLogger(__name__).info("kernel launches %s",
-                                     json.dumps(cuda_lib.launches()))
+    log.info("kernel launches %s", json.dumps(cuda_lib.launches()))
+    if trainer.device.type == "cuda":
+        log.info("peak device memory %.3f GiB",
+                 torch.cuda.max_memory_allocated(trainer.device) / 2**30)
     print(f"final loss {final_loss:.4f}")
     return 0
 

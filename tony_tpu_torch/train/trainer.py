@@ -80,6 +80,7 @@ import signal
 import threading
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Iterator, Optional
 
 import torch
@@ -164,15 +165,18 @@ class Trainer:
     """loss_fn(params, batch) -> scalar; init_fn(generator) -> params on
     the generator's device; data_iter (and eval_data_iter) yield host
     batches (numpy); param_axes: the params' logical axes (the JAX
-    Trainer's), which shard them under a mesh."""
+    Trainer's), which shard them under a mesh. loss_takes_mesh: the loss
+    also takes `mesh=` (a pipelined loss), which is known only after the
+    rendezvous, so `setup()` binds it (None without a mesh)."""
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor],
                  init_fn: Callable[[torch.Generator], Any],
                  data_iter: Iterator[Any], config: TrainerConfig,
                  device: torch.device | str = "cuda",
                  eval_data_iter: Optional[Iterator[Any]] = None,
-                 param_axes: Any = None):
+                 param_axes: Any = None, loss_takes_mesh: bool = False):
         self.loss_fn = loss_fn
+        self.loss_takes_mesh = loss_takes_mesh
         self.init_fn = init_fn
         self.param_axes = param_axes
         self.mesh = None
@@ -273,8 +277,13 @@ class Trainer:
             self.optimizer = adamw(schedule, weight_decay=cfg.weight_decay)
         if cfg.master_weights:
             self.optimizer = with_f32_master(self.optimizer)
+        # bound into a local, never back onto self.loss_fn: a second
+        # setup() would stack a second mesh= onto the bound partial
+        loss_fn = self.loss_fn
+        if self.loss_takes_mesh:
+            loss_fn = partial(loss_fn, mesh=self.mesh)
         self.train_step = make_train_step(
-            self.loss_fn, self.optimizer, grad_accum=cfg.grad_accum,
+            loss_fn, self.optimizer, grad_accum=cfg.grad_accum,
             annotate=True)
         resume = (latest_step(cfg.checkpoint_dir)
                   if cfg.checkpoint_dir else None)
@@ -336,7 +345,7 @@ class Trainer:
 
             self._global_data_iter = _sync_with_carry()
         if cfg.eval_every and self.eval_data_iter is not None:
-            self.eval_step = make_eval_step(self.loss_fn)
+            self.eval_step = make_eval_step(loss_fn)
             # a FIXED held-out set, drawn once: eval losses compare across
             # steps and across resumes, and a re-setup() must not draw the
             # next batches of the partly consumed iterator. islice caps the

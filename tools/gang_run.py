@@ -18,7 +18,8 @@ Prints the card's name and power limit (nvidia-smi), rank 0's step
 losses (the f32 values exactly), its median step interval over steps 3
 to the last (the Trainer's log boundaries: in steady state the host
 waits one step of device time between two), and, last, one JSON object
-with the same numbers and each rank's logged kernel launches.
+with the same numbers, each rank's logged kernel launches and each
+rank's peak device memory.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import time
 
 STEP = re.compile(r"step (\d+) loss (\S+) \((\S+)s\)")
 LAUNCHES = re.compile(r"kernel launches (\{.*\})")
+PEAK = re.compile(r"peak device memory (\S+) GiB")
 
 
 def _free_port() -> int:
@@ -101,7 +103,9 @@ def run_gang(nproc: int, mesh_shape: str, mesh_axes: str, train_args,
                               else None),
             "wall_s": round(wall, 1),
             "launches": [json.loads(m.group(1)) for _, err in outs
-                         for m in [LAUNCHES.search(err)] if m]}
+                         for m in [LAUNCHES.search(err)] if m],
+            "peak_gib": [float(m.group(1)) for _, err in outs
+                         for m in [PEAK.search(err)] if m]}
 
 
 def main(argv=None) -> int:
@@ -119,7 +123,7 @@ def main(argv=None) -> int:
     print(f"gang: {result['card']}; {opts.nproc} ranks, mesh "
           f"{opts.mesh_axes or '-'}={opts.mesh_shape or '-'}: losses "
           f"{result['losses']}, median step {result['median_step_s']} s, "
-          f"wall {result['wall_s']} s")
+          f"wall {result['wall_s']} s, peak GiB {result['peak_gib']}")
     print(json.dumps(result))
     return 0
 
