@@ -211,20 +211,56 @@ Phases (any failure exits non-zero, and the result line is not printed):
               sharded MoE MLP): losses and checkpointed parameters bit for
               bit the plain run's, launches exact.
 
+12. spec    — speculative decoding through the generate demo
+              (`tony_tpu_torch.examples.generate_demo.run`, in this
+              process) at full width: target llama3_1b_proxy, draft
+              bench_350m (random, both vocab 32000), gamma 4, batch 4,
+              prompt 128, 64 new tokens; then the target as its own draft,
+              then `--quant int8 --quant-cache`, then a mixtral_proxy
+              target at no-drop capacity (32 new tokens). Each run's K1,
+              K4 and K5 launches exact for its round count; each stream
+              held against greedy `generate` on the same weights: a row
+              may part from it only at a token that the target window
+              which emitted it (kept from a rerun giving the same
+              stream) chose as its argmax over greedy's prefix, where
+              that window shifted the pair (greedy's token, its own)
+              by more than the decode step's margin between them
+              (printed). Prints rounds, drafted tokens accepted a row a
+              round, ms a round and tokens/s against greedy generate's
+              (warm, the same call). tiny in f32 on the card: token for
+              token greedy generate's (gamma 1, 3, 4, the int8 cache).
+13. vision  — the image zoo and the small models through their entry
+              points: `python -m tony_tpu_torch.examples.train_allreduce`
+              with ViT (vit_s16_proxy, the example's 28/7 geometry, S 17)
+              and ResNet (resnet50_proxy) on an NCCL world of one (one
+              worker in CLUSTER_SPEC, a 1-rank fsdp mesh), its own count
+              of its launches exact; the Trainer on vit_s16_proxy at
+              224/16 (S 197), B 64, on numpy-seeded images, 6 steps: exact
+              K1/K2/K3/K4 launches every step, step time, images/s, peak
+              memory; mnist_distributed (accuracy >= 0.9) and linreg_dmlc
+              (MSE < 0.01) through their mains; resnet_tiny and vit_tiny
+              in f32: the card's logits against the CPU's at 2e-5.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
-parallel slice, `--phases build,pipeline` the pipeline and ep slice.
+parallel slice, `--phases build,pipeline` the pipeline and ep slice,
+`--phases build,spec,vision` this slice's model zoo. The kernels phase
+also holds K1-K3 at ViT's attention shapes (B64 H6 S197 D64 and S17,
+non-causal, timed and bit for bit over two calls; vit_tiny's D16 in f32)
+and K4 at its rows (64 x 197 and the 64 CLS rows, D 384).
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe, parallel and pipeline paths together, split in
-`launches_by_path`; the orch path counts its training run, the ckpt path
+orch, moe, parallel, pipeline, spec and vision paths together, split
+in `launches_by_path`; the orch path counts its training run, the ckpt path
 its runs and servers on the local and the gs:// directory, the moe path
 its two bursts and its training runs, the parallel path the mesh run's
 own count of its launches, parallel_sp the ring's and Ulysses' chunk
 launches, pipeline the one-process pipelined runs, pipeline_entry and
-ep the pipelined and the (ep, fsdp) entry-point runs' own counts; the
-cache phase's processes are uncounted), then the card's name and power
+ep the pipelined and the (ep, fsdp) entry-point runs' own counts, spec
+its four full-width runs, vision the ViT runs of train_allreduce (its own
+count) and of the Trainer at 224/16; the cache phase's processes are
+uncounted), then the card's name and power
 limit from nvidia-smi; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -312,6 +348,18 @@ BWD_CASES = (
     (1, 4, 2, 100, 32, False, "float32"),
     (2, 4, 4, 37, 16, True, "float32"),
 )
+# ViT's attention (non-causal, H == Hkv): (B, H, S, D, dtype, timed).
+# vit_s16_proxy at its 224/16 geometry (S 197) at the vision phase's batch,
+# at the allreduce example's 28/7 mnist geometry (S 17), and vit_tiny's
+# D 16 in f32 at 32/4 (S 65) and 28/7. The timed cases also run twice and
+# must agree bit for bit.
+VIT_FLASH_CASES = ((64, 6, 197, 64, "bfloat16", True),
+                   (64, 6, 17, 64, "bfloat16", True),
+                   (8, 4, 65, 16, "float32", False),
+                   (8, 4, 17, 16, "float32", False))
+# ViT's RMSNorm rows: every token of vit_s16_proxy's batch (64 x 197) and
+# the CLS rows the final norm takes (64), at D 384
+VIT_RMS_CASES = ((64 * 197, 384), (64, 384))
 # the bf16 flash kernels' symbols, by source, whose SASS must hold HGMMA
 # (wgmma)
 TC_KERNELS = {"flash_fwd.cu": ("flash_fwd_tc",),
@@ -1194,6 +1242,35 @@ def _hold_all(name: str, results: list[dict]) -> None:
                    + ", ".join(f"{r['dtype']} {r['shape']}" for r in bad))
 
 
+def _vit_kernel_cases(add, peaks) -> None:
+    """K1-K3 at ViT's attention shapes (VIT_FLASH_CASES: non-causal, no
+    GQA group) and K4 at its rows (VIT_RMS_CASES), held as the other cases
+    are; the timed ones with their ms, SDPA's and the bound, K1-K3 run
+    twice and bit for bit. None of them is a kernel's summary entry."""
+    import torch
+
+    flush = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size
+                        // 4, device="cuda")
+    for b, h, s, d, dtype_name, timed_case in VIT_FLASH_CASES:
+        dq, dkv, fwd = _flash_bwd_case(b, h, h, s, d, False, dtype_name,
+                                       "bshd", peaks, timed_case=timed_case)
+        if fwd is None:
+            fwd = _flash_case(b, h, h, s, d, False,
+                              getattr(torch, dtype_name), peaks, 0)
+        for name, r in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
+                        ("flash_bwd_dkv", dkv)):
+            r["summary"] = False
+            r["shape"] = f"ViT {r['shape']}"
+            add(name, r)
+        torch.cuda.empty_cache()
+    for rows, d in VIT_RMS_CASES:
+        r = _rms_case(rows, d, torch.bfloat16, peaks, 100, flush)
+        r["summary"] = False
+        r["shape"] = f"ViT {r['shape']}"
+        add("rmsnorm_fwd", r)
+    del flush
+
+
 def phase_kernels(peaks) -> dict[str, dict]:
     """Every kernel at every listed shape and dtype. Returns, per kernel,
     its timed bf16 summary entry (serving's largest shape for K1 and K4,
@@ -1260,6 +1337,7 @@ def phase_kernels(peaks) -> dict[str, dict]:
         if fwd is not None:
             add(FLASH_FWD.name, fwd)
         torch.cuda.empty_cache()
+    _vit_kernel_cases(add, peaks)
     summary = {}
     for name, results in cases.items():
         _hold_all(name, results)
@@ -4184,12 +4262,527 @@ def phase_pipeline(smi: str, peaks) -> dict[str, dict[str, int]]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: speculative decoding through the generate demo
+# ---------------------------------------------------------------------------
+
+# `python -m tony_tpu_torch.examples.generate_demo` in this process at full
+# width: the target, the draft (both vocab 32000), gamma, batch, prompt and
+# new tokens; an MoE target at no-drop capacity with fewer new tokens
+SPEC_TARGET, SPEC_DRAFT, SPEC_MOE_TARGET = (
+    "llama3_1b_proxy", "bench_350m", MOE_CONFIG)
+SPEC_GAMMA, SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_MOE_NEW = 4, 4, 128, \
+    64, 32
+
+
+def _spec_launches(cfg, dcfg, rounds: int, batch: int, prompt: int,
+                   gamma: int, int8_target: bool) -> dict[str, int]:
+    """The kernel launches of one `speculative_generate`: K1 in each
+    prefill's layers; K4 twice a layer and once for the final norm in each
+    prefill and each window (gamma + 1 draft windows and one target window
+    a round); K5 (int8 target) in each product of at most KERNEL_MAX_ROWS
+    rows: the prefill's LM head on its last rows, the windows' where
+    batch * (gamma + 1) is small enough."""
+    from tony_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
+
+    def k4(c):
+        return 2 * c.n_layers + 1
+
+    def k5(rows: int, head_rows: int) -> int:
+        if not int8_target:
+            return 0
+        return (cfg.n_layers * 7 * (rows <= KERNEL_MAX_ROWS)
+                + (head_rows <= KERNEL_MAX_ROWS))
+
+    window = batch * (gamma + 1)
+    return {"flash_fwd": cfg.n_layers + dcfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "rmsnorm_fwd": k4(cfg) + k4(dcfg)
+            + rounds * ((gamma + 1) * k4(dcfg) + k4(cfg)),
+            "int8_matmul": k5(batch * prompt, batch)
+            + rounds * k5(window, window)}
+
+
+def _target_windows(rerun, gamma: int) -> tuple:
+    """`rerun()` (a `speculative_generate` call) once more with every
+    target window's (lens, tokens, logits) kept: the windows of gamma + 1
+    tokens (a draft step's window has one). Returns (its stream, the
+    windows in round order)."""
+    from tony_tpu_torch.models import speculative
+
+    windows: list = []
+    plain = speculative.window_logits
+
+    def kept(params, config, cache, tokens, lens):
+        logits, cache = plain(params, config, cache, tokens, lens)
+        if tokens.shape[1] == gamma + 1:
+            windows.append((lens.clone(), tokens.clone(), logits.clone()))
+        return logits, cache
+
+    speculative.window_logits = kept
+    try:
+        stream = rerun()
+    finally:
+        speculative.window_logits = plain
+    return stream, windows
+
+
+def _decode_logits(params, cfg, prompt, stream, upto: int,
+                   quant_cache: bool) -> list:
+    """`generate`'s own path on the prompt and `stream` (prefill, then a
+    decode step per token): element j is the logits (B, V) that pick
+    token j, for j <= upto."""
+    import torch
+
+    from tony_tpu_torch.models.generate import decode_step, prefill
+
+    p, n = prompt.shape[1], stream.shape[1]
+    with torch.inference_mode():
+        logits, cache = prefill(params, prompt, cfg, p + n,
+                                quant_cache=quant_cache)
+        decoded = [logits]
+        for t in range(upto):
+            logits, cache = decode_step(params, cfg, cache, stream[:, t],
+                                        p + t)
+            decoded.append(logits)
+    return decoded
+
+
+def _hold_stream(label: str, got, want, rerun, params, cfg, prompt,
+                 gamma: int, quant_cache: bool, exact: bool) -> int:
+    """The speculative stream `got` against greedy `generate`'s `want`:
+    token for token when `exact` (f32). Else a row may part from it at
+    token j only where the target window that emitted j (kept from a
+    rerun of `rerun()`, which must give the same stream) saw greedy's
+    prefix, emitted its own argmax b there, and flipped the pair against
+    the decode step's: with a = greedy's token (the decode step's argmax)
+    and m = dec[a] - dec[b] its margin, m < |(win[a] - win[b]) - m|. The
+    largest |win - dec| over the vocabulary is printed beside it. Returns
+    the rows that parted."""
+    parts = {}
+    for row in range(got.shape[0]):
+        diff = (got[row] != want[row]).nonzero()
+        if len(diff):
+            parts[row] = int(diff[0])
+    for row, j in parts.items():
+        check(not exact and j > 0, f"spec {label}: row {row} parts from "
+              f"greedy generate at token {j}")
+    if not parts:
+        return 0
+    again, windows = _target_windows(rerun, gamma)
+    check(bool((again == got).all()), f"spec {label}: a rerun's stream is "
+          "not the first run's")
+    decoded = _decode_logits(params, cfg, prompt, want, max(parts.values()),
+                             quant_cache)
+    p = prompt.shape[1]
+    for row, j in parts.items():
+        a, b = int(want[row, j]), int(got[row, j])
+        at = p + j - 1                  # the position whose row picks j
+        lens, tokens, logits = [w for w in windows
+                                if int(w[0][row]) <= at][-1]
+        i = at - int(lens[row])
+        check(0 <= i <= gamma, f"spec {label}: row {row} token {j} lies "
+              f"outside its window (row {i})")
+        seen = tokens[row, :i + 1]
+        check(bool((seen == want[row, j - 1 - i:j]).all()),
+              f"spec {label}: row {row}'s window for token {j} saw "
+              f"{seen.tolist()}, not greedy's prefix")
+        win, dec = logits[row, i].float(), decoded[j][row].float()
+        check(int(win.argmax()) == b, f"spec {label}: row {row} emitted "
+              f"{b} at token {j}, not its window's argmax "
+              f"{int(win.argmax())}")
+        check(int(dec.argmax()) == a, f"spec {label}: row {row}'s decode "
+              f"step picks {int(dec.argmax())} at token {j}, not greedy's "
+              f"{a}")
+        margin = float(dec[a] - dec[b])
+        flip = abs(float(win[a] - win[b]) - margin)
+        log(f"spec {label}: row {row} parts from greedy generate at token "
+            f"{j} ({a} -> {b}): decode-step margin dec[a] - dec[b] "
+            f"{margin:.4e}, the window's shift of that pair {flip:.4e}; "
+            f"largest |window - decode-step| logit over the vocabulary "
+            f"{float((win - dec).abs().max()):.4e}")
+        check(margin < flip, f"spec {label}: row {row} parts at token {j} "
+              f"with a margin {margin} not below the window's shift {flip}")
+    return len(parts)
+
+
+def _spec_run(label: str, flags: list[str], new: int, exact: bool,
+              quant_cache: bool) -> dict[str, int]:
+    """One demo run (`generate_demo.run`) with `flags`, its launches exact
+    for its round count, its stream held against greedy `generate` on the
+    same weights; then both timed warm. Returns the demo's launches."""
+    import io
+
+    import torch
+
+    from tony_tpu_torch.examples import generate_demo
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.models.speculative import speculative_generate
+    from tony_tpu_torch.ops import cuda_lib
+
+    argv = ["--batch-size", str(SPEC_BATCH), "--prompt-len",
+            str(SPEC_PROMPT), "--max-new", str(new), "--gamma",
+            str(SPEC_GAMMA), *flags]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with contextlib.redirect_stdout(out):
+        r = generate_demo.run(argv)
+    torch.cuda.synchronize()
+    got_launches = cuda_lib.launches()
+    check("GENERATE_OK" in out.getvalue(), f"spec {label}: no GENERATE_OK")
+    cfg, dcfg, stats = r["config"], r["draft_config"], r["stats"]
+    rounds = stats["rounds"]
+    want = _spec_launches(cfg, dcfg, rounds, SPEC_BATCH, SPEC_PROMPT,
+                          SPEC_GAMMA, "--quant" in flags)
+    check(got_launches == want, f"spec {label}: launches {got_launches} "
+          f"!= {want} for {rounds} rounds")
+    params, prompt = r["params"], r["prompt"]
+    greedy = generate(params, cfg, prompt, new, quant_cache=quant_cache)
+    parted = _hold_stream(
+        label, r["tokens"], greedy, lambda: speculative_generate(
+            params, r["draft_params"], cfg, dcfg, prompt, new,
+            gamma=SPEC_GAMMA, quant_cache=quant_cache),
+        params, cfg, prompt, SPEC_GAMMA, quant_cache, exact)
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    again: dict = {}
+    spec_s = timed_call(lambda: speculative_generate(
+        params, r["draft_params"], cfg, dcfg, prompt, new, gamma=SPEC_GAMMA,
+        quant_cache=quant_cache, stats=again))
+    greedy_s = timed_call(lambda: generate(params, cfg, prompt, new,
+                                           quant_cache=quant_cache))
+    tokens = SPEC_BATCH * new
+    log(f"spec {label}: {rounds} rounds, {stats['accepted']} drafted "
+        f"tokens accepted ({stats['accepted'] / rounds / SPEC_BATCH:.3f} a "
+        f"row a round, gamma {SPEC_GAMMA}); rows parted from greedy "
+        f"{parted}/{SPEC_BATCH}; launches {got_launches}; warm: "
+        f"{spec_s:.4f} s ({1e3 * spec_s / again['rounds']:.2f} ms a round, "
+        f"{tokens / spec_s:.1f} tokens/s) against greedy generate's "
+        f"{greedy_s:.4f} s ({tokens / greedy_s:.1f} tokens/s)")
+    del r, params, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got_launches
+
+
+def _spec_self_draft() -> dict[str, int]:
+    """The target as its own draft (the demo's weights and prompt): every
+    drafted token a window agrees with is accepted, so few rounds; the
+    stream held against greedy `generate`. Returns its launches."""
+    import io
+
+    import torch
+
+    from tony_tpu_torch.examples import generate_demo
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.models.speculative import speculative_generate
+    from tony_tpu_torch.ops import cuda_lib
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        r = generate_demo.run(["--config", SPEC_TARGET, "--batch-size",
+                               str(SPEC_BATCH), "--prompt-len",
+                               str(SPEC_PROMPT), "--max-new", "1"])
+    params, cfg, prompt = r["params"], r["config"], r["prompt"]
+    stats: dict = {}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.monotonic()
+    got = speculative_generate(params, params, cfg, cfg, prompt, SPEC_NEW,
+                               gamma=SPEC_GAMMA, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = cuda_lib.launches()
+    want = _spec_launches(cfg, cfg, stats["rounds"], SPEC_BATCH,
+                          SPEC_PROMPT, SPEC_GAMMA, False)
+    check(launches == want, f"spec self-draft: launches {launches} != "
+          f"{want}")
+    greedy = generate(params, cfg, prompt, SPEC_NEW)
+    parted = _hold_stream(
+        "self-draft", got, greedy, lambda: speculative_generate(
+            params, params, cfg, cfg, prompt, SPEC_NEW, gamma=SPEC_GAMMA),
+        params, cfg, prompt, SPEC_GAMMA, False, exact=False)
+    least = -(-(SPEC_NEW - 1) // (SPEC_GAMMA + 1))
+    log(f"spec self-draft ({SPEC_TARGET} as its own draft): "
+        f"{stats['rounds']} rounds (the least possible {least}), "
+        f"{stats['accepted']} drafted tokens accepted "
+        f"({stats['accepted'] / stats['rounds'] / SPEC_BATCH:.3f} a row a "
+        f"round); rows parted {parted}/{SPEC_BATCH}; {wall:.4f} s "
+        f"({1e3 * wall / stats['rounds']:.2f} ms a round, "
+        f"{SPEC_BATCH * SPEC_NEW / wall:.1f} tokens/s)")
+    check(stats["rounds"] <= 2 * least, f"spec self-draft took "
+          f"{stats['rounds']} rounds for a least of {least}")
+    del r, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _spec_tiny_f32() -> None:
+    """tiny in f32 on the card (a one-layer draft): every stream token for
+    token greedy `generate`'s, for gamma 1, 3 and 4 and the int8 cache."""
+    import torch
+
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.models.llama import get_config, llama_init
+    from tony_tpu_torch.models.speculative import speculative_generate
+
+    cfg, dcfg = get_config("tiny"), get_config("tiny", n_layers=1)
+    g = torch.Generator(device="cuda")
+    params = llama_init(cfg, g.manual_seed(0))
+    draft = llama_init(dcfg, g.manual_seed(7))
+    prompt = torch.randint(0, cfg.vocab_size, (3, 8), generator=g,
+                           device="cuda")
+    for gamma, quant_cache in ((1, False), (3, False), (4, False),
+                               (3, True)):
+        got = speculative_generate(params, draft, cfg, dcfg, prompt, 24,
+                                   gamma=gamma, quant_cache=quant_cache)
+        want = generate(params, cfg, prompt, 24, quant_cache=quant_cache)
+        _hold_stream(f"tiny f32 gamma {gamma}"
+                     f"{' int8 cache' if quant_cache else ''}", got, want,
+                     None, params, cfg, prompt, gamma, quant_cache,
+                     exact=True)
+    log("spec: tiny f32 streams (gamma 1, 3, 4; the int8 cache) token for "
+        "token greedy generate's on the card")
+
+
+def phase_spec() -> dict[str, int]:
+    """Speculative decoding through the generate demo at full width (a
+    random draft, the target as its own draft, int8 weights and cache, an
+    MoE target), each stream held against greedy `generate` and each
+    run's launches exact for its rounds; tiny in f32 token for token.
+    Returns the launches of the four full-width runs together."""
+    t0 = time.monotonic()
+    demo = ["--config", SPEC_TARGET, "--draft-config", SPEC_DRAFT]
+    runs = [
+        _spec_run(f"{SPEC_TARGET} + {SPEC_DRAFT} draft", demo, SPEC_NEW,
+                  exact=False, quant_cache=False),
+        _spec_self_draft(),
+        _spec_run(f"{SPEC_TARGET} int8 + int8 cache",
+                  demo + ["--quant", "int8", "--quant-cache"], SPEC_NEW,
+                  exact=False, quant_cache=True),
+        _spec_run(f"{SPEC_MOE_TARGET} (no-drop) + {SPEC_DRAFT} draft",
+                  ["--config", SPEC_MOE_TARGET, "--draft-config",
+                   SPEC_DRAFT], SPEC_MOE_NEW, exact=False,
+                  quant_cache=False)]
+    _spec_tiny_f32()
+    total = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
+    log(f"spec: phase done in {time.monotonic() - t0:.1f} s; launches "
+        f"{total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the image zoo and the small models through their entry points
+# ---------------------------------------------------------------------------
+
+# train_allreduce through its entry point on an NCCL world of one (one
+# worker in CLUSTER_SPEC, a 1-rank fsdp mesh): (model, preset), each at the
+# example's mnist geometry, per-process batch and ALLREDUCE_STEPS steps
+ALLREDUCE_RUNS = (("vit", "vit_s16_proxy"), ("resnet", "resnet50_proxy"))
+ALLREDUCE_STEPS, ALLREDUCE_BATCH = 10, 32
+# the Trainer on vit_s16_proxy at its own 224/16 geometry
+VIT_TRAIN_BATCH, VIT_TRAIN_STEPS = 64, 6
+# the tiny f32 models' forward on the card against the CPU's
+VISION_F32_TOL = 2e-5
+
+
+def _vit_step_launches(n_layers: int) -> dict[str, int]:
+    """One ViT training step (no remat): per layer K1 once, K2 and K3 once
+    and K4 twice; the CLS rows' final norm once."""
+    return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 2 * n_layers + 1,
+            "int8_matmul": 0}
+
+
+def _allreduce_entry(model: str, preset: str) -> dict[str, int]:
+    """`python -m tony_tpu_torch.examples.train_allreduce` on an NCCL world
+    of one: its rendezvous from CLUSTER_SPEC, the nccl group and mesh
+    logged, no gloo, a finite final loss, its own count of its launches
+    exact. Returns that count."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               CLUSTER_SPEC=json.dumps({"worker": [f"127.0.0.1:{port}"]}),
+               TASK_INDEX="0", TPU_MESH_SHAPE="1", TPU_MESH_AXES="fsdp")
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.examples.train_allreduce",
+         "--model", model, "--config", preset, "--steps",
+         str(ALLREDUCE_STEPS), "--batch-size", str(ALLREDUCE_BATCH)],
+        capture_output=True, text=True, env=env, timeout=600)
+    wall = time.monotonic() - t0
+    err = out.stderr
+    check(out.returncode == 0, f"train_allreduce {model} exit "
+          f"{out.returncode}: {err[-3000:]}")
+    for needle in ("allreduce rendezvous: 127.0.0.1", "init_process_group("
+                   "nccl", "mesh: {'fsdp': 1}"):
+        check(needle in err, f"train_allreduce {model} never logged "
+                             f"{needle!r}")
+    check("gloo" not in err, "a gloo group on the card")
+    final = out.stdout.strip().splitlines()[-1]
+    check(final.startswith("final loss ") and math.isfinite(
+        float(final.split()[2])), f"train_allreduce {model}: {final!r}")
+    launches = json.loads(re.search(r"kernel launches (\{.*\})",
+                                    err).group(1))
+    if model == "vit":
+        from tony_tpu_torch.models.vit import get_config
+        want = {k: ALLREDUCE_STEPS * v for k, v in _vit_step_launches(
+            get_config(preset).n_layers).items()}
+    else:
+        want = dict.fromkeys(_vit_step_launches(1), 0)
+    check(launches == want, f"train_allreduce {model} launches {launches} "
+          f"!= {want}")
+    losses = re.findall(r"step (\d+) loss (\S+)", err)
+    log(f"vision: train_allreduce --model {model} --config {preset} "
+        f"(28 x 28 x 1, batch {ALLREDUCE_BATCH}) on an NCCL world of one: "
+        f"{final}; losses {losses}; launches {launches}; subprocess wall "
+        f"{wall:.1f} s")
+    return launches
+
+
+def _vit_trainer() -> dict[str, int]:
+    """The Trainer on vit_s16_proxy at 224/16 (S 197), B 64, on numpy-seeded
+    images: exact launches every step, finite losses, the step time,
+    images/s and peak memory. Returns its launches."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.models.vit import get_config, vit_init, vit_loss
+    from tony_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("vit_s16_proxy")
+    rng = np.random.default_rng(0)
+    side = cfg.image_size
+    batches = [{"images": rng.standard_normal(
+                    (VIT_TRAIN_BATCH, side, side, cfg.in_channels),
+                    dtype=np.float32),
+                "labels": rng.integers(0, cfg.num_classes, VIT_TRAIN_BATCH,
+                                       dtype=np.int32)} for _ in range(2)]
+    trainer = Trainer(
+        partial(vit_loss, config=cfg), partial(vit_init, cfg),
+        (batches[i % 2] for i in range(VIT_TRAIN_STEPS)),
+        TrainerConfig(num_steps=VIT_TRAIN_STEPS, log_every=1,
+                      learning_rate=1e-3, warmup_steps=2), device="cuda")
+    trainer.setup()
+    want = _vit_step_launches(cfg.n_layers)
+    steps: list = []
+    trainer.train_step = _count_calls(trainer.train_step, want, steps)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [e["loss"] for e in trainer.metrics_history]
+    check(len(steps) == VIT_TRAIN_STEPS and all(s == want for s in steps),
+          f"vit_s16_proxy step launches {steps} != {want} each")
+    check(all(math.isfinite(x) for x in losses), f"vit losses {losses}")
+    step_s = _step_seconds([e["elapsed_s"] for e in trainer.metrics_history])
+    log(f"vision: Trainer on vit_s16_proxy 224/16 (S {cfg.seq}), B "
+        f"{VIT_TRAIN_BATCH}, {VIT_TRAIN_STEPS} steps: losses "
+        f"{[f'{x:.6g}' for x in losses]}; step {step_s:.4f} s (median of "
+        f"steps 3-{VIT_TRAIN_STEPS}), {VIT_TRAIN_BATCH / step_s:.1f} "
+        f"images/s; peak {peak:.3f} GiB; launches {want} every step")
+    total = {k: VIT_TRAIN_STEPS * v for k, v in want.items()}
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _small_entries() -> None:
+    """mnist_distributed and linreg_dmlc through their entry points on the
+    card, each with its own gate."""
+    import io
+
+    from tony_tpu_torch.examples import linreg_dmlc, mnist_distributed
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mnist_distributed.main([])
+    check(rc == 0, f"mnist_distributed exited {rc}: {out.getvalue()}")
+    log(f"vision: mnist_distributed (200 steps, batch 128): "
+        f"{out.getvalue().strip().splitlines()[-1]}")
+    dmlc = {"DMLC_ROLE": "worker", "DMLC_PS_ROOT_URI": "127.0.0.1",
+            "DMLC_PS_ROOT_PORT": str(_free_port()), "DMLC_NUM_SERVER": "1",
+            "DMLC_NUM_WORKER": "1"}
+    old = {k: os.environ.get(k) for k in dmlc}
+    os.environ.update(dmlc)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = linreg_dmlc.main([])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"linreg_dmlc exited {rc}: {out.getvalue()}")
+    log(f"vision: linreg_dmlc: {out.getvalue().strip().splitlines()[-1]}")
+
+
+def _tiny_f32_card_vs_cpu() -> None:
+    """resnet_tiny and vit_tiny in f32: the card's logits (cuDNN in IEEE
+    f32, K1 and K4 in f32) against the CPU's on the same weights and
+    images."""
+    import torch
+
+    from tony_tpu_torch.models import resnet, vit
+    from tony_tpu_torch.train.optim import tree_map
+
+    g = torch.Generator().manual_seed(0)
+    for name, cfg, init, forward in (
+            ("resnet_tiny", resnet.get_resnet_config("resnet_tiny"),
+             resnet.resnet_init, resnet.resnet_forward),
+            ("vit_tiny", vit.get_config("vit_tiny"), vit.vit_init,
+             vit.vit_forward)):
+        params = init(cfg, g)
+        if name == "vit_tiny":      # its zero head would give zero logits
+            params["head_w"] = torch.randn(params["head_w"].shape,
+                                           generator=g) * 0.1
+        side = 28 if name == "resnet_tiny" else cfg.image_size
+        chans = cfg.in_channels
+        images = torch.randn((8, side, side, chans), generator=g)
+        with torch.no_grad():
+            want = forward(params, images, cfg)
+            got = forward(tree_map(lambda t: t.cuda(), params),
+                          images.cuda(), cfg)
+        err, ok = max_err(got.cpu(), want, VISION_F32_TOL)
+        log(f"vision: {name} f32 logits on the card against the CPU: max "
+            f"abs err {err:.3e} (tol {VISION_F32_TOL})")
+        check(ok, f"{name} f32 on the card differs from the CPU by {err}")
+
+
+def phase_vision() -> dict[str, int]:
+    """The image zoo and the small models through their entry points: ViT
+    and ResNet through train_allreduce on an NCCL world of one, the
+    Trainer on vit_s16_proxy at 224/16, mnist_distributed and linreg_dmlc
+    with their gates, and the tiny f32 models' card forward against the
+    CPU's. Returns the launches of the ViT training runs together."""
+    t0 = time.monotonic()
+    runs = [_allreduce_entry(model, preset)
+            for model, preset in ALLREDUCE_RUNS]
+    runs.append(_vit_trainer())
+    _small_entries()
+    _tiny_f32_card_vs_cpu()
+    total = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
+    log(f"vision: phase done in {time.monotonic() - t0:.1f} s; launches "
+        f"{total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline",
+                            "pipeline,spec,vision",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -4247,6 +4840,10 @@ def main(argv=None) -> int:
                 phase_parallel(smi)
         if "pipeline" in phases:
             launches.update(phase_pipeline(smi, peaks))
+        if "spec" in phases:
+            launches["spec"] = phase_spec()
+        if "vision" in phases:
+            launches["vision"] = phase_vision()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -363,6 +363,75 @@ def test_port_trainer_resumes_a_jax_checkpoint(jax_run, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the image zoo's Trainer checkpoints, both ways
+# ---------------------------------------------------------------------------
+
+ZOO_BATCH = 8
+# train_allreduce's geometry: the synthetic stream's 1-channel 28 x 28
+ZOO_MODELS = {"resnet_tiny": dict(in_channels=1),
+              "vit_tiny": dict(image_size=28, patch_size=7, in_channels=1)}
+
+
+def _zoo(name):
+    """(JAX loss, JAX init tree (numpy), port loss, port config) of one
+    zoo preset at the allreduce example's geometry."""
+    from tony_tpu.models import resnet as jresnet
+    from tony_tpu.models import vit as jvit
+    from tony_tpu_torch.models import resnet, vit
+
+    over = ZOO_MODELS[name]
+    if name.startswith("resnet"):
+        jcfg = jresnet.get_resnet_config(name, **over)
+        cfg = resnet.get_resnet_config(name, **over)
+        jinit, jloss, loss = jresnet.resnet_init, jresnet.resnet_loss, \
+            resnet.resnet_loss
+    else:
+        jcfg, cfg = jvit.get_config(name, **over), vit.get_config(name,
+                                                                 **over)
+        jinit, jloss, loss = jvit.vit_init, jvit.vit_loss, vit.vit_loss
+    jp = jax.device_get(jinit(jcfg, jax.random.PRNGKey(0)))
+    return partial(jloss, config=jcfg), jp, partial(loss, config=cfg)
+
+
+@pytest.mark.parametrize("name", list(ZOO_MODELS))
+def test_zoo_trainer_checkpoints_exchange_with_jax(tmp_path, name):
+    """The port's Trainer and the JAX Trainer (its 8-device CPU mesh)
+    train the same zoo preset 2 steps from the same init on the same
+    `synthetic_mnist` batches, each checkpointing: the JAX package's
+    `restore_checkpoint` reads the port's (f32 leaves; ResNet's list of
+    stages of blocks) with and without a template, every leaf bit for
+    bit; the port reads the JAX one into its own state, every leaf bit
+    for bit; and the two Trainers' losses agree within 5e-4."""
+    from tony_tpu_torch.models.convert import tree_from_jax
+
+    jloss, jp, loss = _zoo(name)
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    t = trainer.Trainer(
+        loss, lambda _g: tree_from_jax(jp, "cpu"),
+        data.synthetic_mnist(ZOO_BATCH),
+        trainer.TrainerConfig(num_steps=2, checkpoint_dir=port_dir,
+                              **TRAIN), device="cpu")
+    t.run()
+    jt = JaxTrainer(jloss, lambda _key: jax.tree.map(jnp.asarray, jp),
+                    jdata.synthetic_mnist(ZOO_BATCH),
+                    JaxTrainerConfig(num_steps=2, checkpoint_dir=jax_dir,
+                                     **TRAIN))
+    jt.run()
+    np.testing.assert_allclose([m["loss"] for m in t.metrics_history],
+                               [m["loss"] for m in jt.metrics_history],
+                               rtol=LOSS_TOL)
+    jstate = jax.device_get({"params": jt.params,
+                             "opt_state": jt.opt_state, "step": 2})
+    port_state = t._state()
+    for restored in (jckpt.restore_checkpoint(port_dir, 2),
+                     jckpt.restore_checkpoint(port_dir, 2, jstate)):
+        assert jax.tree.structure(restored) == jax.tree.structure(jstate)
+        _assert_same_leaves(port_state, restored)
+    got = ckpt.restore_checkpoint(jax_dir, 2, template=t._state())
+    _assert_same_leaves(got, jstate)
+
+
+# ---------------------------------------------------------------------------
 # sharded checkpoints of a 2-rank gloo world
 # ---------------------------------------------------------------------------
 

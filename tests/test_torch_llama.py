@@ -19,8 +19,12 @@ import jax.numpy as jnp
 import torch
 
 from tony_tpu.models import llama as jllama
-from tony_tpu_torch.models import convert, generate, llama
+from tony_tpu_torch.models import convert, llama
 from tony_tpu_torch.models.convert import params_from_jax, tensor_from_numpy
+
+# the package exports the function `generate` (as the JAX package does);
+# the module comes by its full name
+generate = importlib.import_module("tony_tpu_torch.models.generate")
 
 # tony_tpu.models re-exports the function `generate` under the module's name
 jgen = importlib.import_module("tony_tpu.models.generate")

@@ -38,7 +38,7 @@ from tony_tpu.train import checkpoint as jckpt
 from tony_tpu.train import data as jdata
 from tony_tpu.train.trainer import Trainer as JaxTrainer
 from tony_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
-from tony_tpu_torch.models import convert, generate, llama, moe, quant
+from tony_tpu_torch.models import convert, llama, moe, quant
 from tony_tpu_torch.models.convert import params_from_jax
 from tony_tpu_torch.models.llama import layer_params
 from tony_tpu_torch.ops.int8_matmul import int8_matmul
@@ -48,6 +48,10 @@ from tony_tpu_torch.train import checkpoint as ckpt
 from tony_tpu_torch.train import data, optim, trainer
 from tony_tpu_torch.train.__main__ import build_arg_parser as train_parser
 from tony_tpu_torch.train.__main__ import build_trainer
+
+# the package exports the function `generate` (as the JAX package does);
+# the module comes by its full name
+generate = importlib.import_module("tony_tpu_torch.models.generate")
 
 jgen = importlib.import_module("tony_tpu.models.generate")
 

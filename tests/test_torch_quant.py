@@ -27,9 +27,13 @@ import torch
 
 from tony_tpu.models import llama as jllama
 from tony_tpu.models import quant as jquant
-from tony_tpu_torch.models import generate, llama, quant
+from tony_tpu_torch.models import llama, quant
 from tony_tpu_torch.models.convert import params_from_jax, tensor_from_numpy
 from tony_tpu_torch.ops import int8_matmul as k5
+
+# the package exports the function `generate` (as the JAX package does);
+# the module comes by its full name
+generate = importlib.import_module("tony_tpu_torch.models.generate")
 
 jgen = importlib.import_module("tony_tpu.models.generate")
 

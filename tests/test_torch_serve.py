@@ -370,7 +370,11 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "train.metrics", "train.native_data", "storage.store",
                    "utils.compilecache", "observability.profiler_server",
                    "parallel", "parallel.mesh", "parallel.distributed",
-                   "parallel.sharding", "parallel.ring", "parallel.ulysses"):
+                   "parallel.sharding", "parallel.ring", "parallel.ulysses",
+                   "models.speculative", "models.vit", "models.resnet",
+                   "models.mnist", "models.linear", "examples",
+                   "examples.generate_demo", "examples.train_allreduce",
+                   "examples.mnist_distributed", "examples.linreg_dmlc"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -211,6 +211,28 @@ def test_stacked_weight_gradients_land_in_one_buffer():
                                    atol=1e-6, rtol=1e-6, err_msg=name)
 
 
+def test_stacked_weights_that_are_not_leaves_get_their_gradients():
+    """A stack that is not a leaf (a weight gathered whole for a
+    data-parallel loss) takes its layers' gradients through autograd:
+    the leaf it came from gets what the routed leaves get."""
+    cfg = llama.get_config("tiny")
+    toks = torch.from_numpy(_tokens(1, 9, 6))
+    grads = []
+    for gathered in (False, True):
+        params = llama.llama_init(cfg, torch.Generator().manual_seed(1))
+        for leaf in optim.tree_leaves(params):
+            leaf.requires_grad_(True)
+        used = {k: ({n: w * 1.0 for n, w in v.items()}
+                    if gathered and k == "layers" else v)
+                for k, v in params.items()}
+        llama.llama_loss(used, {"tokens": toks}, cfg).backward()
+        grads.append({n: w.grad for n, w in params["layers"].items()})
+    for name, g in grads[0].items():
+        assert grads[1][name] is not None, name
+        np.testing.assert_allclose(grads[1][name].numpy(), g.numpy(),
+                                   atol=1e-6, rtol=1e-6, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------

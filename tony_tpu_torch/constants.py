@@ -18,6 +18,8 @@ EXIT_PREEMPTED = 12
 # -- the task identity and the AM's address (rendered into every task) ----
 JOB_NAME = "JOB_NAME"                # task type, e.g. "worker", "serving"
 TASK_INDEX = "TASK_INDEX"            # index within the task type
+CLUSTER_SPEC = "CLUSTER_SPEC"        # JSON {jobtype: ["host:port", ...]}
+WORKER_JOB_NAME = "worker"           # the workers' jobtype
 IS_CHIEF = "IS_CHIEF"                # "true" if this task is the chief
 TB_PORT = "TB_PORT"                  # TensorBoard port, chief only
 AM_HOST = "AM_HOST"

@@ -18,6 +18,11 @@ banks in place of the dense MLP.
 
 `empty_params` allocates the parameter tree on a device, for a restore
 (`train/checkpoint.restore_params`) to fill in place.
+
+The image zoo and the small models (`vit_init`, `resnet_init` with its
+list of stages of blocks, `mnist_init`, `linreg_init`) convert through
+`tree_from_jax`: the same nested dicts and lists, leaf by leaf, checked
+against a port tree of the same model when one is given.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from tony_tpu_torch.models.quant import is_qtensor
 
 def tensor_from_numpy(a: Any, device: torch.device | str) -> torch.Tensor:
     """One leaf: same values, same dtype (bf16 by its bits)."""
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)   # a 0-d leaf stays 0-d
     if not a.flags.writeable:       # jax.device_get hands out read-only
         a = a.copy()
     if a.dtype.name == "bfloat16":
@@ -123,3 +129,36 @@ def empty_params(config: LlamaConfig,
         "final_norm": empty("final_norm"),
         "output": empty("output"),
     }
+
+
+def tree_from_jax(tree: Any, device: torch.device | str = "cuda",
+                  like: Any = None) -> Any:
+    """A tree of numpy leaves in nested dicts and lists (ViT, ResNet with
+    its list of stages of blocks, the MNIST MLP, linear regression) ->
+    the same tree of tensors on `device`, names, shapes, layouts and
+    dtypes kept (bf16 by its bits). With `like` (a port tree of the same
+    model, e.g. its init) the keys, list lengths, shapes and dtypes are
+    checked leaf by leaf."""
+    device = resolve_device(str(device))
+
+    def convert(node, ref, path: str):
+        if isinstance(node, dict):
+            if ref is not None and set(ref) != set(node):
+                raise ValueError(f"{path or 'tree'}: keys {sorted(node)}, "
+                                 f"the port's {sorted(ref)}")
+            return {k: convert(v, None if ref is None else ref[k],
+                               f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            if ref is not None and len(ref) != len(node):
+                raise ValueError(f"{path}: {len(node)} entries, the "
+                                 f"port's {len(ref)}")
+            return [convert(v, None if ref is None else ref[i],
+                            f"{path}/{i}") for i, v in enumerate(node)]
+        t = tensor_from_numpy(node, device)
+        if ref is not None and (tuple(t.shape) != tuple(ref.shape)
+                                or t.dtype != ref.dtype):
+            raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, the "
+                             f"port's {ref.dtype} {tuple(ref.shape)}")
+        return t
+
+    return convert(tree, like, "")

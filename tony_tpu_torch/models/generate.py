@@ -25,7 +25,8 @@ Counterpart of `tony_tpu/models/generate.py`:
   incremental decode is the training forward; below it `generate` warns
   (`_warn_moe_below_capacity`), as the JAX package does.
 
-The logits are f32 (`llama.lm_head`).
+The logits are f32 (`llama.lm_head`). `generate_text` wraps `generate` for
+a tokenizer with encode/decode, batching prompts of one length together.
 """
 
 from __future__ import annotations
@@ -286,3 +287,28 @@ def generate(params: Params, config: LlamaConfig, prompt: torch.Tensor,
                 done = done | (tok == eos_id)
             out.append(tok)
         return torch.stack(out, dim=1)
+
+
+def generate_text(params: Params, config: LlamaConfig, prompt, tokenizer,
+                  max_new_tokens: int = 64, **kwargs) -> list[str]:
+    """For a tokenizer object with encode/decode (a transformers tokenizer,
+    say); prompt: a str or a list of str. The decode path has no padding
+    mask, so prompts are grouped by length and each group generated as a
+    batch of its own: a padded shorter prompt would feed pad embeddings
+    into attention and shift its RoPE positions. The prompts go to the
+    embedding table's device; `kwargs` go to `generate`."""
+    if isinstance(prompt, str):
+        prompt = [prompt]
+    device = params["embed"].device
+    ids = [list(tokenizer.encode(t)) for t in prompt]
+    out: dict[int, list[int]] = {}
+    by_len: dict[int, list[int]] = {}
+    for i, seq in enumerate(ids):
+        by_len.setdefault(len(seq), []).append(i)
+    for idxs in by_len.values():
+        batch = torch.tensor([ids[i] for i in idxs], dtype=torch.long,
+                             device=device)
+        toks = generate(params, config, batch, max_new_tokens, **kwargs)
+        for i, row in zip(idxs, toks.tolist()):
+            out[i] = row
+    return [tokenizer.decode(out[i]) for i in range(len(ids))]

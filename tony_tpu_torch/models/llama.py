@@ -257,7 +257,10 @@ def layer_params_for_grad(params: Params) -> list[Params]:
     pipelined) is gathered whole first, as GSPMD gathers it for the JAX
     package, and each layer takes its slice of that through autograd: an
     index of the split DTensor would gather a copy per layer, and a
-    gradient preset on it would never reach the stack."""
+    gradient preset on it would never reach the stack. A stack that is
+    not a leaf (a parameter gathered whole for a data-parallel loss,
+    `sharding.gathered_local`) is unbound through autograd too: autograd
+    reads no `.grad` of it."""
     n = params["layers"]["attn_norm"].shape[0]
     layers: list[Params] = [{} for _ in range(n)]
     grad_mode = torch.is_grad_enabled()
@@ -270,6 +273,11 @@ def layer_params_for_grad(params: Params) -> list[Params]:
         if is_qtensor(w) or not (grad_mode and w.requires_grad):
             for i in range(n):
                 layers[i][name] = _layer_slice(w, i)
+            continue
+        if not w.is_leaf:
+            # one unbind, whose backward stacks the layers' gradients
+            for i, piece in enumerate(w.unbind(0)):
+                layers[i][name] = piece
             continue
         if w.grad is None:
             w.grad = torch.zeros_like(w)

@@ -39,7 +39,6 @@ import math
 
 import torch
 
-from tony_tpu_torch.models.quant import dequantize
 from tony_tpu_torch.ops.cuda_lib import Kernel, dtype_code
 from tony_tpu_torch.ops.xent import matmul_f32
 
@@ -131,6 +130,10 @@ def _dequantized_matmul(x: torch.Tensor, t: dict,
                         out_f32: bool) -> torch.Tensor:
     """A prefill's product on the card: the weight dequantized to x's
     dtype, then one library product."""
+    # imported here: the models package imports this module (its __init__
+    # loads the Llama tower), so a top-level import would be a cycle
+    from tony_tpu_torch.models.quant import dequantize
+
     if x.dtype == torch.float32:
         return x @ weight_f32(t)
     w = dequantize(t, x.dtype)
@@ -140,6 +143,8 @@ def _dequantized_matmul(x: torch.Tensor, t: dict,
 def _dequantized_bmm(x: torch.Tensor, t: dict) -> torch.Tensor:
     """A prefill's bank product on the card: the bank dequantized to x's
     dtype, then one library product."""
+    from tony_tpu_torch.models.quant import dequantize
+
     if x.dtype == torch.float32:
         return torch.bmm(x, weight_f32(t))
     return torch.bmm(x, dequantize(t, x.dtype))

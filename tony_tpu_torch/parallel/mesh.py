@@ -201,9 +201,16 @@ def plan_from_env(world: int) -> tuple[MeshPlan, int]:
 
 def mesh_from_env(device_type: Optional[str] = None) -> DeviceMesh:
     """The mesh the executor asked for (TPU_MESH_SHAPE='2,2,2' +
-    TPU_MESH_AXES='dp,fsdp,tp'), over the process group's ranks; a
-    pure-fsdp mesh over the world when unset. Multi-slice jobs
-    (TPU_NUM_SLICES > 1) lay the outermost axis across slices."""
+    TPU_MESH_AXES='dp,fsdp,tp'), over the process group's ranks, with
+    every axis it names, size-1 ones too. Multi-slice jobs
+    (TPU_NUM_SLICES > 1) lay the outermost axis across slices. Unset: a
+    1-dim fsdp mesh over the world. The default plan's other five axes
+    are of size 1, which the code reads as absent (`axis_size`,
+    `axis_index`, the placement rules), and DTensor's sharding
+    propagation enumerates strategies over every mesh dim: over all six,
+    each new shape's first op took orders of magnitude longer."""
+    if not os.environ.get(C.TPU_MESH_SHAPE, ""):
+        return make_mesh(MeshPlan({"fsdp": _world()}), device_type)
     plan, num_slices = plan_from_env(_world())
     if num_slices > 1:
         return make_hybrid_mesh(plan, num_slices, device_type)

@@ -29,6 +29,8 @@ from torch.distributed.tensor._utils import (
     compute_local_shape_and_global_offset,
 )
 
+from tony_tpu_torch.train.optim import tree_map
+
 # (logical axis, mesh axis | tuple of mesh axes | None). First match wins;
 # None = replicate. Tuples shard one logical dim over several mesh axes
 # jointly (batch over dp AND fsdp, dp major).
@@ -290,6 +292,26 @@ def sum_over_shards(local: torch.Tensor, x: DTensor) -> torch.Tensor:
         [Partial() if p.is_shard() else Replicate() for p in x.placements],
         run_check=False)
     return partial.full_tensor()
+
+
+def data_parallel_loss(loss_fn, params: Any, batch: dict) -> torch.Tensor:
+    """`loss_fn(params, batch)` (a mean over the batch's rows). With the
+    batch's leaves DTensors (a Trainer under a mesh: rows over (dp,
+    fsdp)), each rank runs `loss_fn` on its local rows with every
+    parameter whole (`gathered_local`), and the ranks' means are averaged
+    (`sum_over_shards`): the global mean, a plain tensor equal on every
+    rank, whose gradient reaches each parameter as the sum over the data
+    ranks, as GSPMD's all-reduce gives the JAX package's image models.
+    Plain tensors go straight to `loss_fn`."""
+    x = next(iter(batch.values()))
+    if not isinstance(x, DTensor):
+        return loss_fn(params, batch)
+    batch = {k: constrain(v, ("batch",) + (None,) * (v.ndim - 1))
+             for k, v in batch.items()}
+    x = next(iter(batch.values()))
+    local = loss_fn(tree_map(lambda w: gathered_local(w, x), params),
+                    {k: v.to_local() for k, v in batch.items()})
+    return sum_over_shards(local / data_shards(x), x)
 
 
 def gather_for_use(w):

@@ -5,7 +5,8 @@ Counterpart of `tony_tpu/train/data.py`:
 
 - `synthetic_tokens` is a numpy copy, bit-identical to the JAX package's
   for a given (seed, process_index): the same generator, the same draw
-  order and the same closed-form affine prefix scan.
+  order and the same closed-form affine prefix scan. So are the image
+  and regression streams, `synthetic_mnist` and `synthetic_linreg`.
 - `PrefetchIterator` keeps the JAX package's contracts (order, bounded
   depth, clean `close()`, `.leftover`, producer errors re-raised on
   `next()`, `stall_s`/`batches`). Its default transfer is
@@ -81,6 +82,40 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int,
         first = rng.integers(0, vocab_size, batch_size)
         noise = rng.integers(0, 2, (batch_size, seq_len))
         yield {"tokens": _affine_prefix_tokens(first, noise, vocab_size)}
+
+
+def synthetic_mnist(batch_size: int, seed: int = 0, process_index: int = 0
+                    ) -> Iterator[dict[str, np.ndarray]]:
+    """Class-conditional Gaussian images, learnable by the MLP: {'images':
+    (batch_size, 784) f32, 'labels': (batch_size,) int32}, bit-identical
+    to the JAX package's for a given (seed, process_index): the same
+    generators and draws, the noise drawn in f32 and added in place."""
+    rng = np.random.default_rng(seed * 7_777_777 + process_index)
+    protos = np.random.default_rng(42).normal(size=(10, 784)).astype(
+        np.float32)
+    while True:
+        labels = rng.integers(0, 10, batch_size, dtype=np.int32)
+        images = protos[labels]            # fancy index: a fresh buffer
+        images += 0.5 * rng.standard_normal((batch_size, 784),
+                                            dtype=np.float32)
+        yield {"images": images, "labels": labels}
+
+
+def synthetic_linreg(batch_size: int, num_features: int = 10, seed: int = 0,
+                     process_index: int = 0
+                     ) -> Iterator[dict[str, np.ndarray]]:
+    """{'x': (batch_size, num_features) f32, 'y': (batch_size,) f32}, y =
+    x @ w + 0.01 noise for a fixed w, bit-identical to the JAX package's
+    for a given (seed, process_index)."""
+    rng = np.random.default_rng(seed * 31_337 + process_index)
+    true_w = np.random.default_rng(7).normal(size=num_features).astype(
+        np.float32)
+    while True:
+        x = rng.standard_normal((batch_size, num_features),
+                                dtype=np.float32)
+        y = x @ true_w
+        y += 0.01 * rng.standard_normal(batch_size, dtype=np.float32)
+        yield {"x": x, "y": y}
 
 
 class DeviceBatch(dict):

@@ -43,16 +43,22 @@ ScaleByScheduleState = namedtuple("ScaleByScheduleState", ["count"])
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of nested dicts and lists (ResNet's stages of blocks),
+    in insertion order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree):
-    """`fn` over the leaves of a nested dict, keeping its keys."""
+    """`fn` over the leaves of nested dicts and lists, keeping their
+    keys and order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
