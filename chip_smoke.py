@@ -241,26 +241,51 @@ Phases (any failure exits non-zero, and the result line is not printed):
               (MSE < 0.01) through their mains; resnet_tiny and vit_tiny
               in f32: the card's logits against the CPU's at 2e-5.
 
+14. executor — the port's task executor: `python -m
+              tony_tpu_torch.executor` launched with the env the AM
+              renders into a container (`_container_env`), against the
+              recording AM stand-in (the gang barrier, heartbeats,
+              results, metric pushes), metrics every 500 ms. One NVML
+              read's cost and the monitor's whole card sample (median of
+              100). (a) A pytorch worker running `python -m
+              tony_tpu_torch.train` on llama3_1b_proxy B4 x S4096, 6
+              steps: exit 0 registered, heartbeats never silent for 2.5
+              s, the trainer's own count of its launches 6 x the train
+              phase's step, a push with TPU_UTILIZATION >= 50,
+              MAX_TPU_HBM_BYTES between its logged peak and the card's
+              memory, and the executor never holding a context (NVML's
+              process list, its /proc maps); the duty and memory series
+              printed. (b) A wedge (a context, 1 GiB, one kernel, 6
+              intervals asleep): TPU_UTILIZATION < 1 in 4 or more
+              consecutive pushes while heartbeats flow, memory >= 1 GiB.
+              (c) `python -m tony_tpu_torch.serve` as the serving task:
+              its endpoint at the SERVING_PORT the executor rendered, one
+              /v1/generate, SIGTERM to the executor: a draining
+              re-registration, the executor's exit 151 (EXIT_KILLED_BY_AM
+              & 0xFF). Each task's barrier wait and executor start ->
+              user process start, from its spans.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
 parallel slice, `--phases build,pipeline` the pipeline and ep slice,
-`--phases build,spec,vision` this slice's model zoo. The kernels phase
+`--phases build,spec,vision` the model zoo, `--phases build,executor`
+the task executor. The kernels phase
 also holds K1-K3 at ViT's attention shapes (B64 H6 S197 D64 and S17,
 non-causal, timed and bit for bit over two calls; vit_tiny's D16 in f32)
 and K4 at its rows (64 x 197 and the 64 CLS rows, D 384).
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe, parallel, pipeline, spec and vision paths together, split
-in `launches_by_path`; the orch path counts its training run, the ckpt path
+orch, moe, parallel, pipeline, spec, vision and executor paths together,
+split in `launches_by_path`; the orch path counts its training run, the ckpt path
 its runs and servers on the local and the gs:// directory, the moe path
 its two bursts and its training runs, the parallel path the mesh run's
 own count of its launches, parallel_sp the ring's and Ulysses' chunk
 launches, pipeline the one-process pipelined runs, pipeline_entry and
 ep the pipelined and the (ep, fsdp) entry-point runs' own counts, spec
 its four full-width runs, vision the ViT runs of train_allreduce (its own
-count) and of the Trainer at 224/16; the cache phase's processes are
-uncounted), then the card's name and power
+count) and of the Trainer at 224/16, executor the trainer's own count
+under the executor; the cache phase's processes are uncounted), then the card's name and power
 limit from nvidia-smi; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -2815,10 +2840,15 @@ def phase_ckpt(smi: str) -> dict[str, int]:
 
 class _AmStandIn:
     """A recording AM: a gRPC server with generic unary handlers for the
-    three methods a port task calls (register_serving_endpoint,
-    report_serving_migrated, update_metrics), speaking the port's JSON
-    codec. A call without the task token is refused UNAUTHENTICATED, as
-    the AM's interceptor refuses it."""
+    calls a port task and the port's executor make, speaking the port's
+    JSON codec. A call without the task token is refused UNAUTHENTICATED,
+    as the AM's interceptor refuses it. Every call is recorded with its
+    arrival time; `update_metrics`, `register_serving_endpoint`, results
+    and heartbeats are answered {} (heartbeats with the spec generation,
+    1). With `gang` set ({jobtype: count}) `register_worker_spec` is the
+    gang barrier: it answers the cluster spec of every registered
+    host:port once every task of the gang has registered, else no spec;
+    `get_cluster_spec` answers the same."""
 
     def __init__(self, token: str):
         from concurrent import futures
@@ -2831,9 +2861,18 @@ class _AmStandIn:
         )
         self.token = token
         self.calls: list[tuple[str, str, dict]] = []
+        self.stamps: list[float] = []
+        self.gang: dict[str, int] = {}
+        self._registered: dict[str, str] = {}
         self._lock = threading.Lock()
+        answers = {"register_worker_spec": self._register,
+                   "get_cluster_spec": lambda req: {"spec": self._spec()},
+                   "task_executor_heartbeat":
+                       lambda req: {"spec_generation": 1}}
 
         def handler(method):
+            answer = answers.get(method, lambda req: {})
+
             def unary(req, ctx):
                 meta = dict(ctx.invocation_metadata() or ())
                 if meta.get("tony-token") != self.token:
@@ -2842,7 +2881,8 @@ class _AmStandIn:
                 with self._lock:
                     self.calls.append((method, meta.get("tony-task-id", ""),
                                        req))
-                return {}
+                    self.stamps.append(time.monotonic())
+                    return answer(req)
             return grpc.unary_unary_rpc_method_handler(
                 unary, request_deserializer=_deser,
                 response_serializer=_ser)
@@ -2856,14 +2896,40 @@ class _AmStandIn:
         self.port = self.server.add_insecure_port("127.0.0.1:0")
         self.server.start()
 
+    def _spec(self):
+        """The gang's cluster spec as JSON once complete, else None
+        (holds: _lock)."""
+        spec = {job: [self._registered.get(f"{job}:{i}") for i in range(n)]
+                for job, n in self.gang.items()}
+        if not self.gang or any(None in v for v in spec.values()):
+            return None
+        return json.dumps(spec)
+
+    def _register(self, req: dict) -> dict:
+        self._registered[req["task_id"]] = req["spec"]
+        spec = self._spec()
+        return {"spec": spec, "generation": 1} if spec else {"spec": None}
+
+    def set_gang(self, gang: dict[str, int]) -> None:
+        """A new gang, with no task registered."""
+        with self._lock:
+            self.gang = dict(gang)
+            self._registered.clear()
+
     def take(self, method: str) -> list[tuple[str, dict]]:
         with self._lock:
             return [(task, req) for m, task, req in self.calls
                     if m == method]
 
+    def take_timed(self, method: str) -> list[tuple[float, str, dict]]:
+        with self._lock:
+            return [(t, task, req) for (m, task, req), t
+                    in zip(self.calls, self.stamps) if m == method]
+
     def clear(self) -> None:
         with self._lock:
             self.calls.clear()
+            self.stamps.clear()
 
     def stop(self) -> None:
         self.server.stop(grace=None)
@@ -4777,12 +4843,421 @@ def phase_vision() -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the port's task executor, against the recording AM
+# ---------------------------------------------------------------------------
+
+# the metrics interval of the phase's frozen conf, its training run's steps,
+# the wedge's sleep in intervals, and the most it may take
+EXECUTOR_INTERVAL_MS = 500
+EXECUTOR_TRAIN_STEPS = 6
+EXECUTOR_WEDGE_INTERVALS = 6
+EXECUTOR_TASK_S = 300.0
+# the wedge: a context, 1 GiB, one kernel, then EXECUTOR_WEDGE_INTERVALS
+# metrics intervals of sleep
+WEDGE_COMMAND = (
+    "import sys, time, torch\n"
+    "x = torch.empty(1 << 30, dtype=torch.uint8, device='cuda')\n"
+    "y = torch.randn(4096, 4096, device='cuda')\n"
+    "float((y @ y).sum())\n"
+    "print('WEDGED', flush=True)\n"
+    "time.sleep(float(sys.argv[1]))\n")
+
+
+def _executor_env(am: "_AmStandIn", root: str, conf_path: str, job: str,
+                  command: str) -> dict[str, str]:
+    """The env the AM's container launcher renders into an executor
+    (`_container_env` of tony_tpu/am/application_master.py), over this
+    process's own with every task variable of earlier phases removed."""
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AM_HOST", "AM_PORT", "METRICS_RPC_PORT",
+                        "JOB_NAME", "TASK_INDEX", "TONY_SECURITY_TOKEN",
+                        "TONY_TRACE_ID", "TONY_PARENT_SPAN", "TB_PORT",
+                        "IS_CHIEF", "RANK", "WORLD", "INIT_METHOD",
+                        "TONY_JAX_CACHE_DIR")}
+    env.update({
+        "JOB_NAME": job, "TASK_INDEX": "0", "TASK_NUM": "1",
+        "IS_CHIEF": "false", "SESSION_ID": "0", "AM_HOST": "127.0.0.1",
+        "AM_PORT": str(am.port), "METRICS_RPC_PORT": str(am.port),
+        "CONTAINER_ID": f"container_chip_smoke_{job}", "APP_ID":
+        "chip_smoke", "ATTEMPT_NUMBER": "0", "TASK_ATTEMPT": "0",
+        "NUM_AM_RETRIES": "0", "TONY_APP_DIR": root,
+        "TONY_CONF_PATH": conf_path,
+        "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        "TONY_TRACE_ID": "chip-smoke-executor", "TONY_PARENT_SPAN":
+        f"{job[:2].encode().hex()}" * 4, "TASK_COMMAND": command,
+        "TONY_SECURITY_TOKEN": am.token})
+    return env
+
+
+class _CardWatch(threading.Thread):
+    """Every 250 ms while a task runs: the pids NVML lists on the card,
+    and whether the executor's own process holds a CUDA context by what
+    /proc shows of it (it maps /dev/nvidia-uvm)."""
+
+    def __init__(self, reader, executor_pid: int):
+        super().__init__(daemon=True)
+        self.reader, self.pid = reader, executor_pid
+        self.nvml_pids: set[int] = set()
+        self.executor_listed = self.executor_maps_uvm = False
+        self.samples = 0
+        self._halt = threading.Event()
+
+    def run(self) -> None:
+        from tony_tpu_torch.executor.cuda_metrics import holds_context
+        while not self._halt.wait(0.25):
+            for dev in self.reader.sample():
+                self.nvml_pids.update(pid for pid, _ in dev.processes)
+            self.executor_listed |= self.pid in self.nvml_pids
+            self.executor_maps_uvm |= holds_context(self.pid)
+            self.samples += 1
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(timeout=10)
+
+
+def _run_executor(am: "_AmStandIn", root: str, conf_path: str, job: str,
+                  command: str, reader, tag: str, during=None) -> dict:
+    """`python -m tony_tpu_torch.executor` as the AM launches it, its
+    stdout and stderr in files of its own cwd (as the local backend keeps
+    them), watched by `_CardWatch`. `during(proc, cwd)` runs while it
+    does (the serving task's checks and its SIGTERM); then the executor
+    must exit within EXECUTOR_TASK_S. `tag` names the run."""
+    cwd = os.path.join(root, tag)
+    os.makedirs(cwd)
+    am.set_gang({job: 1})
+    am.clear()
+    t_launch = time.time()
+    with open(os.path.join(cwd, "stdout"), "w") as out, \
+            open(os.path.join(cwd, "stderr"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.executor"], cwd=cwd,
+            env=_executor_env(am, root, conf_path, job, command),
+            stdout=out, stderr=err, start_new_session=True)
+    watch = _CardWatch(reader, proc.pid)
+    watch.start()
+    try:
+        if during is not None:
+            during(proc, cwd)
+        rc = proc.wait(timeout=EXECUTOR_TASK_S)
+    except BaseException:
+        with open(os.path.join(cwd, "stderr")) as f:
+            log(f"executor: {tag}: the executor's stderr tail:\n"
+                f"{f.read()[-3000:]}")
+        raise
+    finally:
+        watch.stop()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    with open(os.path.join(cwd, "stdout")) as f:
+        stdout = f.read()
+    with open(os.path.join(cwd, "stderr")) as f:
+        stderr = f.read()
+    return {"rc": rc, "t_launch": t_launch, "pid": proc.pid,
+            "stdout": stdout, "stderr": stderr, "watch": watch,
+            "heartbeats": [t for t, task, _ in
+                           am.take_timed("task_executor_heartbeat")
+                           if task == f"{job}:0"],
+            "pushes": [(t, req) for t, task, req in
+                       am.take_timed("update_metrics")
+                       if task == f"{job}:0"],
+            "results": [req for task, req in
+                        am.take("register_execution_result")
+                        if task == f"{job}:0"],
+            "registrations": [req for task, req in
+                              am.take("register_worker_spec")
+                              if task == f"{job}:0"],
+            "endpoints": [req for task, req in
+                          am.take("register_serving_endpoint")
+                          if task == f"{job}:0"]}
+
+
+def _series(run: dict, name: str) -> list:
+    """The values a metric took in the executor's pushes, push by push
+    (None where a push lacks it: no card sample that interval). The
+    executor's pushes are those with MAX_MEMORY_BYTES; a port trainer
+    pushes its own gauges under the same task id."""
+    out = []
+    for _, req in run["pushes"]:
+        values = {m["name"]: m["value"] for m in req.get("metrics", [])}
+        if "MAX_MEMORY_BYTES" in values:
+            out.append(values.get(name))
+    return out
+
+
+def _spans(run: dict) -> dict[str, dict]:
+    return {s["name"]: s for _, req in run["pushes"]
+            for s in req.get("spans") or []}
+
+
+def _log_messages(stderr: str) -> list[str]:
+    """The messages of a task's structured JSON log lines."""
+    out = []
+    for line in stderr.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line).get("message", ""))
+            except ValueError:
+                continue
+    return out
+
+
+def _hb_gap_s(run: dict, t_end: float) -> float:
+    """The longest silence between heartbeats from the first one to the
+    last push of the run."""
+    beats = run["heartbeats"]
+    check(len(beats) >= 2, f"executor: {len(beats)} heartbeats arrived")
+    gaps = [b - a for a, b in zip(beats, beats[1:])]
+    return max(gaps + [max(0.0, t_end - beats[-1])])
+
+
+def _timing_line(job: str, run: dict, smi: str) -> str:
+    spans = _spans(run)
+    wait = spans.get("rendezvous_wait")
+    user = spans.get("user_process")
+    parts = [f"barrier wait {wait['end_ms'] - wait['start_ms']} ms"
+             if wait else "barrier wait: no span"]
+    if user:
+        parts.append(f"executor start -> user process start "
+                     f"{user['start_ms'] - 1000 * run['t_launch']:.0f} ms")
+    return f"executor: {job}: " + ", ".join(parts) + f"; {smi}"
+
+
+def _executor_train(am, root, conf_path, reader, total_bytes: int,
+                    smi: str) -> dict[str, int]:
+    """(a) The trainer as a pytorch worker: exit 0 registered, heartbeats
+    throughout, its own count of its launches exact, a duty sample >= 50,
+    MAX_TPU_HBM_BYTES between its logged peak and the card's memory, and
+    the executor never holding a context."""
+    from tony_tpu_torch.models.llama import get_config
+
+    steps = EXECUTOR_TRAIN_STEPS
+    command = (f"{sys.executable} -m tony_tpu_torch.train --config "
+               f"{TRAIN_CONFIG} --batch-size {TRAIN_BATCH} --seq-len "
+               f"{TRAIN_SEQ} --steps {steps} --log-every 1")
+    run = _run_executor(am, root, conf_path, "worker", command, reader,
+                        "train")
+    check(run["rc"] == 0 and [r["exit_code"] for r in run["results"]]
+          == [0], f"executor: worker: exit {run['rc']}, results "
+                  f"{run['results']}")
+    regs = run["registrations"]
+    check(regs and all(r["spec"].rpartition(":")[0] for r in regs),
+          f"executor: worker: registrations {regs}")
+    msgs = _log_messages(run["stderr"])
+    launched = [json.loads(m[len("kernel launches "):]) for m in msgs
+                if m.startswith("kernel launches ")]
+    peaks = [float(m.split()[3]) for m in msgs
+             if m.startswith("peak device memory ")]
+    per_step = _step_launches(get_config(TRAIN_CONFIG).n_layers)
+    want = {k: steps * v for k, v in per_step.items()}
+    check(len(launched) == 1 and {k: launched[0].get(k) for k in want}
+          == want, f"executor: the trainer logged launches {launched}, "
+                   f"want {want} ({steps} x the train phase's step)")
+    check(len(peaks) == 1, f"executor: the trainer's peak lines {peaks}")
+    duty = _series(run, "TPU_UTILIZATION")
+    hbm = _series(run, "MAX_TPU_HBM_BYTES")
+    sampled = [d for d in duty if d is not None]
+    check(sampled, "executor: the card yielded no duty sample for the "
+                   "trainer")
+    check(max(sampled) >= 50.0,
+          f"executor: no push carried TPU_UTILIZATION >= 50: {duty}")
+    max_hbm = max(h for h in hbm if h is not None)
+    peak_bytes = peaks[0] * 2**30
+    check(peak_bytes <= max_hbm <= total_bytes,
+          f"executor: MAX_TPU_HBM_BYTES {max_hbm:.0f} not within "
+          f"[{peak_bytes:.0f}, {total_bytes}]")
+    watch = run["watch"]
+    check(watch.samples > 0 and not watch.executor_listed
+          and not watch.executor_maps_uvm,
+          f"executor: the executor (pid {run['pid']}) held a context: "
+          f"listed by NVML {watch.executor_listed}, maps the uvm device "
+          f"{watch.executor_maps_uvm} ({watch.samples} watches)")
+    gap = _hb_gap_s(run, run["pushes"][-1][0])
+    check(gap <= 5 * EXECUTOR_INTERVAL_MS / 1000.0,
+          f"executor: worker: heartbeats stopped for {gap:.2f} s")
+    log(f"executor: train: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{steps} steps as `{command.split(' ', 1)[1]}`: exit 0 "
+        f"registered; {len(run['heartbeats'])} heartbeats, longest gap "
+        f"{gap:.2f} s; the trainer's own count of its launches "
+        f"{launched[0]} (= {steps} x the train phase's step); its peak "
+        f"{peaks[0]:.3f} GiB <= MAX_TPU_HBM_BYTES {max_hbm / 2**30:.3f} GiB "
+        f"<= the card's {total_bytes / 2**30:.1f} GiB; NVML listed pids "
+        f"{sorted(watch.nvml_pids)}, never the executor's ({run['pid']}), "
+        f"which never mapped /dev/nvidia-uvm ({watch.samples} watches)")
+    log(f"executor: train: duty series (TPU_UTILIZATION per "
+        f"{EXECUTOR_INTERVAL_MS} ms push) {duty}; MAX_TPU_HBM_BYTES series "
+        f"(GiB) {[None if h is None else round(h / 2**30, 3) for h in hbm]}"
+        f"; {smi}")
+    log(_timing_line("train", run, smi))
+    return {k: int(launched[0][k]) for k in want}
+
+
+def _executor_wedge(am, root, conf_path, reader, smi: str) -> None:
+    """(b) A task that makes a context, allocates 1 GiB, runs one kernel
+    and sleeps: duty < 1 in at least 4 consecutive pushes while the
+    heartbeats flow, and its memory reported."""
+    sleep_s = EXECUTOR_WEDGE_INTERVALS * EXECUTOR_INTERVAL_MS / 1000.0
+    script = os.path.join(root, "wedge.py")
+    with open(script, "w") as f:
+        f.write(WEDGE_COMMAND)
+    run = _run_executor(am, root, conf_path, "worker",
+                        f"{sys.executable} {script} {sleep_s}", reader,
+                        "wedged")
+    check(run["rc"] == 0 and [r["exit_code"] for r in run["results"]]
+          == [0], f"executor: wedged: exit {run['rc']}, results "
+                  f"{run['results']}")
+    duty = _series(run, "TPU_UTILIZATION")
+    hbm = _series(run, "MAX_TPU_HBM_BYTES")
+    check(any(d is not None for d in duty),
+          f"executor: the card yielded no duty sample for the wedge: "
+          f"{duty}")
+    best = run_len = 0
+    for d in duty:
+        run_len = run_len + 1 if d is not None and d < 1.0 else 0
+        best = max(best, run_len)
+    check(best >= 4, f"executor: TPU_UTILIZATION < 1 in at most {best} "
+                     f"consecutive pushes: {duty}")
+    max_hbm = max(h for h in hbm if h is not None)
+    check(max_hbm >= 2**30, f"executor: wedged: MAX_TPU_HBM_BYTES "
+                            f"{max_hbm:.0f} < 1 GiB")
+    gap = _hb_gap_s(run, run["pushes"][-1][0])
+    check(gap <= 5 * EXECUTOR_INTERVAL_MS / 1000.0,
+          f"executor: wedged: heartbeats stopped for {gap:.2f} s")
+    log(f"executor: wedged: a context, 1 GiB, one kernel, then "
+        f"{sleep_s:.1f} s asleep: TPU_UTILIZATION {duty} ({best} "
+        f"consecutive pushes < 1) while {len(run['heartbeats'])} "
+        f"heartbeats arrived (longest gap {gap:.2f} s); MAX_TPU_HBM_BYTES "
+        f"{max_hbm / 2**30:.3f} GiB; {smi}")
+    log(_timing_line("wedged", run, smi))
+
+
+def _executor_serve(am, root, conf_path, reader, smi: str) -> None:
+    """(c) `python -m tony_tpu_torch.serve` as the serving jobtype: its
+    endpoint registered at the SERVING_PORT the executor rendered (the
+    port it registered at the barrier), one /v1/generate answered, and
+    SIGTERM to the executor draining it: a draining re-registration, the
+    server gone, and the executor's exit the killed-by-AM code the
+    backend records."""
+    from tony_tpu_torch import constants as C
+
+    seen: dict = {}
+
+    def during(proc, cwd):
+        deadline = time.monotonic() + EXECUTOR_TASK_S
+        while time.monotonic() < deadline and not am.take(
+                "register_serving_endpoint"):
+            check(proc.poll() is None,
+                  f"executor: serving: the executor exited {proc.poll()}")
+            time.sleep(0.2)
+        regs = am.take("register_serving_endpoint")
+        check(regs, "executor: serving: no endpoint registered")
+        url = regs[0][1]["url"]
+        seen["url"] = url
+        t0 = time.monotonic()
+        out = _post(url, {"prompt": [1, 2, 3, 4, 5, 6, 7, 8],
+                          "max_new_tokens": 8}, stream=False)
+        seen["generate_ms"] = (time.monotonic() - t0) * 1e3
+        seen["tokens"] = out.get("tokens")
+        proc.send_signal(signal.SIGTERM)
+
+    command = (f"{sys.executable} -m tony_tpu_torch.serve --config "
+               f"{TRAIN_CONFIG}")
+    run = _run_executor(am, root, conf_path, "serving", command, reader,
+                        "serving", during=during)
+    registered = run["registrations"][-1]["spec"]
+    url = seen["url"]
+    check(url.rsplit(":", 1)[1] == registered.rsplit(":", 1)[1],
+          f"executor: serving: endpoint {url} is not at the registered "
+          f"{registered}")
+    check(isinstance(seen.get("tokens"), list) and len(seen["tokens"]) == 8,
+          f"executor: serving: /v1/generate answered {seen.get('tokens')}")
+    drains = [r for r in run["endpoints"] if r.get("draining")]
+    check(drains and drains[-1]["url"] == url,
+          f"executor: serving: no draining re-registration: "
+          f"{run['endpoints']}")
+    want_rc = C.EXIT_KILLED_BY_AM & 0xFF
+    check(run["rc"] == want_rc and not _listening(int(url.rsplit(":", 1)[1])),
+          f"executor: serving: the executor exited {run['rc']} (want "
+          f"{want_rc}) or the server still listens")
+    log(f"executor: serving: {TRAIN_CONFIG} at {url} (the executor's "
+        f"registered {registered}, rendered as SERVING_PORT); /v1/generate "
+        f"(the server's first request) 8 tokens in "
+        f"{seen['generate_ms']:.1f} ms; SIGTERM to the executor: "
+        f"a draining re-registration of {url}, the server closed, the "
+        f"executor exited {run['rc']} (EXIT_KILLED_BY_AM & 0xFF, the code "
+        f"the backend reports); {smi}")
+    log(_timing_line("serving", run, smi))
+
+
+def phase_executor(smi: str) -> dict[str, int]:
+    """`python -m tony_tpu_torch.executor` for three tasks against the
+    recording AM, with the card read through NVML. Returns the training
+    task's own count of its launches."""
+    import secrets
+    import statistics
+
+    import torch
+
+    from tony_tpu_torch.executor.cuda_metrics import (
+        CardSampler, NvmlReader,
+    )
+
+    reader = NvmlReader()
+    devices = reader.sample()
+    check(devices, "executor: NVML shows no card")
+    total = devices[0].memory_total
+    costs, sampler_costs = [], []
+    sampler = CardSampler(NvmlReader())
+    for _ in range(100):
+        t0 = time.perf_counter()
+        reader.sample()
+        costs.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        sampler(os.getpid())
+        sampler_costs.append((time.perf_counter() - t0) * 1e6)
+    log(f"executor: one NVML read of {len(devices)} card(s) (utilization, "
+        f"memory, compute processes): median {statistics.median(costs):.1f}"
+        f" us of 100; the monitor's whole card sample (that read on its "
+        f"worker thread, the /proc tree walk, the attribution): median "
+        f"{statistics.median(sampler_costs):.1f} us; card {devices[0].minor}"
+        f" holds {devices[0].memory_total / 2**30:.1f} GiB; {smi}")
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-executor-")
+    am = _AmStandIn(secrets.token_hex(32))
+    conf = _write_conf(os.path.join(root, "tony-final.json"), {
+        "tony.application.framework": "pytorch",
+        "tony.task.metrics-interval-ms": EXECUTOR_INTERVAL_MS,
+        "tony.task.heartbeat-interval-ms": EXECUTOR_INTERVAL_MS,
+        "tony.task.registration-timeout-sec": 60})
+    serve_conf = _write_conf(os.path.join(root, "tony-final-serve.json"), {
+        "tony.task.metrics-interval-ms": EXECUTOR_INTERVAL_MS,
+        "tony.task.heartbeat-interval-ms": EXECUTOR_INTERVAL_MS,
+        "tony.task.registration-timeout-sec": 60,
+        "tony.serving.slots": 2, "tony.serving.token-budget": 256})
+    t0 = time.monotonic()
+    try:
+        launches = _executor_train(am, root, conf, reader, total, smi)
+        _executor_wedge(am, root, conf, reader, smi)
+        # a serving-only application, on the default framework (jax: the
+        # pytorch runtime needs a worker jobtype in the spec)
+        _executor_serve(am, root, serve_conf, reader, smi)
+    finally:
+        am.stop()
+        reader.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"executor: three tasks in {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision",
+                            "pipeline,spec,vision,executor",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -4844,6 +5319,8 @@ def main(argv=None) -> int:
             launches["spec"] = phase_spec()
         if "vision" in phases:
             launches["vision"] = phase_vision()
+        if "executor" in phases:
+            launches["executor"] = phase_executor(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

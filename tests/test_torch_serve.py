@@ -374,7 +374,12 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "models.speculative", "models.vit", "models.resnet",
                    "models.mnist", "models.linear", "examples",
                    "examples.generate_demo", "examples.train_allreduce",
-                   "examples.mnist_distributed", "examples.linreg_dmlc"):
+                   "examples.mnist_distributed", "examples.linreg_dmlc",
+                   "executor", "executor.__main__", "executor.task_executor",
+                   "executor.task_monitor", "executor.cuda_metrics",
+                   "executor.gpu_metrics", "executor.runtimes",
+                   "rpc.service", "rpc.messages", "utils.localization",
+                   "utils.shell", "utils.ports", "events.history"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -1,9 +1,10 @@
-"""PyTorch/CUDA port of the tony_tpu compute plane, for NVIDIA Hopper.
+"""PyTorch/CUDA port of tony_tpu, for NVIDIA Hopper.
 
 It mirrors `tony_tpu`'s module paths: `ops/` (with the hand-written CUDA
-kernels in `csrc/`), `models/`, `parallel/`, `serve/`, `train/`, and the
+kernels in `csrc/`), `models/`, `parallel/`, `serve/`, `train/`, the
 task side of the orchestration layer (`conf.py`, `security/`, `rpc/`,
-`observability/`). It imports torch and never jax or anything of
-`tony_tpu`; the JAX package stays the reference the port's tests hold it
-against.
+`observability/`) and the task executor (`executor/`, with the helpers it
+needs in `utils/`, `storage/` and `events/`). It imports torch and never
+jax or anything of `tony_tpu`; the JAX package stays the reference the
+port's tests hold it against.
 """

@@ -9,7 +9,9 @@ waterfall. The executor renders ``TONY_TRACE_ID`` and ``TONY_PARENT_SPAN``
 server parent their spans under it, and the finished spans ride the
 metrics RPC (``update_metrics``'s ``spans``) to the AM. The span dict has
 the JAX package's keys. A recorder past ``max_spans`` counts drops in the
-health registry instead of growing. The AM-side store is not ported.
+health registry instead of growing. The executor's recorder also renders
+the context into its user process's env (`SpanRecorder.env`). The AM-side
+store is not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +63,21 @@ class Span:
             "start_ms": self.start_ms, "end_ms": self.end_ms,
             "status": self.status, "attrs": dict(self.attrs),
         }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Span":
+        return cls(
+            name=str(d.get("name", "")),
+            span_id=str(d.get("span_id", "")) or new_span_id(),
+            trace_id=str(d.get("trace_id", "")),
+            parent_id=str(d.get("parent_id", "")),
+            task_id=str(d.get("task_id", "")),
+            attempt=int(d.get("attempt", 0)),
+            start_ms=int(d.get("start_ms", 0)),
+            end_ms=int(d.get("end_ms", 0)),
+            status=str(d.get("status", STATUS_OPEN)),
+            attrs=dict(d.get("attrs") or {}),
+        )
 
 
 class SpanRecorder:
@@ -144,6 +161,18 @@ class SpanRecorder:
         the payload the executor/trainer piggybacks on the metrics RPC."""
         with self._lock:
             out, self._finished = self._finished, []
+        return out
+
+    def env(self, span: Optional[Span] = None) -> dict[str, str]:
+        """The trace context for a child process: the trace id and the
+        span the child parents under (default: this recorder's own
+        parent); {} for a recorder with no trace."""
+        if not self.trace_id:
+            return {}
+        parent = span.span_id if span is not None else self.parent_id
+        out = {TRACE_ID_ENV: self.trace_id}
+        if parent:
+            out[PARENT_SPAN_ENV] = parent
         return out
 
     def record_complete(self, name: str, start_ms: int, end_ms: int,

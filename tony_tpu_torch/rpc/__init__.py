@@ -1,1 +1,2 @@
-"""The port's client of the AM's control-plane RPC services."""
+"""The port's side of the control-plane RPC: the clients of the AM's
+services and the executor's TaskLogService."""

@@ -1,12 +1,14 @@
 """Retrying JSON-over-gRPC clients of the AM's control plane.
 
-The port's copy of the task-side half of `tony_tpu/rpc/client.py` and
-`rpc/service.py`: the same service and method names, the same JSON codec
-(`_ser`/`_deser`), the same per-call token metadata, and the same retry
-ladder (capped equal-jitter exponential backoff over UNAVAILABLE and
-DEADLINE_EXCEEDED). It carries the three calls a port trainer or server
-makes: `register_serving_endpoint`, `report_serving_migrated` and
-`update_metrics`.
+The port's copy of the task-side half of `tony_tpu/rpc/client.py`: the
+service and method names and the JSON codec of `rpc/service.py`, the same
+per-call token metadata, and the same retry ladder (capped equal-jitter
+exponential backoff over UNAVAILABLE and DEADLINE_EXCEEDED). It carries
+the calls a port trainer or server makes (`register_serving_endpoint`,
+`report_serving_migrated`, `update_metrics`) and the executor's: the gang
+barrier (`register_worker_spec`, `get_cluster_spec`), heartbeats, the
+TensorBoard URL and the execution result; and `TaskLogServiceClient`, the
+AM's reader of an executor's logs and stacks.
 
 `grpc` is imported only when a client is built, so a process with no AM
 in its environment never loads it.
@@ -22,35 +24,15 @@ from typing import Any, Optional
 
 from tony_tpu_torch import constants as C
 from tony_tpu_torch.observability.metrics import REGISTRY
-
-CLUSTER_SERVICE = "tony.ClusterService"
-METRICS_SERVICE = "tony.MetricsService"
-CLUSTER_METHODS = ("register_serving_endpoint", "report_serving_migrated")
-METRICS_METHODS = ("update_metrics",)
+from tony_tpu_torch.rpc.service import (  # noqa: F401 — the client's names
+    CLUSTER_METHODS, CLUSTER_SERVICE, METRICS_METHODS, METRICS_SERVICE,
+    TASK_LOG_METHODS, TASK_LOG_SERVICE, _deser, _ser,
+)
+from tony_tpu_torch.utils.common import equal_jitter_backoff_sec
 
 DEFAULT_RETRIES = 10
 DEFAULT_RETRY_SLEEP_SEC = 0.5
 DEFAULT_RETRY_MAX_SLEEP_SEC = 8.0
-
-
-def _ser(obj: Any) -> bytes:
-    return json.dumps(obj).encode("utf-8")
-
-
-def _deser(data: bytes) -> Any:
-    return json.loads(data.decode("utf-8")) if data else {}
-
-
-def equal_jitter_backoff_sec(base_sec: float, max_sec: float, exponent: int,
-                             rng: random.Random) -> float:
-    """Uniform in [cap/2, cap], cap = min(max_sec, base_sec * 2^exponent)
-    (max_sec <= 0: no cap); 0 when base_sec <= 0 or exponent < 0."""
-    if base_sec <= 0 or exponent < 0:
-        return 0.0
-    cap = base_sec * (2 ** min(exponent, 30))
-    if max_sec > 0:
-        cap = min(max_sec, cap)
-    return rng.uniform(cap / 2.0, cap)
 
 
 class _JsonRpcClient:
@@ -134,10 +116,81 @@ class _JsonRpcClient:
 
 
 class ClusterServiceClient(_JsonRpcClient):
-    """The serving task's calls on the AM's cluster service."""
+    """A task's and its executor's calls on the AM's cluster service."""
 
     def __init__(self, host: str, port: int, **kw):
         super().__init__(CLUSTER_SERVICE, CLUSTER_METHODS, host, port, **kw)
+
+    def get_cluster_spec(self, task_id: str) -> Optional[dict]:
+        spec = self.call("get_cluster_spec", {"task_id": task_id}).get("spec")
+        return json.loads(spec) if spec else None
+
+    def register_worker_spec(self, task_id: str, spec: str,
+                             session_id: int = -1, task_attempt: int = -1,
+                             with_generation: bool = False):
+        """The gang barrier: the full cluster spec once every task has
+        registered, else None. The AM refuses a stale session's or a
+        superseded attempt's registration. With with_generation=True the
+        spec comes as (spec, spec_generation)."""
+        resp = self.call("register_worker_spec",
+                         {"task_id": task_id, "spec": spec,
+                          "session_id": session_id,
+                          "task_attempt": task_attempt})
+        spec_json = resp.get("spec")
+        if not spec_json:
+            return None
+        parsed = json.loads(spec_json)
+        if with_generation:
+            return parsed, int(resp.get("generation", 0))
+        return parsed
+
+    def register_tensorboard_url(self, task_id: str, url: str) -> None:
+        self.call("register_tensorboard_url", {"task_id": task_id, "url": url})
+
+    def register_execution_result(self, exit_code: int, job_name: str,
+                                  job_index: int, session_id: int,
+                                  task_attempt: int = -1,
+                                  barrier_timeout: bool = False,
+                                  preempted: bool = False,
+                                  resized: bool = False,
+                                  diagnostics: Optional[dict] = None
+                                  ) -> None:
+        """The task's exit. The flags say what an exit code cannot:
+        `barrier_timeout` (the gang never formed: no relaunch budget
+        spent), `preempted` (a drain asked for it), `resized` (an elastic
+        shrink released the slot). `diagnostics` (failures only) is the
+        executor's classified, redacted post-mortem."""
+        req = {
+            "exit_code": exit_code, "job_name": job_name,
+            "job_index": job_index, "session_id": session_id,
+            "task_attempt": task_attempt,
+            "barrier_timeout": barrier_timeout,
+            "preempted": preempted,
+            "resized": resized}
+        if diagnostics:
+            req["diagnostics"] = diagnostics
+        self.call("register_execution_result", req)
+
+    def task_executor_heartbeat(self, task_id: str,
+                                task_attempt: int = -1,
+                                log_addr: str = "",
+                                spec_generation: int = -1,
+                                resize_ack: int = 0) -> dict:
+        """Liveness: one attempt, a short deadline, no wait_for_ready (the
+        heartbeater counts failures itself). The request gossips the
+        executor's TaskLogService address, the spec generation it holds
+        and the newest resize it has quiesced for; the response carries
+        the AM's spec generation, a spec diff or refetch verdict, and any
+        profile, drain or resize ask."""
+        req = {"task_id": task_id, "task_attempt": task_attempt}
+        if log_addr:
+            req["log_addr"] = log_addr
+        if spec_generation > 0:
+            req["spec_generation"] = spec_generation
+        if resize_ack > 0:
+            req["resize_ack"] = resize_ack
+        return self.call("task_executor_heartbeat", req,
+                         retries=1, timeout_sec=5.0, wait_for_ready=False)
 
     def register_serving_endpoint(self, task_id: str, url: str,
                                   weights_generation: int = 0,
@@ -165,6 +218,26 @@ class ClusterServiceClient(_JsonRpcClient):
                   {"task_id": task_id, "target_url": target_url,
                    "count": int(count)},
                   retries=1, timeout_sec=5.0, wait_for_ready=False)
+
+
+class TaskLogServiceClient(_JsonRpcClient):
+    """A reader of an executor's TaskLogService (the AM's proxy side):
+    one attempt and a short deadline per call, so a wedged executor
+    degrades a read and never holds the caller."""
+
+    def __init__(self, host: str, port: int, **kw):
+        super().__init__(TASK_LOG_SERVICE, TASK_LOG_METHODS, host, port, **kw)
+
+    def read_log(self, stream: str = "stderr", offset: int = -1,
+                 max_bytes: int = 0) -> dict:
+        return self.call("read_log",
+                         {"stream": stream, "offset": int(offset),
+                          "max_bytes": int(max_bytes)},
+                         retries=1, timeout_sec=5.0, wait_for_ready=False)
+
+    def read_stacks(self) -> dict:
+        return self.call("read_stacks", {},
+                         retries=1, timeout_sec=5.0, wait_for_ready=False)
 
 
 class MetricsServiceClient(_JsonRpcClient):

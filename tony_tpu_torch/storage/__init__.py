@@ -1,2 +1,2 @@
-"""Object-store access for the port: the `gs://` store its checkpoints
-use."""
+"""Staging and object-store access for the port: the shared-directory and
+`gs://` stores its checkpoints and its executor's localization use."""

@@ -1,9 +1,11 @@
 """A flat keyed blob namespace on a `gs://` bucket, through its CLI.
 
-The port's own copy of what its checkpoints need from
-`tony_tpu/storage/store.py` (which it does not import): `StagingStore`,
-the interface, and `GCSStore`, the object store behind a `gs://`
-checkpoint directory, with the reference's behaviour kept exactly:
+The port's own copy of `tony_tpu/storage/store.py` (which it does not
+import): `StagingStore`, the interface; `LocalDirStore`, a shared
+directory; `GCSStore`, the object store behind a `gs://` checkpoint
+directory or staging location; and the executor's `store_for_uri` and
+`fetch_uri`, which localize a staged URI by its scheme alone. The
+reference's behaviour is kept exactly:
 - the CLI is `gsutil` when it is on PATH, else `gcloud storage`; neither
   raises FileNotFoundError;
 - `fetch` downloads into a temporary file and renames it, so a killed
@@ -12,7 +14,9 @@ checkpoint directory, with the reference's behaviour kept exactly:
   (authentication, network, a missing bucket), which raises: a resuming
   trainer that read a transient failure as "no checkpoints" would restart
   from step 0 and overwrite the good ones;
-- `delete` treats an object that is already gone as deleted.
+- `delete` treats an object that is already gone as deleted;
+- a `LocalDirStore` writes through a temporary file and a rename too, so
+  a reader never sees half a file.
 """
 
 from __future__ import annotations
@@ -65,6 +69,74 @@ class StagingStore(abc.ABC):
     def delete(self, key: str) -> None:
         """Remove one object by key (relative to the base)."""
         raise NotImplementedError(f"{type(self).__name__} cannot delete")
+
+
+class LocalDirStore(StagingStore):
+    """Shared-filesystem store rooted at a directory (the round-1 layout:
+    `<app_dir>/staging`). URIs are plain absolute paths, which keeps every
+    existing conf/spec backward compatible."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        os.makedirs(self.root, exist_ok=True)
+
+    def put(self, local_path: str, key: str) -> str:
+        dest = os.path.join(self.root, key)
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        if os.path.abspath(local_path) != dest:
+            # copy-to-tmp + rename: readers polling a store key (the
+            # fleet registry's jobstate scan, the durable accounting)
+            # must never observe a half-written file — GCS puts are
+            # server-side atomic, the local twin has to earn it
+            tmp = f"{dest}.put-tmp-{_tmp_suffix()}"
+            shutil.copy2(local_path, tmp)
+            os.replace(tmp, dest)
+        return dest
+
+    def fetch(self, uri: str, dest_path: str) -> str:
+        src = uri[len("file://"):] if uri.startswith("file://") else uri
+        os.makedirs(os.path.dirname(os.path.abspath(dest_path)),
+                    exist_ok=True)
+        if os.path.abspath(src) != os.path.abspath(dest_path):
+            # download-to-tmp + rename, same idiom as put(): an executor
+            # killed mid-fetch must never leave a torn file that the
+            # localization cache (or a retry) would then serve as whole
+            tmp = f"{dest_path}.fetch-tmp-{_tmp_suffix()}"
+            try:
+                shutil.copy2(src, tmp)
+                os.replace(tmp, dest_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        return dest_path
+
+    def exists(self, uri: str) -> bool:
+        src = uri[len("file://"):] if uri.startswith("file://") else uri
+        return os.path.exists(src)
+
+    def list_keys(self, prefix: str = "") -> list[str]:
+        base = os.path.join(self.root, prefix) if prefix else self.root
+        out = []
+        for dirpath, _dirs, files in os.walk(base):
+            for f in files:
+                out.append(os.path.relpath(os.path.join(dirpath, f),
+                                           self.root))
+        return sorted(out)
+
+    def uri(self, key: str) -> str:
+        return os.path.join(self.root, key)
+
+    def glob(self, pattern: str) -> list[str]:
+        import glob as _glob
+        hits = _glob.glob(os.path.join(self.root, pattern))
+        return sorted(os.path.relpath(h, self.root) for h in hits
+                      if os.path.isfile(h))
+
+    def delete(self, key: str) -> None:
+        try:
+            os.remove(os.path.join(self.root, key))
+        except FileNotFoundError:
+            pass
 
 
 class GCSStore(StagingStore):
@@ -161,3 +233,45 @@ class GCSStore(StagingStore):
             raise RuntimeError(
                 f"{' '.join(cmd[:2])} {self.base}/{key} failed "
                 f"rc={out.returncode}: {out.stderr.strip()[-500:]}")
+
+
+def staging_store(location: str, app_dir: str) -> StagingStore:
+    """Build the app's store from `tony.staging.location`: empty -> the
+    local `<app_dir>/staging` dir (round-1 behavior), `gs://...` -> GCS,
+    anything else -> a shared local/NFS dir. Shared locations (gs:// and
+    explicit dirs) are namespaced by a per-app subdir the way
+    `.tony/<appId>` namespaced HDFS — without it, two concurrent apps
+    staging fixed keys (tony_src.zip, tony-final.json) into one NFS dir
+    would clobber each other."""
+    if not location:
+        return LocalDirStore(os.path.join(app_dir, "staging"))
+    app_id = os.path.basename(os.path.normpath(app_dir))
+    if location.startswith("gs://"):
+        return GCSStore(f"{location.rstrip('/')}/{app_id}")
+    return LocalDirStore(os.path.join(location, app_id))
+
+
+def location_store(location: str) -> StagingStore:
+    """A store rooted at a staging LOCATION itself (no per-app subdir) —
+    the reader-side twin of `staging_store`: the portal's history
+    fetcher and the fleet registry scan `<location>/<app_id>/...` keys
+    across ALL applications, so their store must sit at the root the
+    per-app writers namespaced under."""
+    if location.startswith("gs://"):
+        return GCSStore(location)
+    return LocalDirStore(location)
+
+
+def store_for_uri(uri: str) -> StagingStore:
+    """Container-side: a store capable of fetching `uri` (no conf needed —
+    the scheme is self-describing)."""
+    if uri.startswith("gs://"):
+        base, _, _ = uri.rpartition("/")
+        return GCSStore(base)
+    return LocalDirStore(os.path.dirname(
+        uri[len("file://"):] if uri.startswith("file://") else uri) or ".")
+
+
+def fetch_uri(uri: str, dest_path: str) -> str:
+    """One-shot localize of any staged URI."""
+    return store_for_uri(uri).fetch(uri, dest_path)

@@ -1,0 +1,42 @@
+"""Host, port and backoff helpers of the executor and the RPC clients.
+
+The port's copy of what they use of `tony_tpu/utils/common.py`.
+"""
+
+from __future__ import annotations
+
+import random
+import socket
+
+
+def equal_jitter_backoff_sec(base_sec: float, max_sec: float, exponent: int,
+                             rng: "random.Random") -> float:
+    """Capped equal-jitter exponential backoff: uniform in [cap/2, cap] with
+    cap = min(max_sec, base_sec * 2^exponent) (max_sec <= 0 means no cap);
+    0 when base_sec <= 0 or exponent < 0. The lower bound spares a booting
+    peer; the jitter keeps simultaneous retriers apart."""
+    if base_sec <= 0 or exponent < 0:
+        return 0.0
+    cap = base_sec * (2 ** min(exponent, 30))
+    if max_sec > 0:
+        cap = min(max_sec, cap)
+    return rng.uniform(cap / 2.0, cap)
+
+
+def current_host() -> str:
+    """Best-effort resolvable hostname for rendezvous registration."""
+    host = socket.gethostname()
+    try:
+        socket.gethostbyname(host)
+        return host
+    except OSError:
+        return "127.0.0.1"
+
+
+def pick_free_port(host: str = "") -> int:
+    """Bind an ephemeral port and return it, to announce to peers before
+    the process that will serve it binds it."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((host, 0))
+        return s.getsockname()[1]
