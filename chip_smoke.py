@@ -264,29 +264,56 @@ Phases (any failure exits non-zero, and the result line is not printed):
               re-registration, the executor's exit 151 (EXIT_KILLED_BY_AM
               & 0xFF). Each task's barrier wait and executor start ->
               user process start, from its spans.
+15. am      — whole TonY jobs under the port's ApplicationMaster:
+              `python -m tony_tpu_torch.am --app_id A --app_dir D` on a
+              `tony-final.json` the port's TonyConfiguration froze, run
+              from a temporary directory holding a copy of
+              `tony_tpu_torch/` alone (PYTHONPATH set to it, the cwd
+              outside the repo, `import tony_tpu` shown to fail there),
+              the kernel build cache pointed at the libraries the build
+              phase made. (a) One pytorch worker running `python -m
+              tony_tpu_torch.train` on llama3_1b_proxy B4 x S4096, 6
+              steps, metrics every 500 ms: the AM exits 0 with SUCCEEDED,
+              the trainer's own count of its launches 6 x the train
+              phase's step, the `.jhist` (parsed by the port's handler)
+              holds APPLICATION_INITED, TASK_STARTED and
+              APPLICATION_FINISHED in order, and the AM's metrics store
+              (its history's metrics.json) received a TPU_UTILIZATION >=
+              90 from the port's executor. (b) One serving task the AM
+              launches as `python -m tony_tpu_torch.serve` (llama3_1b_
+              proxy, 2 slots): its SERVING_UP address read from the
+              container's stdout, one /v1/generate of 16 new tokens, then
+              SIGTERM to the AM: the port closes, the server's own count
+              holds K1 and K4 launches, and the history holds
+              SERVING_ENDPOINT_REGISTERED. Prints the AM's start -> first
+              container launch, the job's wall and the serving task's
+              container launch -> SERVING_ENDPOINT_REGISTERED.
 
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
 parallel slice, `--phases build,pipeline` the pipeline and ep slice,
 `--phases build,spec,vision` the model zoo, `--phases build,executor`
-the task executor. The kernels phase
-also holds K1-K3 at ViT's attention shapes (B64 H6 S197 D64 and S17,
-non-causal, timed and bit for bit over two calls; vit_tiny's D16 in f32)
-and K4 at its rows (64 x 197 and the 64 CLS rows, D 384).
+the task executor, `--phases build,am` the jobs under the port's AM.
+The kernels phase also holds K1-K3 at ViT's attention shapes (B64 H6
+S197 D64 and S17, non-causal, timed and bit for bit over two calls;
+vit_tiny's D16 in f32) and K4 at its rows (64 x 197 and the 64 CLS
+rows, D 384).
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe, parallel, pipeline, spec, vision and executor paths together,
-split in `launches_by_path`; the orch path counts its training run, the ckpt path
-its runs and servers on the local and the gs:// directory, the moe path
-its two bursts and its training runs, the parallel path the mesh run's
-own count of its launches, parallel_sp the ring's and Ulysses' chunk
-launches, pipeline the one-process pipelined runs, pipeline_entry and
-ep the pipelined and the (ep, fsdp) entry-point runs' own counts, spec
+orch, moe, parallel, pipeline, spec, vision, executor and am paths
+together, split in `launches_by_path`; the orch path counts its training
+run, the ckpt path its runs and servers on the local and the gs://
+directory, the moe path its two bursts and its training runs, the
+parallel path the mesh run's own count of its launches, parallel_sp
+the ring's and Ulysses' chunk launches, pipeline the one-process
+pipelined runs, pipeline_entry and ep the pipelined and the (ep, fsdp) entry-point runs' own counts, spec
 its four full-width runs, vision the ViT runs of train_allreduce (its own
 count) and of the Trainer at 224/16, executor the trainer's own count
-under the executor; the cache phase's processes are uncounted), then the card's name and power
-limit from nvidia-smi; the last line is {"ok": true, "device": {...}}.
+under the executor, am the trainer's and the server's own counts under
+the port's AM; the cache phase's processes are uncounted), then the
+card's name and power limit from nvidia-smi; the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5252,12 +5279,271 @@ def phase_executor(smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: whole jobs under the port's ApplicationMaster
+# ---------------------------------------------------------------------------
+
+AM_INTERVAL_MS = 500
+AM_TRAIN_STEPS = 6
+AM_JOB_S = 300.0
+AM_SERVE_TOKENS = 16
+# the AM's own cadences, and no wait for a client at the end
+AM_CONF = {"tony.am.monitor-interval-ms": 200,
+           "tony.task.heartbeat-interval-ms": AM_INTERVAL_MS,
+           "tony.task.metrics-interval-ms": AM_INTERVAL_MS,
+           "tony.task.registration-timeout-sec": 120,
+           "tony.am.stop-poll-timeout-ms": 0}
+
+
+def _am_tree(root: str) -> tuple[str, dict[str, str]]:
+    """A directory holding a copy of `tony_tpu_torch/` alone, the env that
+    runs the AM from it (PYTHONPATH that directory, every task variable of
+    earlier phases removed) and a kernel build cache whose libraries are
+    the build phase's. `import tony_tpu` must fail under that env."""
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.utils.compilecache import KERNELS_SUBDIR
+
+    repo = Path(__file__).resolve().parent
+    lone = os.path.join(root, "lone")
+    shutil.copytree(repo / "tony_tpu_torch",
+                    os.path.join(lone, "tony_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+    cache = os.path.join(root, "cache")
+    os.makedirs(cache)
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    os.symlink(str(cuda_lib.BUILD_DIR), os.path.join(cache, KERNELS_SUBDIR))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AM_HOST", "AM_PORT", "METRICS_RPC_PORT",
+                        "JOB_NAME", "TASK_INDEX", "TONY_SECURITY_TOKEN",
+                        "TONY_TRACE_ID", "TONY_PARENT_SPAN", "TB_PORT",
+                        "IS_CHIEF", "RANK", "WORLD", "INIT_METHOD",
+                        "TONY_JAX_CACHE_DIR", "TONY_CONF_PATH",
+                        "PYTHONPATH")}
+    env["PYTHONPATH"] = lone
+    probe = subprocess.run(
+        [sys.executable, "-c", "import tony_tpu_torch.am, tony_tpu"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    check(probe.returncode != 0 and "No module named 'tony_tpu'"
+          in probe.stderr, f"am: tony_tpu importable beside the copy: "
+                           f"{probe.stderr[-1000:]}")
+    return cache, env
+
+
+def _am_start(root: str, env: dict, app_id: str, values: dict):
+    """`python -m tony_tpu_torch.am` on a conf the port's
+    TonyConfiguration froze; returns (app dir, process, spawn time)."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.conf import TonyConfiguration
+
+    app_dir = os.path.join(root, app_id)
+    os.makedirs(app_dir)
+    conf = TonyConfiguration()
+    for k, v in {**AM_CONF, **values}.items():
+        conf.set(k, v, "chip_smoke")
+    conf.write(os.path.join(app_dir, C.TONY_FINAL_CONF))
+    t_spawn = time.time()
+    with open(os.path.join(app_dir, "am.stdout"), "w") as out, \
+            open(os.path.join(app_dir, "am.stderr"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.am", "--app_id", app_id,
+             "--app_dir", app_dir], cwd=app_dir, env=env, stdout=out,
+            stderr=err, start_new_session=True)
+    return app_dir, proc, t_spawn
+
+
+def _am_wait(proc, app_dir: str, what: str) -> int:
+    try:
+        return proc.wait(timeout=AM_JOB_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        with open(os.path.join(app_dir, "am.stderr")) as f:
+            tail = f.read()[-3000:]
+        raise SmokeFailure(f"am: {what}: the AM ran past {AM_JOB_S:.0f} s:"
+                           f"\n{tail}")
+
+
+def _am_history(app_dir: str, app_id: str) -> tuple[list, str]:
+    """The job's events, parsed by the port's handler, and its history
+    directory."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.events.handler import parse_events
+
+    hist = os.path.join(app_dir, C.HISTORY_DIR_NAME, app_id)
+    finals = [f for f in os.listdir(hist)
+              if f.endswith("." + C.HISTORY_SUFFIX)]
+    check(len(finals) == 1, f"am: {app_id}: history files {finals}")
+    return parse_events(os.path.join(hist, finals[0])), hist
+
+
+def _am_task_log(app_dir: str, task: str, stream: str) -> str:
+    from tony_tpu_torch import constants as C
+    with open(os.path.join(app_dir, C.CONTAINERS_DIR_NAME, f"{task}_s0",
+                           stream)) as f:
+        return f.read()
+
+
+def _am_launches(stderr: str, what: str) -> dict[str, int]:
+    counts = [json.loads(m[len("kernel launches "):])
+              for m in _log_messages(stderr)
+              if m.startswith("kernel launches ")]
+    check(len(counts) == 1, f"am: {what}: launch lines {counts}")
+    return {k: int(v) for k, v in counts[0].items()}
+
+
+def _am_first(events: list, etype: str):
+    found = [e for e in events if e.type.name == etype]
+    check(found, f"am: no {etype} in {[e.type.name for e in events]}")
+    return found[0]
+
+
+def _am_train(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
+    """(a) The trainer as the job's one pytorch worker."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.models.llama import get_config
+
+    app_id = "application_chip_smoke_train"
+    command = (f"{sys.executable} -m tony_tpu_torch.train --config "
+               f"{TRAIN_CONFIG} --batch-size {TRAIN_BATCH} --seq-len "
+               f"{TRAIN_SEQ} --steps {AM_TRAIN_STEPS} --log-every 1")
+    app_dir, proc, t_spawn = _am_start(root, env, app_id, {
+        "tony.worker.instances": 1,
+        "tony.application.framework": "pytorch",
+        "tony.task.command": command,
+        "tony.executor.jax-cache-dir": cache})
+    rc = _am_wait(proc, app_dir, "train")
+    wall = time.time() - t_spawn
+    with open(os.path.join(app_dir, "status.json")) as f:
+        status = json.load(f)
+    stderr = _am_task_log(app_dir, "worker_0", "stderr")
+    check(rc == 0 and status["status"] == "SUCCEEDED",
+          f"am: train: the AM exited {rc}, {status}; the task's stderr:\n"
+          f"{stderr[-3000:]}")
+    events, hist = _am_history(app_dir, app_id)
+    names = [e.type.name for e in events]
+    order = [names.index(n) for n in ("APPLICATION_INITED", "TASK_STARTED",
+                                      "APPLICATION_FINISHED")
+             if n in names]
+    check(len(order) == 3 and order == sorted(order),
+          f"am: train: events {names}")
+    launched = _am_launches(stderr, "train")
+    per_step = _step_launches(get_config(TRAIN_CONFIG).n_layers)
+    want = {k: AM_TRAIN_STEPS * v for k, v in per_step.items()}
+    check({k: launched.get(k) for k in want} == want,
+          f"am: train: the trainer launched {launched}, want {want}")
+    check("nvcc compiled" not in stderr,
+          "am: train: the task compiled a kernel the cache held")
+    with open(os.path.join(hist, C.METRICS_FILE)) as f:
+        series = json.load(f).get("worker:0", {})
+    duty = [v for _, v in series.get("TPU_UTILIZATION", [])]
+    check(duty and max(duty) >= 90.0,
+          f"am: train: the AM received no TPU_UTILIZATION >= 90: {duty}")
+    first = _am_first(events, "TASK_STARTED").timestamp / 1000.0
+    log(f"am: train: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{AM_TRAIN_STEPS} steps as the job's pytorch worker: SUCCEEDED; "
+        f"events {names}; the trainer's own count of its launches "
+        f"{launched} (= {AM_TRAIN_STEPS} x the train phase's step); the "
+        f"AM's TPU_UTILIZATION series {duty}; {smi}")
+    log(f"am: train: AM start -> first container launch "
+        f"{(first - t_spawn) * 1e3:.0f} ms, the job's wall {wall:.2f} s "
+        f"(AM spawn to AM exit); {smi}")
+    return {k: launched.get(k, 0) for k in per_step}
+
+
+def _am_serve(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
+    """(b) One serving task: SERVING_UP, one /v1/generate, SIGTERM to the
+    AM."""
+    app_id = "application_chip_smoke_serve"
+    app_dir, proc, t_spawn = _am_start(root, env, app_id, {
+        "tony.serving.instances": 1,
+        "tony.serving.command": f"{sys.executable} -m tony_tpu_torch.serve "
+                                f"--config {TRAIN_CONFIG}",
+        "tony.serving.slots": 2, "tony.serving.token-budget": 256,
+        # the server drains in well under a second; the default 15 s
+        # grace would hold the AM's teardown that long
+        "tony.task.term-grace-ms": 2000,
+        "tony.executor.jax-cache-dir": cache})
+    url = ""
+    try:
+        deadline = time.monotonic() + AM_JOB_S
+        while not url and time.monotonic() < deadline:
+            check(proc.poll() is None,
+                  f"am: serve: the AM exited {proc.poll()} before "
+                  f"SERVING_UP")
+            try:
+                for line in _am_task_log(app_dir, "serving_0",
+                                         "stdout").splitlines():
+                    if line.startswith("SERVING_UP "):
+                        url = line.split()[1]
+            except FileNotFoundError:
+                pass
+            time.sleep(0.2)
+        check(url, "am: serve: no SERVING_UP within the job's limit")
+        t0 = time.monotonic()
+        out = _post(url, {"prompt": [1, 2, 3, 4, 5, 6, 7, 8],
+                          "max_new_tokens": AM_SERVE_TOKENS}, stream=False)
+        generate_ms = (time.monotonic() - t0) * 1e3
+        tokens = out.get("tokens")
+        check(isinstance(tokens, list) and len(tokens) == AM_SERVE_TOKENS,
+              f"am: serve: /v1/generate answered {tokens}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    rc = _am_wait(proc, app_dir, "serve")
+    port = int(url.rsplit(":", 1)[1])
+    check(not _listening(port), f"am: serve: {url} still listens after "
+                                f"the AM exited {rc}")
+    events, _ = _am_history(app_dir, app_id)
+    names = [e.type.name for e in events]
+    registered = _am_first(events, "SERVING_ENDPOINT_REGISTERED")
+    check(registered.payload.url == url,
+          f"am: serve: registered {registered.payload.url}, SERVING_UP {url}")
+    launched = _am_launches(_am_task_log(app_dir, "serving_0", "stderr"),
+                            "serve")
+    check(launched.get("flash_fwd", 0) > 0
+          and launched.get("rmsnorm_fwd", 0) > 0,
+          f"am: serve: the server launched {launched}")
+    with open(os.path.join(app_dir, "status.json")) as f:
+        status = json.load(f)
+    started = _am_first(events, "TASK_STARTED").timestamp / 1000.0
+    log(f"am: serve: {TRAIN_CONFIG}, 2 slots, at {url}: /v1/generate "
+        f"{AM_SERVE_TOKENS} tokens in {generate_ms:.1f} ms; SIGTERM to the "
+        f"AM: it exited {rc} ({status['status']}), the port closed; events "
+        f"{names}; the server's own count of its launches {launched}; "
+        f"{smi}")
+    log(f"am: serve: AM start -> first container launch "
+        f"{(started - t_spawn) * 1e3:.0f} ms, container launch -> "
+        f"SERVING_ENDPOINT_REGISTERED "
+        f"{registered.timestamp / 1000.0 - started:.2f} s; {smi}")
+    return launched
+
+
+def phase_am(smi: str) -> dict[str, int]:
+    """Two jobs under `python -m tony_tpu_torch.am`, with no module of
+    tony_tpu importable. Returns the trainer's and the server's own
+    counts of their launches, summed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-am-")
+    t0 = time.monotonic()
+    try:
+        cache, env = _am_tree(root)
+        train = _am_train(root, env, cache, smi)
+        serve = _am_serve(root, env, cache, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"am: two jobs in {time.monotonic() - t0:.1f} s")
+    return {k: train.get(k, 0) + serve.get(k, 0)
+            for k in set(train) | set(serve)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision,executor",
+                            "pipeline,spec,vision,executor,am",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -5321,6 +5607,8 @@ def main(argv=None) -> int:
             launches["vision"] = phase_vision()
         if "executor" in phases:
             launches["executor"] = phase_executor(smi)
+        if "am" in phases:
+            launches["am"] = phase_am(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

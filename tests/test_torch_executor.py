@@ -269,14 +269,22 @@ def test_task_log_service_serves_the_jax_reader(tmp_path, monkeypatch):
 # a whole job under the JAX package's real AM
 # ---------------------------------------------------------------------------
 
-def _run_job(tmp_path, executor: str, command: str, workers: int = 2):
-    """One job of pytorch workers under an in-process AM whose local
-    backend launches `executor`'s package. Returns (succeeded, events,
-    app dir)."""
-    from tony_tpu.am.application_master import ApplicationMaster
-    from tony_tpu.cluster.local import LocalClusterBackend
-    from tony_tpu.conf import TonyConfiguration
-    from tony_tpu.events.handler import parse_events
+def _run_job(tmp_path, executor: str, command: str, workers: int = 2,
+             am: str = "jax"):
+    """One job of pytorch workers under an in-process AM. With the JAX
+    package's AM (`am="jax"`), its local backend launches `executor`'s
+    package; the port's AM launches the port's executor. Returns
+    (succeeded, events, app dir)."""
+    if am == "port":
+        from tony_tpu_torch.am.application_master import ApplicationMaster
+        from tony_tpu_torch.cluster.local import LocalClusterBackend
+        from tony_tpu_torch.conf import TonyConfiguration
+        from tony_tpu_torch.events.handler import parse_events
+    else:
+        from tony_tpu.am.application_master import ApplicationMaster
+        from tony_tpu.cluster.local import LocalClusterBackend
+        from tony_tpu.conf import TonyConfiguration
+        from tony_tpu.events.handler import parse_events
 
     class _Backend(LocalClusterBackend):
         def launch_container(self, container, cmd, env, cwd):
@@ -295,13 +303,13 @@ def _run_job(tmp_path, executor: str, command: str, workers: int = 2):
                  "tony.task.registration-timeout-sec": 60,
                  "tony.am.stop-poll-timeout-ms": 3000}.items():
         conf.set(k, v, "test")
-    app_id = f"app_{executor}"
+    app_id = f"app_{executor}" if am == "jax" else f"app_{am}_am"
     app_dir = str(tmp_path / app_id)
     os.makedirs(app_dir)
     conf.write(os.path.join(app_dir, JC.TONY_FINAL_CONF))
-    am = ApplicationMaster(conf, app_id, app_dir,
-                           backend=_Backend(app_id=app_id))
-    ok = am.run()
+    am_ = ApplicationMaster(conf, app_id, app_dir,
+                            backend=_Backend(app_id=app_id))
+    ok = am_.run()
     hist = os.path.join(app_dir, JC.HISTORY_DIR_NAME)
     finals = [os.path.join(d, f) for d, _, files in os.walk(hist)
               for f in files if f.endswith(".jhist")]
@@ -346,6 +354,42 @@ def test_gang_job_under_the_jax_am_reports_as_the_jax_executors(tmp_path):
     with open(os.path.join(app_dir, JC.CONTAINERS_DIR_NAME, "worker_0_s0",
                            "stdout")) as f:
         assert "final loss" in f.read()
+
+
+def test_gang_job_under_the_port_am_reports_as_under_the_jax_am(tmp_path):
+    """The same 2-worker gang of the port's trainer under the port's AM
+    (which launches the port's executor) and under the JAX package's AM
+    with the port's executor: both succeed, rank 0 trains, and each
+    task's events agree. A task's last TASK_FINISHED is compared only
+    where both AMs emitted it, and the application's events by type and
+    status: whether an AM emits that event and takes the last metrics
+    push before it stops is the JAX AM's race, which the port's copy
+    keeps."""
+    command = (f"{sys.executable} -m tony_tpu_torch.train --device cpu "
+               f"--config tiny --steps 2 --batch-size 2 --seq-len 32 "
+               f"--log-every 1")
+    views = {}
+    for am in ("jax", "port"):
+        ok, events, app_dir = _run_job(tmp_path, "port", command, am=am)
+        assert ok, f"the job under the {am} AM failed"
+        views[am] = _task_view(events)
+        with open(os.path.join(app_dir, JC.CONTAINERS_DIR_NAME,
+                               "worker_0_s0", "stdout")) as f:
+            assert "final loss" in f.read()
+    port, jax_ = views["port"], views["jax"]
+    assert set(port["tasks"]) == set(jax_["tasks"]) \
+        == {("worker", 0), ("worker", 1)}
+    assert [e[:2] for e in port["app"]] == [e[:2] for e in jax_["app"]]
+    for task, seq in port["tasks"].items():
+        other = jax_["tasks"][task]
+        assert [e for e in seq if e[0] != "TASK_FINISHED"] \
+            == [e for e in other if e[0] != "TASK_FINISHED"], (seq, other)
+        finished = [e for e in seq if e[0] == "TASK_FINISHED"]
+        if finished and other[-1][0] == "TASK_FINISHED":
+            assert finished[-1] == other[-1]
+            assert finished[-1][1] == "SUCCEEDED"
+            assert {"MAX_MEMORY_BYTES", "TRAIN_STEP_TIME_MS",
+                    "GOODPUT_RENDEZVOUS_WAIT_SECONDS"} <= set(finished[-1][2])
 
 
 def test_an_exit_code_is_reported_as_by_the_jax_executor(tmp_path):

@@ -31,8 +31,8 @@ from tony_tpu.conf import TonyConfiguration, keys as JK
 from tony_tpu.executor import runtimes as jruntimes
 from tony_tpu.executor import task_monitor as jmonitor
 from tony_tpu.observability import logs as jlogs
-from tony_tpu_torch import conf as K
-from tony_tpu_torch.conf import Configuration
+from tony_tpu_torch.conf import TonyConfiguration as PortConfiguration
+from tony_tpu_torch.conf import keys as K
 from tony_tpu_torch.executor import cuda_metrics, runtimes, task_monitor
 from tony_tpu_torch.observability import logs
 
@@ -60,10 +60,11 @@ CONFS = {
 
 
 def _both_confs(values: dict):
-    jconf = TonyConfiguration()
+    jconf, pconf = TonyConfiguration(), PortConfiguration()
     for k, v in values.items():
         jconf.set(k, v, "test")
-    return jconf, Configuration({**K.DEFAULTS, **values})
+        pconf.set(k, v, "test")
+    return jconf, pconf
 
 
 def _render(module, framework, spec, job, index, conf):
@@ -161,20 +162,20 @@ def test_frozen_conf_reads_equal_jax(tmp_path):
     conf.merge_cli(["tony.containers.resources=c.txt"])
     path = str(tmp_path / "tony-final.json")
     conf.write(path)
-    assert _reads(Configuration.read(path), K) \
+    assert _reads(PortConfiguration.read(path), K) \
         == _reads(TonyConfiguration.read(path), JK)
     # a plain JSON object, as both packages also accept
     plain = tmp_path / "plain.json"
     plain.write_text(json.dumps({"tony.task.metrics-interval-ms": "1s",
                                  "tony.worker.gpus": "1"}))
-    assert _reads(Configuration.read(str(plain)), K) \
+    assert _reads(PortConfiguration.read(str(plain)), K) \
         == _reads(TonyConfiguration.read(str(plain)), JK)
 
 
 def test_default_conf_reads_equal_jax():
     """No frozen conf: the port's defaults are the JAX package's for
     every key the executor reads (sources too)."""
-    assert _reads(Configuration(), K) == _reads(TonyConfiguration(), JK)
+    assert _reads(PortConfiguration(), K) == _reads(TonyConfiguration(), JK)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 It mirrors `tony_tpu`'s module paths: `ops/` (with the hand-written CUDA
 kernels in `csrc/`), `models/`, `parallel/`, `serve/`, `train/`, the
-task side of the orchestration layer (`conf.py`, `security/`, `rpc/`,
-`observability/`) and the task executor (`executor/`, with the helpers it
-needs in `utils/`, `storage/` and `events/`). It imports torch and never
-jax or anything of `tony_tpu`; the JAX package stays the reference the
-port's tests hold it against.
+orchestration layer (`conf/`, `security/`, `rpc/`, `observability/`,
+`events/`), the task executor (`executor/`, with the helpers it needs in
+`utils/` and `storage/`) and the ApplicationMaster core (`am/`,
+`session/`, `cluster/`). It imports torch and never jax or anything of
+`tony_tpu`; the JAX package stays the reference the port's tests hold it
+against.
 """

@@ -140,7 +140,7 @@ def maybe_gpu_sampler(conf, jobtype: str) -> Optional[GpuSampler]:
     """A sampler iff this jobtype requested GPUs, GPU metrics are enabled
     (`tony.task.gpu-metrics.enabled`, reference
     TonyConfigurationKeys.java:152), and a binary exists."""
-    from tony_tpu_torch import conf as K
+    from tony_tpu_torch.conf import keys as K
 
     if conf.get_int(K.gpus_key(jobtype), 0) <= 0:
         return None

@@ -26,8 +26,8 @@ from __future__ import annotations
 import json
 
 from tony_tpu_torch import constants as C
-from tony_tpu_torch import conf as K
-from tony_tpu_torch.conf import Configuration
+from tony_tpu_torch.conf import keys as K
+from tony_tpu_torch.conf import TonyConfiguration
 
 ClusterSpec = dict[str, list[str]]  # {jobtype: ["host:port", ...]}
 
@@ -47,7 +47,7 @@ def global_rank(cluster_spec: ClusterSpec, job_name: str, index: int) -> int:
 
 
 def _tf_env(cluster_spec: ClusterSpec, job_name: str, index: int,
-            conf: Configuration) -> dict[str, str]:
+            conf: TonyConfiguration) -> dict[str, str]:
     tf_config = {
         "cluster": cluster_spec,
         "task": {"type": job_name, "index": index},
@@ -59,7 +59,7 @@ def _tf_env(cluster_spec: ClusterSpec, job_name: str, index: int,
 
 
 def _pytorch_env(cluster_spec: ClusterSpec, job_name: str, index: int,
-                 conf: Configuration) -> dict[str, str]:
+                 conf: TonyConfiguration) -> dict[str, str]:
     workers = cluster_spec.get(C.WORKER_JOB_NAME)
     if not workers:
         raise ValueError("pytorch runtime requires a 'worker' jobtype "
@@ -77,7 +77,7 @@ def _pytorch_env(cluster_spec: ClusterSpec, job_name: str, index: int,
 
 
 def _mxnet_env(cluster_spec: ClusterSpec, job_name: str, index: int,
-               conf: Configuration) -> dict[str, str]:
+               conf: TonyConfiguration) -> dict[str, str]:
     schedulers = cluster_spec.get(C.SCHEDULER_JOB_NAME)
     if not schedulers:
         raise ValueError("mxnet runtime requires a 'scheduler' jobtype")
@@ -94,14 +94,14 @@ def _mxnet_env(cluster_spec: ClusterSpec, job_name: str, index: int,
 
 
 def _horovod_env(cluster_spec: ClusterSpec, job_name: str, index: int,
-                 conf: Configuration) -> dict[str, str]:
+                 conf: TonyConfiguration) -> dict[str, str]:
     # horovodrun / the user's launcher handles its own rendezvous
     # (TaskExecutor.java:201-204 deliberately sets nothing)
     return {}
 
 
 def _jax_env(cluster_spec: ClusterSpec, job_name: str, index: int,
-             conf: Configuration) -> dict[str, str]:
+             conf: TonyConfiguration) -> dict[str, str]:
     order = global_task_order(cluster_spec)
     process_id = order.index((job_name, index))
     num_processes = len(order)
@@ -143,7 +143,7 @@ _RENDERERS = {
 
 def render_framework_env(framework: str, cluster_spec: ClusterSpec,
                          job_name: str, index: int,
-                         conf: Configuration) -> dict[str, str]:
+                         conf: TonyConfiguration) -> dict[str, str]:
     """Dispatch on tony.application.framework; ValueError for another."""
     try:
         renderer = _RENDERERS[framework.lower()]

@@ -39,9 +39,9 @@ import threading
 import time
 from typing import Optional
 
-from tony_tpu_torch import conf as K
+from tony_tpu_torch.conf import keys as K
 from tony_tpu_torch import constants as C
-from tony_tpu_torch.conf import Configuration
+from tony_tpu_torch.conf import TonyConfiguration
 from tony_tpu_torch.executor.runtimes import render_framework_env
 from tony_tpu_torch.executor.task_monitor import TaskMonitor
 from tony_tpu_torch.rpc.client import (
@@ -323,9 +323,9 @@ class TaskExecutor:
                 from tony_tpu_torch.storage.store import fetch_uri
                 conf_path = fetch_uri(
                     conf_uri, os.path.join(os.getcwd(), C.TONY_FINAL_CONF))
-        self.conf = (Configuration.read(conf_path)
+        self.conf = (TonyConfiguration.read(conf_path)
                      if conf_path and os.path.exists(conf_path)
-                     else Configuration())
+                     else TonyConfiguration())
         self.framework = self.conf.get_str(K.APPLICATION_FRAMEWORK, "jax")
         self.hb_interval_sec = self.conf.get_time_ms(
             K.TASK_HEARTBEAT_INTERVAL_MS, 1000) / 1000.0

@@ -362,13 +362,13 @@ def log_context_from_env(env=None) -> dict:
 
 
 def configure_structured_logging(env=None, stream=None,
-                                 level: int = logging.INFO
-                                 ) -> logging.Handler:
+                                 level: int = logging.INFO,
+                                 **extra) -> logging.Handler:
     """Install the structured handler as THE root handler of the process
-    (the port's trainer and server). Context comes from the env contract
-    (APP_ID/JOB_NAME/TASK_INDEX/TASK_ATTEMPT/TONY_TRACE_ID).
-    ``TONY_LOG_PLAIN=1`` falls back to the classic human format for
-    interactive debugging."""
+    (the port's AM, trainer and server). Context comes from the env
+    contract (APP_ID/JOB_NAME/TASK_INDEX/TASK_ATTEMPT/TONY_TRACE_ID) plus
+    ``extra`` overrides. ``TONY_LOG_PLAIN=1`` falls back to the classic
+    human format for interactive debugging."""
     e = env if env is not None else os.environ
     root = logging.getLogger()
     root.setLevel(level)
@@ -377,6 +377,8 @@ def configure_structured_logging(env=None, stream=None,
             level=level,
             format="%(asctime)s %(levelname)s %(name)s: %(message)s")
         return root.handlers[0]
-    handler = StructuredLogHandler(log_context_from_env(e), stream=stream)
+    ctx = log_context_from_env(e)
+    ctx.update({k: v for k, v in extra.items() if v not in (None, "")})
+    handler = StructuredLogHandler(ctx, stream=stream)
     root.handlers[:] = [handler]
     return handler

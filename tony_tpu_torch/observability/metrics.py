@@ -1,84 +1,80 @@
-"""The process-local health registry (`REGISTRY`).
+"""Timeseries ring buffers + the process-local health-metric registry.
 
-The port's copy of `MetricsRegistry` from `tony_tpu/observability/
-metrics.py`: create-on-first-use counters, gauges and summaries keyed by
-(name, labels), rendered as Prometheus families by the same rules (a
-summary expands into _count/_sum/_max and quantile-labelled samples), so
-the serving frontend's `/metrics` reads exactly as the JAX replica's. The
-RPC client's per-call latency is a summary on the slice's path, so
-`QuantileSketch` (from `tony_tpu/observability/skew.py`) comes along for
-its quantiles.
+The port's copy of `tony_tpu/observability/metrics.py`: the same
+summary geometry and Prometheus families, so the AM's and the serving
+frontend's `/metrics` read exactly as the JAX package's.
+
+``TimeSeries`` is the MetricsStore extension: each merged gauge appends
+into one of these, turning last-write gauges into trajectories
+(step-time, tokens/sec, HBM, TTFT over the run) at bounded memory —
+when the buffer fills it compacts by dropping every other point and
+doubling its stride, so a week-long run still covers its whole lifetime
+at progressively coarser resolution instead of only remembering the
+last N minutes.
+
+``MetricsRegistry`` is the orchestrator-observes-itself surface: RPC
+client/server call latency and retry/failure counters, heartbeat lag,
+liveliness sweep/detection latency, prefetch stall seconds, metrics-push
+drop counts. One module-level ``REGISTRY`` per process; the AM exposes
+its own over ``/metrics``, the serving frontend over ``/v1/metrics``.
+Mutation cost is a dict hit + a locked float add — safe for per-batch
+call sites (the prefetch stall counter), and nothing here ever blocks
+on I/O.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Union
+from typing import Optional, Union
 
 Number = Union[int, float]
 
 
-class QuantileSketch:
-    """Log-bucketed streaming quantiles at fixed memory: ``buckets``
-    log-spaced cells over [lo, hi) plus an underflow and an overflow
-    cell; `quantile` interpolates geometrically inside the hit bucket."""
+class TimeSeries:
+    """Bounded (ts_ms, value) series with stride-doubling downsample."""
 
-    __slots__ = ("buckets", "lo", "hi", "_log_lo", "_scale", "_counts",
-                 "count", "total", "vmin", "vmax")
+    def __init__(self, max_points: int = 512):
+        # floor of 4 keeps compaction meaningful (2 would thrash) and
+        # guarantees the ">= 2 points per gauge" portal contract
+        self.max_points = max(4, int(max_points))
+        self.stride = 1          # keep every stride-th offered sample
+        self._offered = 0
+        self._latest: Optional[tuple[int, float]] = None
+        self._points: list[tuple[int, float]] = []
+        self._lock = threading.Lock()
 
-    def __init__(self, buckets: int, lo: float, hi: float):
-        self.buckets = max(8, int(buckets))
-        self.lo = float(lo)
-        self.hi = float(hi)
-        self._log_lo = math.log(self.lo)
-        self._scale = self.buckets / (math.log(self.hi) - self._log_lo)
-        self._counts = [0] * (self.buckets + 2)
-        self.count = 0
-        self.total = 0.0
-        self.vmin = math.inf
-        self.vmax = -math.inf
-
-    def _index(self, value: float) -> int:
-        if value < self.lo:
-            return 0
-        if value >= self.hi:
-            return self.buckets + 1
-        return 1 + int((math.log(value) - self._log_lo) * self._scale)
-
-    def add(self, value: float) -> None:
+    def append(self, ts_ms: int, value: float) -> None:
         v = float(value)
         if math.isnan(v) or math.isinf(v):
-            return
-        v = max(0.0, v)
-        self._counts[self._index(v)] += 1
-        self.count += 1
-        self.total += v
-        self.vmin = min(self.vmin, v)
-        self.vmax = max(self.vmax, v)
+            return                      # a trajectory of NaNs plots nothing
+        with self._lock:
+            self._latest = (int(ts_ms), v)
+            if self._offered % self.stride == 0:
+                self._points.append((int(ts_ms), v))
+                if len(self._points) >= self.max_points:
+                    # halve resolution, double the decimation: the series
+                    # keeps covering the whole run at bounded memory
+                    self._points = self._points[::2]
+                    self.stride *= 2
+            self._offered += 1
 
-    def quantile(self, q: float) -> float:
-        """Approximate q-quantile; 0.0 on an empty sketch. The under- and
-        overflow cells answer with the observed min and max."""
-        if self.count == 0:
-            return 0.0
-        target = q * self.count
-        seen = 0.0
-        for i, c in enumerate(self._counts):
-            if c == 0:
-                continue
-            if seen + c >= target:
-                if i == 0:
-                    return max(0.0, self.vmin)
-                if i == self.buckets + 1:
-                    return self.vmax
-                a = math.exp(self._log_lo + (i - 1) / self._scale)
-                b = math.exp(self._log_lo + i / self._scale)
-                frac = (target - seen) / c
-                est = a * (b / a) ** max(0.0, min(1.0, frac))
-                return max(self.vmin, min(self.vmax, est))
-            seen += c
-        return self.vmax
+    def to_list(self) -> list[list[Number]]:
+        with self._lock:
+            out = [[ts, v] for ts, v in self._points]
+            # the tail is always current even mid-decimation: a scrape
+            # between kept samples still sees the newest value
+            if self._latest is not None and (
+                    not out or list(self._latest) != out[-1]):
+                out.append(list(self._latest))
+        return out
+
+    def __len__(self) -> int:
+        return len(self.to_list())
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
 class _Metric:
@@ -115,29 +111,37 @@ class Gauge(_Metric):
 
 
 class Summary(_Metric):
-    """count/sum/max plus p50/p95/p99 from a 32-bucket sketch over 1 µs
-    .. 1e5 s (the JAX summary's geometry)."""
+    """count/sum/max plus bounded p50/p95/p99 via a fixed-width
+    log-bucketed sketch (observability/skew.QuantileSketch — 34 counter
+    cells per summary, never a sample list). Exposed as
+    _count/_sum/_max samples and quantile-labeled gauges; observe() cost
+    is one lock + a handful of float ops, safe on the per-RPC paths."""
 
     __slots__ = ("count", "sum", "max", "sketch")
 
+    # latencies arrive in seconds; the shared ms-domain sketch geometry
+    # would round microsecond RPCs into its underflow cell, so summaries
+    # get their own domain (1 µs .. ~28 h, 32 buckets -> ~±20%/bucket)
     SKETCH_BUCKETS = 32
     SKETCH_LO = 1e-6
     SKETCH_HI = 1e5
 
     def __init__(self, name: str, labels: dict):
         super().__init__(name, labels)
+        from tony_tpu_torch.observability.skew import QuantileSketch
         self.count = 0
         self.sum = 0.0
         self.max = 0.0
-        self.sketch = QuantileSketch(self.SKETCH_BUCKETS, self.SKETCH_LO,
-                                     self.SKETCH_HI)
+        self.sketch = QuantileSketch(buckets=self.SKETCH_BUCKETS,
+                                     lo=self.SKETCH_LO, hi=self.SKETCH_HI)
 
     def observe(self, v: Number) -> None:
         v = float(v)
         with self._lock:
             self.count += 1
             self.sum += v
-            self.max = max(self.max, v)
+            if v > self.max:
+                self.max = v
             self.sketch.add(v)
 
     def quantile(self, q: float) -> float:
@@ -145,20 +149,21 @@ class Summary(_Metric):
             return self.sketch.quantile(q)
 
 
-def _label_key(labels: dict) -> tuple:
-    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
-
-
 class MetricsRegistry:
-    """Create-on-first-use registry of counters, gauges and summaries."""
+    """Create-on-first-use registry of counters/gauges/summaries keyed by
+    (name, labels). Rendered to Prometheus families or a JSON snapshot."""
 
     def __init__(self):
-        self._metrics: dict[tuple, _Metric] = {}
+        self._metrics: dict[tuple, _Metric] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
 
     def _get(self, cls, name: str, labels: dict):
         key = (name, _label_key(labels))
-        m = self._metrics.get(key)      # lock-free once created
+        # lock-free fast path: after first creation every caller hits this
+        # read; dict get on an existing key is safe under the GIL and the
+        # slow path below re-checks under the lock
+        # tony: disable=guarded-by -- double-checked create-on-first-use
+        m = self._metrics.get(key)
         if m is None:
             with self._lock:
                 m = self._metrics.get(key)
@@ -182,15 +187,15 @@ class MetricsRegistry:
             self._metrics.clear()
 
     def families(self) -> list[dict]:
-        """Prometheus families (observability/prometheus.py `render`)."""
+        """Prometheus families (see observability.prometheus.render):
+        summaries expand into _count/_sum/_max samples."""
         with self._lock:
             metrics = list(self._metrics.values())
         by_name: dict[str, dict] = {}
 
         def fam(name: str, ftype: str) -> dict:
             return by_name.setdefault(
-                name, {"name": name, "type": ftype, "help": "",
-                       "samples": []})
+                name, {"name": name, "type": ftype, "help": "", "samples": []})
 
         for m in sorted(metrics, key=lambda x: (x.name,
                                                 sorted(x.labels.items()))):
@@ -206,11 +211,24 @@ class MetricsRegistry:
                 fam(m.name + "_max", "gauge")["samples"].append(
                     (m.labels, m.max))
                 if m.count:
+                    # Prometheus summary convention: the base family
+                    # carries quantile-labeled samples
                     for q in (0.5, 0.95, 0.99):
                         fam(m.name, "gauge")["samples"].append(
                             ({**m.labels, "quantile": str(q)},
                              m.quantile(q)))
         return [by_name[k] for k in sorted(by_name)]
+
+    def snapshot(self) -> dict:
+        """Flat JSON view (diagnostics + tests): name{labels} -> value."""
+        out: dict[str, float] = {}
+        for f in self.families():
+            for labels, value in f["samples"]:
+                suffix = ("{" + ",".join(f"{k}={v}" for k, v in
+                                         sorted(labels.items())) + "}"
+                          if labels else "")
+                out[f["name"] + suffix] = value
+        return out
 
 
 # the per-process registry every subsystem registers into

@@ -18,7 +18,9 @@ The port's copy of the task-side half of `tony_tpu/observability/perf.py`:
   payload's keys) through the metrics RPC. The profiler server on the
   task's ``TB_PORT`` (`profiler_server.py`) writes the same request file
   and reads the capture's state.
-The AM-side aggregation and SLO watchdog stay the AM's.
+The AM's half: `aggregate_goodput` folds the tasks' ledgers into the job's
+``goodput.json``, and `SloWatchdog` latches step-time regressions and a
+goodput floor over the AM's trajectories.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import logging
 import os
 import threading
 import time
+import uuid
 from typing import Callable, Optional
 
 LOG = logging.getLogger(__name__)
@@ -41,6 +44,8 @@ PHASES = (
 
 GOODPUT_METRIC_PREFIX = "GOODPUT_"
 GOODPUT_WALL_METRIC = "GOODPUT_WALL_SECONDS"
+# the phases that count as productive in the job's goodput
+PRODUCTIVE_PHASES = ("train_step",)
 
 
 def goodput_metric_name(phase: str) -> str:
@@ -159,6 +164,235 @@ class GoodputLedger:
         out.append({"name": GOODPUT_WALL_METRIC,
                     "value": round(snap["wall_s"], 4)})
         return out
+
+
+# ---------------------------------------------------------------------------
+# the AM side: the job's goodput and the SLO watchdog
+# ---------------------------------------------------------------------------
+
+def parse_goodput_gauges(gauges: dict[str, float]) -> Optional[dict]:
+    """Invert `GoodputLedger.metrics()` from a task's latest-gauge map:
+    -> {"phases": {...}, "wall_s": ...}, or None when the task never
+    pushed a ledger."""
+    phases: dict[str, float] = {}
+    wall = None
+    for name, value in gauges.items():
+        if name == GOODPUT_WALL_METRIC:
+            wall = float(value)
+        elif (name.startswith(GOODPUT_METRIC_PREFIX)
+              and name.endswith("_SECONDS")):
+            phase = name[len(GOODPUT_METRIC_PREFIX):-len("_SECONDS")].lower()
+            phases[phase] = float(value)
+    if wall is None and not phases:
+        return None
+    return {"phases": phases,
+            "wall_s": wall if wall is not None else sum(phases.values())}
+
+
+def aggregate_goodput(per_task_gauges: dict[str, dict[str, float]],
+                      relaunch_downtime_s: float = 0.0,
+                      preemption_downtime_s: float = 0.0,
+                      resize_downtime_s: float = 0.0,
+                      am_downtime_s: float = 0.0) -> dict:
+    """Fold per-task ledgers + AM-side relaunch downtime into the job
+    view flushed as `goodput.json`:
+
+    {"tasks": {task_id: {"phases", "wall_s", "mfu_pct"?,
+                         "tokens_per_sec_per_chip"?}},
+     "job": {"goodput_pct", "productive_s", "wall_s",
+             "relaunch_downtime_s", "preemption_downtime_s",
+             "resize_downtime_s", "am_downtime_s"}}
+
+    goodput_pct = productive train-step seconds / (summed task wall +
+    relaunch downtime + preemption downtime + resize downtime + AM
+    downtime) — downtime the fault-tolerance layer spent between
+    attempts, the eviction→resume gap a checkpoint-then-evict
+    preemption cost this job's lineage, the quiesce→re-rendezvous gap
+    of every elastic resize (the `resize` phase), and the control-plane
+    blackout of an AM crash→adoption-barrier recovery (the
+    `am_downtime` phase), all count AGAINST goodput even though no
+    task process existed (or no AM was listening) to observe them."""
+    tasks: dict[str, dict] = {}
+    productive = 0.0
+    wall_total = 0.0
+    for task_id, gauges in sorted(per_task_gauges.items()):
+        ledger = parse_goodput_gauges(gauges)
+        if ledger is None:
+            continue
+        entry = dict(ledger)
+        for gauge, key in (("TRAIN_MFU_PCT", "mfu_pct"),
+                           ("TRAIN_TOKENS_PER_SEC_PER_CHIP",
+                            "tokens_per_sec_per_chip")):
+            if gauge in gauges:
+                entry[key] = float(gauges[gauge])
+        tasks[task_id] = entry
+        wall_total += entry["wall_s"]
+        productive += sum(entry["phases"].get(p, 0.0)
+                          for p in PRODUCTIVE_PHASES)
+    denom = wall_total + max(0.0, relaunch_downtime_s) \
+        + max(0.0, preemption_downtime_s) + max(0.0, resize_downtime_s) \
+        + max(0.0, am_downtime_s)
+    return {
+        "tasks": tasks,
+        "job": {
+            "goodput_pct": round(100.0 * productive / denom, 3)
+            if denom > 0 else 0.0,
+            "productive_s": round(productive, 4),
+            "wall_s": round(denom, 4),
+            "relaunch_downtime_s": round(max(0.0, relaunch_downtime_s), 4),
+            "preemption_downtime_s": round(
+                max(0.0, preemption_downtime_s), 4),
+            "resize_downtime_s": round(max(0.0, resize_downtime_s), 4),
+            "am_downtime_s": round(max(0.0, am_downtime_s), 4),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# SLO watchdog (AM-side)
+# ---------------------------------------------------------------------------
+
+class SloWatchdog:
+    """Latched SLO checks over the AM's metric trajectories.
+
+    - step-time regression: a task's latest TRAIN_STEP_TIME_MS exceeds
+      its own baseline (median of the first samples **of its current
+      attempt**) by more than `step_regression_pct` percent. The
+      baseline is attempt-aware: a task relaunch (attempt bump) resets
+      the baseline window to the new attempt's own samples, so a
+      replacement's recompile steps become the new baseline instead of
+      tripping the latch against the dead attempt's steady state;
+    - goodput floor: job goodput_pct below `goodput_floor_pct`.
+
+    `check()` returns only NEWLY-entered violations (the AM emits one
+    WARNING history event per entry); the latch re-arms when the
+    condition recovers. `current_step_regressions()` exposes the raw
+    currently-violating set without the latch — the alert engine's
+    step-regression rule reads that and runs its own lifecycle.
+    Thresholds <= 0 disable the respective check."""
+
+    BASELINE_POINTS = 5
+    MIN_POINTS = 3
+
+    def __init__(self, step_regression_pct: float = 0.0,
+                 goodput_floor_pct: float = 0.0):
+        self.step_regression_pct = step_regression_pct
+        self.goodput_floor_pct = goodput_floor_pct
+        self._latched: set[str] = set()
+        # task_id -> (attempt the baseline belongs to, boundary
+        # timestamp: samples at or before it belong to dead attempts).
+        # A TIMESTAMP, not an index — the TimeSeries behind the series
+        # decimates in place when full, so an absolute index would
+        # drift (or point past the end forever) after a halving; the
+        # boundary survives decimation because surviving points keep
+        # their timestamps.
+        self._baseline_marks: dict[str, tuple[int, int]] = {}
+
+    @staticmethod
+    def _median(values: list[float]) -> float:
+        ordered = sorted(values)
+        return ordered[len(ordered) // 2]
+
+    def _baseline_boundary(self, task_id: str, attempt: int,
+                           points: list) -> int:
+        """Timestamp before which samples are excluded from the current
+        attempt's baseline window. First sighting of a slot keeps the
+        whole series; an attempt bump cuts at the series tail (the
+        trajectories survive a relaunch, so the dead attempt's points
+        must stay out of the new baseline) while keeping the newest
+        point — the push that announced the new attempt; monitor
+        cadence is at least as fast as the push cadence, so at most one
+        new-attempt point predates the bump being observed."""
+        mark = self._baseline_marks.get(task_id)
+        if mark is not None and mark[0] == attempt:
+            return mark[1]
+        boundary = -1
+        if mark is not None and len(points) >= 2:
+            boundary = int(points[-2][0])
+        self._baseline_marks[task_id] = (attempt, boundary)
+        # the old attempt's latched violation (if any) describes a task
+        # that no longer exists — re-arm
+        self._latched.discard(f"step_time:{task_id}")
+        return boundary
+
+    def current_step_regressions(
+            self, step_series: dict[str, list],
+            attempts: Optional[dict[str, int]] = None) -> list[dict]:
+        """The CURRENTLY-violating tasks (no latch): {"kind",
+        "task_id", "value", "threshold", "message"} dicts. `attempts`
+        maps task_id -> its latest attempt number (the MetricsStore's
+        per-slot attempt tracking); absent entries read as attempt 0."""
+        if self.step_regression_pct <= 0:
+            return []
+        attempts = attempts or {}
+        out: list[dict] = []
+        for task_id, points in sorted(step_series.items()):
+            points = [p for p in points
+                      if isinstance(p, (list, tuple)) and len(p) == 2]
+            attempt = int(attempts.get(task_id, 0) or 0)
+            boundary = self._baseline_boundary(task_id, attempt, points)
+            values = [float(v) for ts, v in points if ts > boundary]
+            if len(values) < max(self.MIN_POINTS,
+                                 self.BASELINE_POINTS // 2 + 1):
+                continue
+            baseline = self._median(values[:self.BASELINE_POINTS])
+            latest = values[-1]
+            threshold = baseline * (1.0 + self.step_regression_pct
+                                    / 100.0)
+            if baseline > 0 and latest > threshold:
+                out.append({
+                    "kind": "step_time_regression",
+                    "task_id": task_id,
+                    "value": round(latest, 3),
+                    "threshold": round(threshold, 3),
+                    "message": (
+                        f"step time {latest:.1f} ms exceeds baseline "
+                        f"{baseline:.1f} ms (attempt {attempt}) by more "
+                        f"than {self.step_regression_pct:.0f}%"),
+                })
+        return out
+
+    def check(self, step_series: dict[str, list],
+              goodput_pct: Optional[float] = None,
+              attempts: Optional[dict[str, int]] = None) -> list[dict]:
+        """`step_series`: {task_id: [[ts_ms, step_ms], ...]} (the
+        MetricsStore's TRAIN_STEP_TIME_MS trajectories). Returns newly
+        entered violations as {"kind", "task_id"?, "value",
+        "threshold", "message"} dicts."""
+        fresh: list[dict] = []
+        seen: set[str] = set()
+        for violation in self.current_step_regressions(step_series,
+                                                       attempts=attempts):
+            key = f"step_time:{violation['task_id']}"
+            seen.add(key)
+            if key not in self._latched:
+                self._latched.add(key)
+                fresh.append(violation)
+        if self.goodput_floor_pct > 0 and goodput_pct is not None:
+            key = "goodput_floor"
+            if goodput_pct < self.goodput_floor_pct:
+                seen.add(key)
+                if key not in self._latched:
+                    self._latched.add(key)
+                    fresh.append({
+                        "kind": "goodput_floor",
+                        "value": round(goodput_pct, 3),
+                        "threshold": self.goodput_floor_pct,
+                        "message": (
+                            f"job goodput {goodput_pct:.1f}% below the "
+                            f"{self.goodput_floor_pct:.0f}% floor"),
+                    })
+        # re-arm every latch whose condition recovered this check
+        self._latched &= seen
+        return fresh
+
+    def active(self) -> list[str]:
+        """Currently-latched violation keys (alert gauge source)."""
+        return sorted(self._latched)
+
+
+def new_profile_request_id() -> str:
+    return uuid.uuid4().hex[:12]
 
 
 class _TorchTrace:

@@ -1,7 +1,7 @@
 """The always-on sampling profiler and stall watchdog of a port process.
 
 The port's copy of `tony_tpu/observability/profiler.py`, installed by the
-train and serve entry points as the JAX serve does:
+AM, train and serve entry points as the JAX package's are:
 - ``SamplingProfiler``: a daemon thread walking ``sys._current_frames()``
   at ``tony.profiler.hz`` (jittered ±25%), folding samples into a bounded
   collapsed-stack table. It measures its own cost and exports
@@ -14,6 +14,8 @@ train and serve entry points as the JAX serve does:
   stack capture, one PROCESS_STALL_DETECTED / _CLEARED pair and
   ``tony_stalls_total``.
 - ``enable_crash_dumps``: faulthandler, and an all-thread dump on SIGUSR2.
+  The AM hands the watchdog its event sink, so its stalls land in the job
+  history, and flushes the profile as ``profile.folded`` at finish.
 
 On a card the decode loop is host-bound, so the sampler competes with the
 launch loop for the GIL; its self-measured overhead is what
@@ -30,9 +32,9 @@ import signal
 import sys
 import threading
 import time
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
-from tony_tpu_torch import conf as K
+from tony_tpu_torch.conf import keys as K
 from tony_tpu_torch.observability.logs import redact
 from tony_tpu_torch.observability.metrics import REGISTRY
 
@@ -45,7 +47,8 @@ OVERHEAD_BUDGET_PCT = 1.0       # the hard self-overhead ceiling
 MAX_FRAME_DEPTH = 48
 OTHER_KEY = "(other)"
 
-# the event names the watchdog logs (the JAX package's AM event types)
+# event names the watchdog hands its sink; the AM adapter maps them onto
+# events.schema.EventType values (profiler stays import-free of events/)
 STALL_DETECTED = "PROCESS_STALL_DETECTED"
 STALL_CLEARED = "PROCESS_STALL_CLEARED"
 
@@ -83,6 +86,13 @@ class FoldTable:
         with self._lock:
             return dict(self._counts)
 
+    def folded(self) -> str:
+        """flamegraph.pl-compatible ``stack count`` lines, hottest first."""
+        snap = self.snapshot()
+        lines = [f"{stack} {count}" for stack, count in
+                 sorted(snap.items(), key=lambda kv: (-kv[1], kv[0]))]
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._counts)
@@ -108,10 +118,15 @@ def fold_frames(frame, depth: int = MAX_FRAME_DEPTH) -> list[str]:
     return leaf_first
 
 
-def collect_thread_stacks() -> list[dict]:
+def collect_thread_stacks(
+        redactor: Optional[Callable[[str], str]] = redact) -> list[dict]:
     """All-thread snapshot: [{name, ident, daemon, frames}] with frames
-    LEAF-first as ``file.py:line:function`` strings, every string
-    redacted (a stall event's evidence leaves the process in its log)."""
+    LEAF-first as ``file.py:line:function`` strings.
+
+    Stacks cross process boundaries (executor -> AM -> diagnostics.json
+    -> portal), so every string is redacted on the way out by default;
+    pass ``redactor=None`` only for same-process consumption.
+    """
     names = {t.ident: (t.name, t.daemon) for t in threading.enumerate()}
     out = []
     for ident, frame in sys._current_frames().items():
@@ -123,8 +138,9 @@ def collect_thread_stacks() -> list[dict]:
             frames.append(f"{os.path.basename(code.co_filename)}:"
                           f"{f.f_lineno}:{code.co_name}")
             f = f.f_back
-        name = redact(str(name))
-        frames = [redact(fr) for fr in frames]
+        if redactor is not None:
+            name = redactor(str(name))
+            frames = [redactor(fr) for fr in frames]
         out.append({"name": str(name), "ident": int(ident),
                     "daemon": bool(daemon), "frames": frames})
     out.sort(key=lambda t: t["name"])
@@ -220,6 +236,7 @@ class SamplingProfiler(threading.Thread):
 
     # the observer cannot watch itself: this thread is excluded from
     # sampling and from staleness checks
+    # tony: disable=watchdog-beacon -- the profiler is the observer
     def run(self) -> None:
         while not self._stop_evt.wait(self._interval()):
             try:
@@ -231,6 +248,27 @@ class SamplingProfiler(threading.Thread):
         self._stop_evt.set()
         if self.is_alive():
             self.join(timeout=join_timeout_sec)
+
+    # -- export -----------------------------------------------------------
+    def folded_text(self) -> str:
+        return self.table.folded()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            samples = self.samples
+            pct = self._overhead_pct_locked()
+            throttle = self._throttle
+        return {
+            "process": self.process_name,
+            "hz": self.hz,
+            "samples": samples,
+            "overhead_pct": round(pct, 4),
+            "overhead_budget_pct": self.budget_pct,
+            "throttle": throttle,
+            "distinct_stacks": len(self.table),
+            "dropped_samples": self.table.dropped,
+        }
+
 
 class Beacon:
     """One daemon loop's progress heartbeat.
@@ -298,29 +336,53 @@ def beacons() -> list[Beacon]:
         return list(_BEACONS.values())
 
 
+def _reset_beacons() -> None:
+    """Test isolation only."""
+    with _BEACONS_LOCK:
+        _BEACONS.clear()
+
+
 class StallWatchdog(threading.Thread):
     """Sweeps the beacon registry; latches a stall event pair per wedge.
 
     On detection: an all-thread stack capture, the stale loop's own leaf
     frame as the dominant blocking evidence, ``tony_stalls_total``, and
-    one STALL_DETECTED warning in the log. The latch clears (one
+    one STALL_DETECTED through the event sink. The latch clears (one
     STALL_CLEARED) when the beacon beats again — detect/clear pairs,
     never a detect storm.
     """
 
     def __init__(self, process_name: str,
                  stall_factor: float = DEFAULT_STALL_FACTOR,
-                 poll_sec: float = 1.0):
+                 poll_sec: float = 1.0,
+                 event_sink: Optional[Callable[[str, dict], None]] = None):
         super().__init__(name="tony-stall-watchdog", daemon=True)
         self.process_name = str(process_name)
         self.stall_factor = max(1.0, float(stall_factor))
         self.poll_sec = max(0.05, float(poll_sec))
+        self._sink = event_sink             # guarded-by: _lock
         self._stalled: dict[str, dict] = {}  # guarded-by: _lock
         self._stop_evt = threading.Event()
         self._lock = threading.Lock()
 
+    def set_event_sink(self, sink: Callable[[str, dict], None]) -> None:
+        with self._lock:
+            self._sink = sink
+
     def _emit(self, event: str, payload: dict) -> None:
-        LOG.warning("%s %s", event, payload)
+        with self._lock:
+            sink = self._sink
+        if sink is not None:
+            try:
+                sink(event, payload)
+            except Exception:
+                LOG.warning("stall event sink failed", exc_info=True)
+        else:
+            LOG.warning("%s %s", event, payload)
+
+    def stalled(self) -> dict[str, dict]:
+        with self._lock:
+            return dict(self._stalled)
 
     def check_once(self, now: Optional[float] = None) -> None:
         now = time.monotonic() if now is None else now
@@ -358,6 +420,7 @@ class StallWatchdog(threading.Thread):
                 })
 
     # a beacon here would be judged by the very loop that beats it
+    # tony: disable=watchdog-beacon -- the watchdog cannot watch itself
     def run(self) -> None:
         while not self._stop_evt.wait(self.poll_sec):
             try:
@@ -394,6 +457,7 @@ def install_task_observability(role: str, env=None) -> None:
     logs and, as the frozen conf asks, the profiler and watchdog, named
     ``<role>:<job>:<index>``."""
     from tony_tpu_torch import constants as C
+    from tony_tpu_torch.conf import TonyConfiguration
     from tony_tpu_torch.observability.logs import (
         configure_structured_logging,
     )
@@ -402,17 +466,18 @@ def install_task_observability(role: str, env=None) -> None:
     install_process_profiler(
         f"{role}:{e.get(C.JOB_NAME, role)}"
         f":{e.get(C.TASK_INDEX, str(os.getpid()))}",
-        conf=K.Configuration.from_env(e))
+        conf=TonyConfiguration.from_env(e))
 
 
 def install_process_profiler(
         process_name: str, conf=None,
+        event_sink: Optional[Callable[[str, dict], None]] = None,
+        crash_signals: tuple = (signal.SIGUSR2,),
 ) -> tuple[Optional[SamplingProfiler], Optional[StallWatchdog]]:
-    """One-call wiring for a long-running process: crash dumps (SIGUSR2)
-    + sampling profiler + stall watchdog, as ``tony.profiler.*`` in
-    `conf` asks. Returns the pair (both None when
-    ``tony.profiler.enabled`` is off)."""
-    enable_crash_dumps(signal.SIGUSR2)
+    """One-call wiring for a long-running control-plane process: crash
+    dumps + sampling profiler + stall watchdog. Returns the pair (either
+    None when ``tony.profiler.enabled`` is off)."""
+    enable_crash_dumps(*crash_signals)
     enabled, hz = True, DEFAULT_HZ
     max_stacks, factor = DEFAULT_MAX_STACKS, DEFAULT_STALL_FACTOR
     budget = OVERHEAD_BUDGET_PCT
@@ -428,6 +493,7 @@ def install_process_profiler(
     profiler = SamplingProfiler(process_name, hz=hz, max_stacks=max_stacks,
                                 overhead_budget_pct=budget)
     profiler.start()
-    watchdog = StallWatchdog(process_name, stall_factor=factor)
+    watchdog = StallWatchdog(process_name, stall_factor=factor,
+                             event_sink=event_sink)
     watchdog.start()
     return profiler, watchdog

@@ -10,20 +10,24 @@ server parent their spans under it, and the finished spans ride the
 metrics RPC (``update_metrics``'s ``spans``) to the AM. The span dict has
 the JAX package's keys. A recorder past ``max_spans`` counts drops in the
 health registry instead of growing. The executor's recorder also renders
-the context into its user process's env (`SpanRecorder.env`). The AM-side
-store is not ported.
+the context into its user process's env (`SpanRecorder.env`). The AM
+records its own spans straight into a `SpanStore` (the recorder's
+``sink``), which gathers every principal's spans for one app.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import uuid
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 from tony_tpu_torch.observability.metrics import REGISTRY
+
+LOG = logging.getLogger(__name__)
 
 # env contract (rendered by the AM / executor, read by children)
 TRACE_ID_ENV = "TONY_TRACE_ID"
@@ -81,18 +85,23 @@ class Span:
 
 
 class SpanRecorder:
-    """Process-local span source for one task (a trainer, a server):
-    finished spans accumulate for ``drain()`` and the metrics push."""
+    """Process-local span source for one principal (client, AM, one
+    executor, one trainer). ``sink`` (the AM wires its SpanStore here)
+    receives each span as it ends; sink-less recorders accumulate
+    finished spans for ``drain()`` + an RPC push."""
 
     def __init__(self, trace_id: str = "", task_id: str = "",
                  attempt: int = 0, parent_id: str = "",
-                 max_spans: int = 512):
+                 max_spans: int = 512,
+                 sink: Optional[Callable[[list[dict]], None]] = None):
         self.trace_id = trace_id
         self.task_id = task_id
         self.attempt = attempt
         self.parent_id = parent_id          # ambient parent from the env
         self._max = max(1, max_spans)
+        self._sink = sink
         self._finished: list[dict] = []
+        self._recorded = 0
         self._lock = threading.Lock()
 
     @classmethod
@@ -150,29 +159,25 @@ class SpanRecorder:
         self.end(s)
 
     def _record(self, d: dict) -> None:
+        sink = self._sink
+        if sink is not None:
+            try:
+                sink([d])
+            except Exception:  # noqa: BLE001 — tracing never fails the host
+                LOG.debug("span sink failed", exc_info=True)
+            return
         with self._lock:
             if len(self._finished) >= self._max:
                 REGISTRY.counter("tony_spans_dropped_total").inc()
                 return
             self._finished.append(d)
+            self._recorded += 1
 
     def drain(self) -> list[dict]:
         """Finished spans accumulated since the last drain (cleared) —
         the payload the executor/trainer piggybacks on the metrics RPC."""
         with self._lock:
             out, self._finished = self._finished, []
-        return out
-
-    def env(self, span: Optional[Span] = None) -> dict[str, str]:
-        """The trace context for a child process: the trace id and the
-        span the child parents under (default: this recorder's own
-        parent); {} for a recorder with no trace."""
-        if not self.trace_id:
-            return {}
-        parent = span.span_id if span is not None else self.parent_id
-        out = {TRACE_ID_ENV: self.trace_id}
-        if parent:
-            out[PARENT_SPAN_ENV] = parent
         return out
 
     def record_complete(self, name: str, start_ms: int, end_ms: int,
@@ -189,3 +194,53 @@ class SpanRecorder:
                     attrs=dict(attrs or {}))
         self._record(span.to_dict())
         return span
+
+    def env(self, span: Optional[Span] = None) -> dict[str, str]:
+        """Trace-context env block for a child process: the trace id and
+        the span the child should parent under (default: the ambient
+        parent this recorder was seeded with)."""
+        if not self.trace_id:
+            return {}
+        parent = span.span_id if span is not None else self.parent_id
+        out = {TRACE_ID_ENV: self.trace_id}
+        if parent:
+            out[PARENT_SPAN_ENV] = parent
+        return out
+
+
+class SpanStore:
+    """AM-side accumulation of every principal's spans for one app.
+    Bounded (``tony.trace.max-spans``); overflow counts drops rather
+    than growing — the history flush then says so."""
+
+    def __init__(self, max_spans: int = 2048):
+        self._max = max(1, max_spans)
+        self._spans: list[dict] = []
+        self.dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, spans: list[dict]) -> None:
+        with self._lock:
+            for d in spans or []:
+                if not isinstance(d, dict) or not d.get("name"):
+                    continue
+                if len(self._spans) >= self._max:
+                    self.dropped += 1
+                    REGISTRY.counter("tony_spans_dropped_total").inc()
+                    continue
+                self._spans.append(d)
+
+    def add_span(self, span: Span) -> None:
+        self.add([span.to_dict()])
+
+    def to_list(self) -> list[dict]:
+        """All spans, waterfall order (by start, then name)."""
+        with self._lock:
+            out = list(self._spans)
+        out.sort(key=lambda d: (int(d.get("start_ms", 0)),
+                                str(d.get("name", ""))))
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._spans)

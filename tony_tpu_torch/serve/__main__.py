@@ -1,7 +1,7 @@
 """Serving entry point: ``python -m tony_tpu_torch.serve``.
 
-Counterpart of ``python -m tony_tpu.serve``: it builds the model (random
-weights from a fixed seed, or a checkpoint's), a
+Counterpart of the JAX package's serving entry point: it builds the
+model (random weights from a fixed seed, or a checkpoint's), a
 ``ContinuousBatchingEngine`` and a ``ServeFrontend``, prints
 ``SERVING_UP <url>`` on stdout, and on SIGTERM or SIGINT drains in-flight
 requests, then stops the frontend and the engine.
@@ -42,6 +42,7 @@ outside the orchestrator:
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -52,12 +53,13 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from tony_tpu_torch import conf as K
+from tony_tpu_torch.conf import keys as K
+from tony_tpu_torch.conf.defaults import DEFAULTS
 from tony_tpu_torch import constants as C
 
 LOG = logging.getLogger(__name__)
 
-DRAIN_TIMEOUT_S = K.DEFAULTS[K.SERVING_FLEET_DRAIN_TIMEOUT_MS] / 1000.0
+DRAIN_TIMEOUT_S = DEFAULTS[K.SERVING_FLEET_DRAIN_TIMEOUT_MS] / 1000.0
 INIT_SEED = 0
 
 
@@ -315,7 +317,7 @@ def build_server(args, env=None, conf=None) -> Server:
     flags, the frozen conf (`conf`, else the one `TONY_CONF_PATH` names)
     and the task environment, started. The one place `main()` and
     `chip_smoke.py` build a server."""
-    from tony_tpu_torch.conf import Configuration
+    from tony_tpu_torch.conf import TonyConfiguration
     from tony_tpu_torch.device import resolve_device
     from tony_tpu_torch.observability.reqtrace import (
         ReqTraceCollector, TailSampler,
@@ -326,7 +328,7 @@ def build_server(args, env=None, conf=None) -> Server:
     )
 
     env = os.environ if env is None else env
-    conf = Configuration.from_env(env) if conf is None else conf
+    conf = TonyConfiguration.from_env(env) if conf is None else conf
     device = resolve_device(args.device)
     params, config = _load_model(args, device)
     # the budget is capped at the model's max_seq, flag or conf
@@ -392,12 +394,12 @@ def build_server(args, env=None, conf=None) -> Server:
 
 
 def main(argv=None) -> int:
-    from tony_tpu_torch.conf import Configuration
+    from tony_tpu_torch.conf import TonyConfiguration
     from tony_tpu_torch.train.metrics import ServingMetricsReporter
 
     args = build_arg_parser().parse_args(argv)
     env = os.environ
-    conf = Configuration.from_env(env)
+    conf = TonyConfiguration.from_env(env)
     server = build_server(args, env=env, conf=conf)
     # log-ok: greppable bring-up marker on raw stdout
     print(f"SERVING_UP {server.url}", flush=True)
@@ -442,6 +444,9 @@ def main(argv=None) -> int:
             server.url, env, weights_generation=server.weights_generation,
             draining=True, role=server.role))
         LOG.info("serving stopped cleanly")
+        # every launch of this process's kernels (all 0 on the CPU)
+        from tony_tpu_torch.ops import cuda_lib
+        LOG.info("kernel launches %s", json.dumps(cuda_lib.launches()))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Host, port and backoff helpers of the executor and the RPC clients.
+"""Host, port, path and backoff helpers of the AM, the executor and the
+RPC clients.
 
 The port's copy of what they use of `tony_tpu/utils/common.py`.
 """
@@ -21,6 +22,20 @@ def equal_jitter_backoff_sec(base_sec: float, max_sec: float, exponent: int,
     if max_sec > 0:
         cap = min(max_sec, cap)
     return rng.uniform(cap / 2.0, cap)
+
+
+def framework_pythonpath() -> str:
+    """The PYTHONPATH that makes `tony_tpu_torch` importable in a child
+    process whatever its cwd: the package's parent directory, put in
+    front of the inherited value unless it is there already."""
+    import os
+    import tony_tpu_torch
+    pkg_parent = os.path.dirname(
+        os.path.dirname(os.path.abspath(tony_tpu_torch.__file__)))
+    existing = os.environ.get("PYTHONPATH", "")
+    if existing and pkg_parent not in existing.split(os.pathsep):
+        return pkg_parent + os.pathsep + existing
+    return existing if pkg_parent in existing.split(os.pathsep) else pkg_parent
 
 
 def current_host() -> str:

@@ -69,7 +69,7 @@ class LocalizationCache:
     def from_conf(cls, conf) -> "LocalizationCache | None":
         """The cache `tony.localization.cache-enabled` asks for (None =
         disabled, today's copy-per-container semantics)."""
-        from tony_tpu_torch import conf as K
+        from tony_tpu_torch.conf import keys as K
         if not conf.get_bool(K.LOCALIZATION_CACHE_ENABLED, False):
             return None
         root = (conf.get_str(K.LOCALIZATION_CACHE_DIR, "")

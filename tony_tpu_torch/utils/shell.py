@@ -53,3 +53,15 @@ def wait_or_kill(proc: subprocess.Popen, timeout_sec: float = 0) -> int:
             pass
         proc.wait()
         return 124
+
+
+def execute_shell(command: str, timeout_sec: float = 0,
+                  extra_env: Optional[Mapping[str, str]] = None,
+                  cwd: Optional[str] = None,
+                  stdout=None, stderr=None) -> int:
+    """Run `command` via bash and return its exit code (the AM's
+    preprocessing job). timeout 0 = unlimited; on a timeout the whole
+    process group is killed and 124 returned."""
+    proc = launch_shell(command, extra_env=extra_env, cwd=cwd,
+                        stdout=stdout, stderr=stderr)
+    return wait_or_kill(proc, timeout_sec)
