@@ -289,11 +289,38 @@ Phases (any failure exits non-zero, and the result line is not printed):
               container launch, the job's wall and the serving task's
               container launch -> SERVING_ENDPOINT_REGISTERED.
 
+16. cli     — the port's client and CLI: `python -m tony_tpu_torch.cli
+              submit` from the same copy of `tony_tpu_torch/` alone,
+              each job one pytorch worker running `python -m
+              tony_tpu_torch.train` on llama3_1b_proxy B4 x S4096, 2
+              steps, kernels from the build cache. (a) On the local
+              backend with `tony.warmpool.enabled` (one warm child): the
+              CLI exits 0, status.json SUCCEEDED, the AM's log shows the
+              worker's executor leased warm, the trainer's own count of
+              its launches exactly 2 x the train phase's step, `cli logs
+              <app> worker:0 --follow` (run beside the job) prints the
+              trainer's launch line, `cli diagnose` finds no failure
+              record, `cli alerts` exits 2 naming
+              observability/alerts.py. (b) On the remote backend over
+              the exec transport (two nodes on this host under one node
+              root), staged through `tony.staging.location`: the CLI
+              exits 0, the worker ran in a workdir under the node root
+              holding the frozen conf it fetched from the store (equal
+              to the store's object), `fleet/jobstate.json` in the store
+              holds the jobstate keys and the final state, the same
+              exact launches. Prints, for each job, CLI spawn -> AM
+              start, the client_submit span, AM start -> first container
+              launch, container launch -> user process start (the warm
+              lease against the cold spawn), the user process's span,
+              its end -> the application span's end -> CLI exit, the
+              job's wall, and the phase's time.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
 parallel slice, `--phases build,pipeline` the pipeline and ep slice,
 `--phases build,spec,vision` the model zoo, `--phases build,executor`
-the task executor, `--phases build,am` the jobs under the port's AM.
+the task executor, `--phases build,am` the jobs under the port's AM,
+`--phases build,cli` the jobs submitted through the port's CLI.
 The kernels phase also holds K1-K3 at ViT's attention shapes (B64 H6
 S197 D64 and S17, non-causal, timed and bit for bit over two calls;
 vit_tiny's D16 in f32) and K4 at its rows (64 x 197 and the 64 CLS
@@ -311,7 +338,9 @@ pipelined runs, pipeline_entry and ep the pipelined and the (ep, fsdp) entry-poi
 its four full-width runs, vision the ViT runs of train_allreduce (its own
 count) and of the Trainer at 224/16, executor the trainer's own count
 under the executor, am the trainer's and the server's own counts under
-the port's AM; the cache phase's processes are uncounted), then the
+the port's AM, cli the trainer's own counts in the two jobs submitted
+through the port's CLI; the cache phase's processes are uncounted), then
+the
 card's name and power limit from nvidia-smi; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -321,6 +350,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import glob
 import json
 import math
 import os
@@ -5538,12 +5568,250 @@ def phase_am(smi: str) -> dict[str, int]:
             for k in set(train) | set(serve)}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: whole jobs submitted through the port's CLI
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_STEPS = 2
+CLI_JOB_S = 300.0
+
+
+def _cli_spans(app_dir: str, app_id: str) -> dict[str, dict]:
+    from tony_tpu_torch import constants as C
+    with open(os.path.join(app_dir, C.HISTORY_DIR_NAME, app_id,
+                           "spans.json")) as f:
+        return {s["name"]: s for s in json.load(f)}
+
+
+def _cli_job(root: str, env: dict, cache: str, tag: str,
+             extra: dict) -> dict:
+    """`python -m tony_tpu_torch.cli submit` of one training job, with
+    `cli logs <app> worker:0 --follow` started beside it once the
+    worker's container exists. Returns what the checks read."""
+    from tony_tpu_torch import constants as C
+
+    workdir = os.path.join(root, tag)
+    command = (f"{sys.executable} -m tony_tpu_torch.train --config "
+               f"{TRAIN_CONFIG} --batch-size {TRAIN_BATCH} --seq-len "
+               f"{TRAIN_SEQ} --steps {CLI_TRAIN_STEPS} --log-every 1")
+    # the AM keeps its default wait for the client's finish_application:
+    # with none, it stops its RPC server as it writes status.json, and the
+    # client's last task-info and finish calls wait out their deadlines
+    conf = {**{k: v for k, v in AM_CONF.items()
+               if k != "tony.am.stop-poll-timeout-ms"},
+            "tony.worker.instances": 1,
+            "tony.application.framework": "pytorch",
+            "tony.cluster.workdir": workdir,
+            "tony.executor.jax-cache-dir": cache, **extra}
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
+            "--executes", command]
+    for k, v in conf.items():
+        argv += ["--conf", f"{k}={v}"]
+    cli_log = os.path.join(root, f"{tag}.cli.log")
+    logs_out = os.path.join(root, f"{tag}.logs.out")
+    t_spawn = time.time()
+    with open(cli_log, "w") as out:
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    follower = None
+    try:
+        deadline = time.monotonic() + CLI_JOB_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            found = glob.glob(os.path.join(
+                workdir, "application_*", C.CONTAINERS_DIR_NAME,
+                "worker_0_s0", "stderr"))
+            if found:
+                app_dir = found[0].split(os.sep + C.CONTAINERS_DIR_NAME)[0]
+                with open(logs_out, "w") as out:
+                    follower = subprocess.Popen(
+                        [sys.executable, "-m", "tony_tpu_torch.cli", "logs",
+                         app_dir, "worker:0", "--follow"], cwd=root,
+                        env=env, stdout=out, stderr=subprocess.STDOUT,
+                        start_new_session=True)
+                break
+            time.sleep(0.05)
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        wall = time.time() - t_spawn
+        if follower is not None:
+            follower.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"cli: {tag}: the job or its log follower ran "
+                           f"past {CLI_JOB_S:.0f} s")
+    finally:
+        for p in (proc, follower):
+            if p is not None and p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    with open(cli_log) as f:
+        client_log = f.read()
+    check(follower is not None, f"cli: {tag}: no worker container "
+                                f"appeared; the CLI said:\n"
+                                f"{client_log[-3000:]}")
+    [app_dir] = glob.glob(os.path.join(workdir, "application_*"))
+    app_id = os.path.basename(app_dir)
+    with open(os.path.join(app_dir, C.AM_STATUS_FILE)) as f:
+        status = json.load(f)
+    stderr = _am_task_log(app_dir, "worker_0", "stderr")
+    check(rc == 0 and status["status"] == "SUCCEEDED",
+          f"cli: {tag}: the CLI exited {rc}, {status}; the CLI said:\n"
+          f"{client_log[-2000:]}\nthe task's stderr:\n{stderr[-3000:]}")
+    with open(os.path.join(app_dir, C.AM_STDERR)) as f:
+        am_log = f.read()
+    with open(logs_out) as f:
+        followed = f.read()
+    return {"app_dir": app_dir, "app_id": app_id, "t_spawn": t_spawn,
+            "wall": wall, "stderr": stderr, "am_log": am_log,
+            "followed": followed, "follower_rc": follower.returncode,
+            "spans": _cli_spans(app_dir, app_id)}
+
+
+def _cli_timing(tag: str, job: dict, smi: str) -> None:
+    spans = job["spans"]
+    app, task = spans["application"], spans["task:worker:0"]
+    submit, user = spans["client_submit"], spans["user_process"]
+    t_exit_ms = 1000 * (job["t_spawn"] + job["wall"])
+    log(f"cli: {tag}: CLI spawn -> AM start "
+        f"{app['start_ms'] - 1000 * job['t_spawn']:.0f} ms (client_submit "
+        f"span {submit['end_ms'] - submit['start_ms']} ms), AM start -> "
+        f"first container launch {task['start_ms'] - app['start_ms']} ms, "
+        f"container launch -> user process start "
+        f"{user['start_ms'] - task['start_ms']} ms, the user process "
+        f"{(user['end_ms'] - user['start_ms']) / 1e3:.2f} s, its end -> "
+        f"the application span's end "
+        f"{app['end_ms'] - user['end_ms']} ms -> CLI exit "
+        f"{t_exit_ms - app['end_ms']:.0f} ms; the job's wall "
+        f"{job['wall']:.2f} s (CLI spawn to CLI exit); {smi}")
+
+
+def _cli_launches(tag: str, job: dict) -> dict[str, int]:
+    from tony_tpu_torch.models.llama import get_config
+
+    launched = _am_launches(job["stderr"], f"cli {tag}")
+    per_step = _step_launches(get_config(TRAIN_CONFIG).n_layers)
+    want = {k: CLI_TRAIN_STEPS * v for k, v in per_step.items()}
+    check({k: launched.get(k) for k in want} == want,
+          f"cli: {tag}: the trainer launched {launched}, want {want}")
+    check("nvcc compiled" not in job["stderr"],
+          f"cli: {tag}: the task compiled a kernel the cache held")
+    return {k: launched.get(k, 0) for k in per_step}
+
+
+def _cli_warm(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
+    """(a) The local backend with one warm executor child."""
+    job = _cli_job(root, env, cache, "warm", {
+        "tony.warmpool.enabled": "true", "tony.warmpool.size": 1})
+    leases = [m for m in _log_messages(job["am_log"])
+              if m.startswith("leased warm executor for ")]
+    check(len(leases) == 1, f"cli: warm: the AM's lease lines {leases}")
+    launched = _cli_launches("warm", job)
+    check(job["follower_rc"] == 0 and any(
+        m.startswith("kernel launches ")
+        for m in _log_messages(job["followed"])),
+        f"cli: warm: `cli logs --follow` exited {job['follower_rc']} "
+        f"without the trainer's launch line:\n{job['followed'][-2000:]}")
+    diag = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.cli", "diagnose",
+         job["app_dir"]], cwd=root, env=env, capture_output=True,
+        text=True, timeout=120)
+    check(diag.returncode == 1 and "no diagnostics bundle found"
+          in diag.stderr and "first failing task" not in diag.stdout,
+          f"cli: warm: `cli diagnose` exited {diag.returncode}: "
+          f"{diag.stdout[-1000:]}{diag.stderr[-1000:]}")
+    alerts = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.cli", "alerts",
+         job["app_dir"]], cwd=root, env=env, capture_output=True,
+        text=True, timeout=120)
+    check(alerts.returncode == 2
+          and "observability/alerts.py" in alerts.stderr,
+          f"cli: warm: `cli alerts` exited {alerts.returncode}: "
+          f"{alerts.stderr[-1000:]}")
+    log(f"cli: warm: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{CLI_TRAIN_STEPS} steps through `cli submit` on the local "
+        f"backend with one warm executor: SUCCEEDED; {leases[0]}; the "
+        f"trainer's own count of its launches {launched}; `cli logs "
+        f"--follow` carried its launch line; `cli diagnose`: no failure "
+        f"record; `cli alerts`: exit 2 ({alerts.stderr.strip()}); {smi}")
+    _cli_timing("warm", job, smi)
+    return launched
+
+
+def _cli_remote(root: str, env: dict, cache: str,
+                smi: str) -> dict[str, int]:
+    """(b) The remote backend over the exec transport, two nodes on this
+    host, staged through a local staging location."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.observability.fleet import job_summary
+
+    nodes, stage = os.path.join(root, "nodes"), os.path.join(root, "stage")
+    job = _cli_job(root, env, cache, "remote", {
+        "tony.cluster.backend": "remote",
+        "tony.cluster.node-transport": "exec",
+        "tony.cluster.nodes": "nodeA:1,nodeB:1",
+        "tony.cluster.node-root": nodes,
+        "tony.staging.location": stage,
+        "tony.fleet.publish-interval-ms": 1000})
+    launches = [m for m in _log_messages(job["am_log"])
+                if m.startswith("launched container_")]
+    check(len(launches) == 1, f"cli: remote: launch lines {launches}")
+    cid = launches[0].split()[1]
+    workdir = os.path.join(nodes, cid)
+    check(f"(workdir {workdir})" in launches[0] and os.path.isdir(workdir),
+          f"cli: remote: {launches[0]}; want the workdir {workdir}")
+    staged = os.path.join(stage, job["app_id"], C.TONY_FINAL_CONF)
+    fetched = os.path.join(workdir, C.TONY_FINAL_CONF)
+    check(os.path.exists(staged) and os.path.exists(fetched),
+          f"cli: remote: staged conf {os.path.exists(staged)}, fetched "
+          f"into the workdir {os.path.exists(fetched)}")
+    with open(staged, "rb") as a, open(fetched, "rb") as b:
+        check(a.read() == b.read(),
+              "cli: remote: the worker's conf differs from the store's")
+    with open(os.path.join(stage, job["app_id"], C.FLEET_DIR_NAME,
+                           C.JOBSTATE_FILE)) as f:
+        jobstate = json.load(f)
+    want_keys = sorted(job_summary("a", "u", "q", "RUNNING"))
+    check(sorted(jobstate) == want_keys
+          and jobstate["state"] == "SUCCEEDED"
+          and jobstate["gang_width"] == 1,
+          f"cli: remote: fleet/jobstate.json {jobstate}")
+    launched = _cli_launches("remote", job)
+    log(f"cli: remote: the same job on the remote backend (exec "
+        f"transport, nodes nodeA and nodeB under {nodes}), staged "
+        f"through {stage}: SUCCEEDED; {launches[0]}; the worker read the "
+        f"conf it fetched from the store ({os.path.getsize(fetched)} "
+        f"bytes, equal to the store's); fleet/jobstate.json "
+        f"{jobstate['state']} with {len(jobstate)} keys; the trainer's "
+        f"own count of its launches {launched}; {smi}")
+    _cli_timing("remote", job, smi)
+    return launched
+
+
+def phase_cli(smi: str) -> dict[str, int]:
+    """Two jobs through `python -m tony_tpu_torch.cli submit`, with no
+    module of tony_tpu importable. Returns the trainer's own counts of
+    its launches in both, summed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    t0 = time.monotonic()
+    try:
+        cache, env = _am_tree(root)
+        warm = _cli_warm(root, env, cache, smi)
+        remote = _cli_remote(root, env, cache, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"cli: two jobs in {time.monotonic() - t0:.1f} s; {smi}")
+    return {k: warm.get(k, 0) + remote.get(k, 0)
+            for k in set(warm) | set(remote)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision,executor,am",
+                            "pipeline,spec,vision,executor,am,cli",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -5609,6 +5877,8 @@ def main(argv=None) -> int:
             launches["executor"] = phase_executor(smi)
         if "am" in phases:
             launches["am"] = phase_am(smi)
+        if "cli" in phases:
+            launches["cli"] = phase_cli(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -295,13 +295,8 @@ def test_the_supervisor_recovers_a_killed_am_alike(tmp_path):
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "remote": ({"tony.cluster.backend": "remote"}, "tony.cluster.backend"),
-    "warm-pool": ({"tony.warmpool.enabled": "true"},
-                  "tony.warmpool.enabled"),
     "alert-rule": ({"tony.alerts.rules":
                     "r1:TRAIN_STEP_TIME_MS>500:warning"}, "tony.alerts.rules"),
-    "fleet-publishing": ({"tony.staging.location": "{tmp}/stage"},
-                         "tony.staging.location"),
     "autoscaler": ({"tony.autoscaler.enabled": "true",
                     "tony.serving.instances": 1}, "tony.autoscaler.enabled"),
 }
@@ -321,20 +316,8 @@ def _refused_job(tmp_path, settings: dict):
     return ok, Job(app_dir, 0 if ok else 1, "")
 
 
-def test_refused_remote_backend(tmp_path):
-    _assert_refused(tmp_path, "remote")
-
-
-def test_refused_warm_pool(tmp_path):
-    _assert_refused(tmp_path, "warm-pool")
-
-
 def test_refused_alert_rule(tmp_path):
     _assert_refused(tmp_path, "alert-rule")
-
-
-def test_refused_fleet_publishing(tmp_path):
-    _assert_refused(tmp_path, "fleet-publishing")
 
 
 def test_refused_autoscaler(tmp_path):
@@ -353,26 +336,44 @@ def _assert_refused(tmp_path, case: str):
                                            C.CONTAINERS_DIR_NAME))
 
 
-def test_what_is_not_refused_runs():
+def test_what_is_not_refused_runs(tmp_path):
     """The refusal names only a switch that is on: the defaults, an SLO
-    threshold with alerting off (the watchdog the port has) and an
-    autoscaler without a serving jobtype (the JAX AM builds none) pass."""
+    threshold with alerting off (the watchdog the port has), an
+    autoscaler without a serving jobtype (the JAX AM builds none), the
+    remote backend, the warm pool and a staging location pass, and
+    `backend_from_conf` builds the backends they ask for."""
     from tony_tpu_torch.am.application_master import unported_feature
-    from tony_tpu_torch.cluster import backend_from_conf
+    from tony_tpu_torch.cluster import (
+        LocalClusterBackend, RemoteClusterBackend, backend_from_conf,
+    )
+    from tony_tpu_torch.cluster.warmpool import WarmExecutorPool
+    remote = {"tony.cluster.backend": "remote",
+              "tony.cluster.node-transport": "exec",
+              "tony.cluster.nodes": "nodeA:1,nodeB:1"}
     for settings in ({}, {"tony.alerts.enabled": "false",
                           "tony.slo.step-time-regression-pct": 20},
                      {"tony.autoscaler.enabled": "true",
-                      "tony.worker.instances": 1}):
+                      "tony.worker.instances": 1},
+                     remote, {"tony.warmpool.enabled": "true"},
+                     {"tony.staging.location": str(tmp_path / "stage")}):
         conf = PortConf()
         for k, v in settings.items():
             conf.set(k, v, "test")
         assert unported_feature(conf) is None, settings
-    for key, value in (("tony.cluster.backend", "remote"),
-                       ("tony.warmpool.enabled", "true")):
-        conf = PortConf()
-        conf.set(key, value, "test")
-        with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-            backend_from_conf(conf, "app")
+    conf = PortConf()
+    for k, v in remote.items():
+        conf.set(k, v, "test")
+    backend = backend_from_conf(conf, "app")
+    assert isinstance(backend, RemoteClusterBackend) and backend.off_host
+    assert [n.host for n in backend._nodes] == ["nodeA", "nodeB"]
+    conf = PortConf()
+    conf.set("tony.warmpool.enabled", "true", "test")
+    backend = backend_from_conf(conf, "app")
+    try:
+        assert isinstance(backend, LocalClusterBackend)
+        assert isinstance(backend._warmpool, WarmExecutorPool)
+    finally:
+        backend._warmpool.stop()
 
 
 @pytest.mark.parametrize("key,value", [
@@ -427,6 +428,15 @@ def test_the_am_core_imports_no_torch_jax_grpc_or_tony_tpu():
         "import tony_tpu_torch.observability.skew\n"
         "import tony_tpu_torch.observability.http\n"
         "import tony_tpu_torch.observability.fleet\n"
+        "import tony_tpu_torch.client, tony_tpu_torch.client.tony_client\n"
+        "import tony_tpu_torch.cli, tony_tpu_torch.cli.__main__\n"
+        "import tony_tpu_torch.cli.local_submitter\n"
+        "import tony_tpu_torch.cli.cluster_submitter\n"
+        "import tony_tpu_torch.cli.notebook_submitter\n"
+        "import tony_tpu_torch.cluster.remote\n"
+        "import tony_tpu_torch.cluster.warmpool, tony_tpu_torch.proxy\n"
+        "import tony_tpu_torch.utils.native, tony_tpu_torch.events.render\n"
+        "import tony_tpu_torch.version\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'torch', 'jax', 'jaxlib', 'grpc', 'tony_tpu'}))\n")
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,

@@ -379,7 +379,12 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "executor.task_monitor", "executor.cuda_metrics",
                    "executor.gpu_metrics", "executor.runtimes",
                    "rpc.service", "rpc.messages", "utils.localization",
-                   "utils.shell", "utils.ports", "events.history"):
+                   "utils.shell", "utils.ports", "events.history",
+                   "client", "client.tony_client", "cli", "cli.__main__",
+                   "cli.local_submitter", "cli.cluster_submitter",
+                   "cli.notebook_submitter", "cluster.remote",
+                   "cluster.warmpool", "proxy", "utils.native",
+                   "events.render", "version"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -4,11 +4,12 @@ The port's copy of `tony_tpu/am/application_master.py`. It launches
 `python -m tony_tpu_torch.executor` in every container and, for the
 serving jobtype, `python -m tony_tpu_torch.serve` unless
 `tony.serving.command` says otherwise; its events, metric names, files
-and RPC surface are the JAX AM's. The alert engine, fleet publishing
-into a staging store, the replica autoscaler (with the arbiter it asks),
-the remote backend and the warm pool are not in the port yet: a job
-whose configuration turns one on ends FAILED with a message naming the
-key (`unported_feature`), before any container launches.
+and RPC surface are the JAX AM's, and so are its backends (local, warm
+pool, remote) and its live jobstate publishing into a staging store. The
+alert engine and the replica autoscaler (with the arbiter it asks) are
+not in the port yet: a job whose configuration turns one on ends FAILED
+with a message naming the key (`unported_feature`), before any container
+launches.
 
 Equivalent of the reference's ApplicationMaster.java (tony-core, 1218 LoC):
 
@@ -93,9 +94,8 @@ def session_retry_backoff_sec(app_id: str, attempt: int, base_ms: int,
 
 
 # Features of the JAX AM that the port does not have yet, each behind a
-# switch that is off by default: the alert engine's rules, fleet
-# publishing into a staging store, the replica autoscaler (and the
-# arbiter it asks), the remote backend and the warm executor pool.
+# switch that is off by default: the alert engine's rules and the replica
+# autoscaler (and the arbiter it asks).
 # the thresholds that give the JAX AM's engine_from_conf a rule, each read
 # with the getter it uses
 _ALERT_RULE_KEYS = (
@@ -118,11 +118,6 @@ def unported_feature(conf: TonyConfiguration) -> Optional[str]:
         return (f"{key}={value} needs {feature}, which the port's AM "
                 "does not have yet")
 
-    backend = conf.get_str(K.CLUSTER_BACKEND, "local") or "local"
-    if backend != "local":
-        return refused(K.CLUSTER_BACKEND, backend, "the remote backend")
-    if conf.get_bool(K.WARMPOOL_ENABLED, False):
-        return refused(K.WARMPOOL_ENABLED, "true", "the warm executor pool")
     if conf.get_bool(K.ALERTS_ENABLED, True):
         for key, getter in _ALERT_RULE_KEYS:
             if getattr(conf, getter)(key, 0) > 0:
@@ -130,9 +125,6 @@ def unported_feature(conf: TonyConfiguration) -> Optional[str]:
         if conf.get_strings(K.ALERTS_RULES):
             return refused(K.ALERTS_RULES, conf.get(K.ALERTS_RULES),
                            "the alert engine")
-    if conf.get_str(K.STAGING_LOCATION, ""):
-        return refused(K.STAGING_LOCATION, conf.get(K.STAGING_LOCATION),
-                       "fleet publishing")
     if conf.get_bool(K.AUTOSCALER_ENABLED, False):
         from tony_tpu_torch.session.requests import parse_container_requests
         if C.SERVING_JOB_NAME in parse_container_requests(conf):
@@ -495,10 +487,14 @@ class ApplicationMaster(ClusterServiceHandler):
         self._straggler_window_ms = conf.get_time_ms(
             K.STRAGGLER_WINDOW_MS, 15_000)
         self._build_skew_state()
-        # the fleet registry's live jobstate publishing (the JAX AM's
-        # _publish_fleet_state into the staging store) is not in the
-        # port: a staging location is refused at the start. The terminal
-        # jobstate.json still lands in the history (_finish).
+        # fleet registry (observability/fleet.py): with a staging
+        # location configured, a compact heartbeat-stamped jobstate.json
+        # summary is republished at tony.fleet.publish-interval-ms —
+        # the live cross-job view rides the store, not a new RPC
+        self._fleet_store = None     # built in prepare()
+        self._fleet_interval_s = conf.get_time_ms(
+            K.FLEET_PUBLISH_INTERVAL_MS, 5000) / 1000.0
+        self._fleet_last_publish = 0.0
         # last closed window's gang step-time spread (set by
         # _check_stragglers; mirrored into the jobstate gauges so the
         # fleet /metrics carries the same numbers as the AM /metrics)
@@ -689,6 +685,10 @@ class ApplicationMaster(ClusterServiceHandler):
             conf_file = os.path.join(self.app_dir, C.TONY_FINAL_CONF)
             if os.path.exists(conf_file):
                 self._conf_uri = store.put(conf_file, C.TONY_FINAL_CONF)
+            # the fleet registry publishes into the same per-app
+            # namespace ("" = app-local staging stays registry-less:
+            # there is no shared location a portal could scan)
+            self._fleet_store = store
         self.backend.set_callbacks(self._on_container_allocated,
                                    self._on_container_completed)
         self.backend.start()
@@ -704,6 +704,13 @@ class ApplicationMaster(ClusterServiceHandler):
             f.write(f"{self.host}:{self.rpc_port}")
         os.replace(tmp, hostport_path)
         LOG.info("AM RPC serving at %s:%d", self.host, self.rpc_port)
+        if self._recovering:
+            # flap guard: the registry entry went LOST with the crashed
+            # AM's heartbeat — republish on the NEW address immediately
+            # (RECOVERING, not RUNNING: running is gated on the adoption
+            # barrier), so the fleet refolds LOST→RECOVERING→RUNNING
+            # instead of dropping the job
+            self._publish_fleet_state("RECOVERING", force=True)
 
     def _write_am_info(self) -> None:
         """Publish this AM's RPC address into the history dir so the
@@ -926,6 +933,27 @@ class ApplicationMaster(ClusterServiceHandler):
             am_addr=(f"{self.host}:{self.rpc_port}"
                      if self.rpc_port else ""),
             gauges=gauges)
+
+    def _publish_fleet_state(self, state: str = "RUNNING",
+                             force: bool = False) -> None:
+        """Republish this job's registry entry (throttled to
+        tony.fleet.publish-interval-ms; monitor-loop cadence). No-op
+        without a shared staging location — there is no store another
+        process could scan."""
+        if self._fleet_store is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._fleet_last_publish \
+                < self._fleet_interval_s:
+            return
+        self._fleet_last_publish = now
+        try:
+            from tony_tpu_torch.observability import fleet
+            fleet.publish_job_state(self._fleet_store,
+                                    self.fleet_summary(state),
+                                    self.app_dir)
+        except Exception:  # noqa: BLE001 — fleet must never kill the AM
+            LOG.exception("fleet jobstate publish failed")
 
     def _task_span_start(self, task: Task, container: Container) -> None:
         """Open the allocation→completion span for one task attempt; its
@@ -1773,6 +1801,9 @@ class ApplicationMaster(ClusterServiceHandler):
                                 replayed_records=replayed,
                                 duration_ms=int(elapsed_s * 1000),
                                 downtime_ms=downtime_ms)))
+        # the barrier is down: the registry entry folds RECOVERING back
+        # into RUNNING immediately (flap guard — no throttle window)
+        self._publish_fleet_state(force=True)
 
     def _journal_clocks(self) -> None:
         """Journal the goodput downtime clocks when they moved (monitor
@@ -1866,6 +1897,12 @@ class ApplicationMaster(ClusterServiceHandler):
             self._check_rolling_update()
             self.elastic.check()
             self._journal_clocks()
+            # RUNNING is gated on the adoption barrier: while a recovery
+            # is in flight the registry shows RECOVERING
+            with self._lock:
+                in_recovery = self._recovery is not None
+            self._publish_fleet_state(
+                "RECOVERING" if in_recovery else "RUNNING")
             total = session.total_tracked_tasks()
             if total > 0 and session.num_completed_tracked_tasks() >= total:
                 if self._preemption is not None:
@@ -2386,12 +2423,14 @@ class ApplicationMaster(ClusterServiceHandler):
         # root-cause bundle BEFORE the event log closes: the
         # DIAGNOSTICS_READY event must land inside the jhist
         self._flush_diagnostics(status)
-        # fleet: the terminal jobstate travels with the history for the
-        # ledger's final read
+        # fleet: the terminal jobstate replaces the live registry entry
+        # (so the entry settles instead of going stale → LOST) and a
+        # copy travels with the history for the ledger's final read
         try:
             from tony_tpu_torch.events.history import write_jobstate_file
             write_jobstate_file(self.history_dir,
                                 self.fleet_summary(status))
+            self._publish_fleet_state(status, force=True)
         except Exception:  # noqa: BLE001 — fleet must never fail _finish
             LOG.exception("failed to flush the terminal fleet jobstate")
         if self.session is not None:
@@ -3533,6 +3572,8 @@ class ApplicationMaster(ClusterServiceHandler):
             PreemptionRequested(self.app_id, reason=reason,
                                 grace_ms=grace_ms,
                                 requested_by=requested_by)))
+        # the registry shows the bumped preemption count right away
+        self._publish_fleet_state(force=True)
         self._wake.set()
         return {"app_id": self.app_id, "grace_ms": grace_ms,
                 "deadline_ms": grace_ms}

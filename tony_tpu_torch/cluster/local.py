@@ -1,8 +1,7 @@
 """LocalClusterBackend: subprocess-based container runtime.
 
 The port's copy of `tony_tpu/cluster/local.py`; a warm lease matches
-`-m tony_tpu_torch.executor` (the port has no warm pool yet, so none is
-passed in).
+`-m tony_tpu_torch.executor`.
 
 The tony-mini equivalent (MiniCluster.java:43-60 brought up MiniYARNCluster +
 MiniDFSCluster in-process): containers are real OS processes on this host, so

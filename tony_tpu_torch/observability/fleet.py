@@ -1,19 +1,30 @@
-"""The AM's half of fleet observability: the jobstate summary.
+"""The AM's half of fleet observability: the jobstate summary and its
+publishing.
 
 The port's copy of the writer half of `tony_tpu/observability/fleet.py`.
 Every AM folds its job into one compact, heartbeat-stamped summary
 (`job_summary`): identity (app, queue, user), gang shape, chip occupancy
-and the job-level health gauges. It lands in the history as
-`jobstate.json` at the end of every job, where the JAX package's ledger
-and portal read it (the schema is theirs). Live publishing into a staging
-store and the readers (registry, ledger, quota view, fleet `/metrics`)
+and the job-level health gauges. With a staging location configured the
+AM republishes it every `tony.fleet.publish-interval-ms` as
+`<location>/<app_id>/fleet/jobstate.json` (`publish_job_state`), and it
+lands in the history as `jobstate.json` at the end of every job, where
+the JAX package's registry, ledger and portal read it (the schema is
+theirs). The readers (registry, ledger, quota view, fleet `/metrics`)
 are not in the port.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import time
 from typing import Optional
+
+from tony_tpu_torch import constants as C
+
+# where each AM publishes its summary inside its staging namespace
+JOBSTATE_KEY = f"{C.FLEET_DIR_NAME}/{C.JOBSTATE_FILE}"
 
 # the gang step-time spread gauges _check_stragglers refreshes each
 # closed window (the JAX package's fleet /metrics names)
@@ -99,3 +110,20 @@ def chips_of(summary: dict) -> int:
     charged for)."""
     return int(summary.get("allocated_chips") or 0) \
         or int(summary.get("requested_chips") or 0)
+
+
+def publish_job_state(store, summary: dict, scratch_dir: str) -> str:
+    """AM-side: atomically publish one summary as this app's
+    `fleet/jobstate.json` (tmp-file + store.put — the put itself is the
+    store's atomicity problem). Returns the published URI."""
+    fd, tmp = tempfile.mkstemp(prefix="jobstate-", suffix=".json",
+                               dir=scratch_dir or None)
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            json.dump(summary, f, indent=1, sort_keys=True)
+        return store.put(tmp, JOBSTATE_KEY)
+    finally:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass

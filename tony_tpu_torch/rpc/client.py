@@ -1,14 +1,16 @@
 """Retrying JSON-over-gRPC clients of the AM's control plane.
 
-The port's copy of the task-side half of `tony_tpu/rpc/client.py`: the
-service and method names and the JSON codec of `rpc/service.py`, the same
-per-call token metadata, and the same retry ladder (capped equal-jitter
-exponential backoff over UNAVAILABLE and DEADLINE_EXCEEDED). It carries
-the calls a port trainer or server makes (`register_serving_endpoint`,
-`report_serving_migrated`, `update_metrics`) and the executor's: the gang
-barrier (`register_worker_spec`, `get_cluster_spec`), heartbeats, the
-TensorBoard URL and the execution result; and `TaskLogServiceClient`, the
-AM's reader of an executor's logs and stacks.
+The port's copy of `tony_tpu/rpc/client.py`: the service and method names
+and the JSON codec of `rpc/service.py`, the same per-call token metadata,
+and the same retry ladder (capped equal-jitter exponential backoff over
+UNAVAILABLE and DEADLINE_EXCEEDED). It carries the calls a port trainer
+or server makes (`register_serving_endpoint`, `report_serving_migrated`,
+`update_metrics`), the executor's (the gang barrier, heartbeats, the
+TensorBoard URL and the execution result), the application side's (the
+client's `get_task_infos` and `finish_application`, and the operator
+verbs of the CLI: logs, profiles, skew, alerts, preemption, resize and
+rolling updates), and `TaskLogServiceClient`, the AM's reader of an
+executor's logs and stacks.
 
 `grpc` is imported only when a client is built, so a process with no AM
 in its environment never loads it.
@@ -103,23 +105,32 @@ class _JsonRpcClient:
                 REGISTRY.counter("tony_rpc_client_retries_total",
                                  method=method).inc()
                 if attempt + 1 < retries:
-                    time.sleep(equal_jitter_backoff_sec(
-                        self._retry_sleep_sec, self._retry_max_sleep_sec,
-                        attempt, self._rng))
+                    time.sleep(self._backoff_sec(attempt))
         REGISTRY.counter("tony_rpc_client_calls_total",
                          method=method, status="exhausted").inc()
         raise ConnectionError(
             f"RPC {method} failed after {retries} attempts: {last_err}")
+
+    def _backoff_sec(self, attempt: int) -> float:
+        """Capped equal-jitter exponential backoff: attempt N sleeps in
+        [cap/2, cap], cap = min(max, base * 2^N)."""
+        return equal_jitter_backoff_sec(self._retry_sleep_sec,
+                                        self._retry_max_sleep_sec,
+                                        attempt, self._rng)
 
     def close(self) -> None:
         self._channel.close()
 
 
 class ClusterServiceClient(_JsonRpcClient):
-    """A task's and its executor's calls on the AM's cluster service."""
+    """Calls on the AM's cluster service: a task's, its executor's, the
+    client's and the operator's."""
 
     def __init__(self, host: str, port: int, **kw):
         super().__init__(CLUSTER_SERVICE, CLUSTER_METHODS, host, port, **kw)
+
+    def get_task_infos(self) -> list[dict]:
+        return self.call("get_task_infos", {})
 
     def get_cluster_spec(self, task_id: str) -> Optional[dict]:
         spec = self.call("get_cluster_spec", {"task_id": task_id}).get("spec")
@@ -171,6 +182,9 @@ class ClusterServiceClient(_JsonRpcClient):
             req["diagnostics"] = diagnostics
         self.call("register_execution_result", req)
 
+    def finish_application(self) -> None:
+        self.call("finish_application", {})
+
     def task_executor_heartbeat(self, task_id: str,
                                 task_attempt: int = -1,
                                 log_addr: str = "",
@@ -218,6 +232,86 @@ class ClusterServiceClient(_JsonRpcClient):
                   {"task_id": task_id, "target_url": target_url,
                    "count": int(count)},
                   retries=1, timeout_sec=5.0, wait_for_ready=False)
+
+
+    def request_rolling_update(self, generation: int = 0,
+                               requested_by: str = "operator") -> dict:
+        """Begin a zero-downtime rolling weight update over this app's
+        serving replicas (cli rollout verb). Client-plane: never a task
+        token."""
+        return self.call("request_rolling_update",
+                         {"generation": int(generation),
+                          "requested_by": requested_by},
+                         retries=1, timeout_sec=10.0,
+                         wait_for_ready=False)
+
+    def request_resize(self, job_name: str = "", width: int = 0,
+                       tpus_per_task: int = 0, grace_ms: int = 0,
+                       reason: str = "",
+                       requested_by: str = "operator",
+                       session_attempt: int = -1) -> dict:
+        """Elastic gang resize (cluster/elastic.py + `cli resize`):
+        grow/shrink a RUNNING gang in place. `width` changes the
+        jobtype's task-instance count; alternatively `tpus_per_task`
+        re-meshes the chips of a fixed-membership gang.
+        `session_attempt` (>= 0) fences the ask to one AM session
+        attempt. Client-plane: never a task token."""
+        return self.call("request_resize",
+                         {"job_name": job_name, "width": int(width),
+                          "tpus_per_task": int(tpus_per_task),
+                          "grace_ms": int(grace_ms), "reason": reason,
+                          "requested_by": requested_by,
+                          "session_attempt": int(session_attempt)},
+                         retries=1, timeout_sec=10.0,
+                         wait_for_ready=False)
+
+    def request_preemption(self, grace_ms: int = 0, reason: str = "",
+                           requested_by: str = "operator") -> dict:
+        """Begin checkpoint-then-evict on this AM (`cli preempt`): the
+        drain ask rides every task's next heartbeat, trainers
+        emergency-checkpoint within `grace_ms`, and the application
+        finishes PREEMPTED. Client-plane: never a task token."""
+        return self.call("request_preemption",
+                         {"grace_ms": int(grace_ms), "reason": reason,
+                          "requested_by": requested_by},
+                         retries=1, timeout_sec=10.0, wait_for_ready=False)
+
+    def request_profile(self, task_id: str = "",
+                        num_steps: int = 0) -> dict:
+        """Ask the AM to capture a profile on one task's trainer.
+        Client-plane: operator CLI / portal POST, never a task token."""
+        return self.call("request_profile",
+                         {"task_id": task_id, "num_steps": num_steps},
+                         retries=1, timeout_sec=10.0, wait_for_ready=False)
+
+    def get_skew(self) -> dict:
+        """The AM's live cross-task skew bundle (observability/skew.py):
+        gang quantiles, step-time heatmap, latched stragglers."""
+        return self.call("get_skew", {}, retries=1, timeout_sec=10.0,
+                         wait_for_ready=False)
+
+    def get_alerts(self) -> dict:
+        """The AM's live alert bundle (the port's AM runs no alert
+        engine and answers as the JAX AM does with alerting off)."""
+        return self.call("get_alerts", {}, retries=1, timeout_sec=10.0,
+                         wait_for_ready=False)
+
+    def get_profile(self) -> dict:
+        """The AM's live sampling-profiler snapshot + collapsed-stack
+        text (observability/profiler.py); `cli flame` polls this."""
+        return self.call("get_profile", {}, retries=1, timeout_sec=10.0,
+                         wait_for_ready=False)
+
+    def read_task_logs(self, task_id: str = "", stream: str = "stderr",
+                       offset: int = -1, max_bytes: int = 0) -> dict:
+        """One bounded log chunk for a task (live when running, from
+        aggregated history otherwise). CLI `logs [--follow]` polls this
+        with the returned next_offset as its cursor."""
+        return self.call("read_task_logs",
+                         {"task_id": task_id, "stream": stream,
+                          "offset": int(offset),
+                          "max_bytes": int(max_bytes)},
+                         retries=1, timeout_sec=10.0, wait_for_ready=False)
 
 
 class TaskLogServiceClient(_JsonRpcClient):

@@ -1,14 +1,17 @@
-"""The task's side of the control plane's token auth.
+"""The control plane's token auth: the port's copy of
+`tony_tpu/security/tokens.py`.
 
-The port's copy of what a task and its executor need from
-`tony_tpu/security/tokens.py`: the environment variable that carries this
-task's derived token (`TOKEN_ENV`), the metadata keys it rides under,
-`token_call_creds` (the metadata a client attaches per call),
-`read_token_file`, and `token_auth_interceptor`, which makes the server
+The client mints the app secret (`generate_token`) and writes it into
+the app dir with owner-only permissions (`write_token_file`); the AM
+reads it back (`read_token_file`) and hands each container only its
+derived token (`derive_task_token`, carried in `TOKEN_ENV`); a proxy or
+portal surface gets a token in a separate HMAC namespace
+(`derive_proxy_token`). `token_call_creds` is the metadata a client
+attaches per call, and `token_auth_interceptor` makes the server
 interceptor the executor's TaskLogService runs behind: a call must carry
 the app secret, or a task token derived from it for an allowlisted
-method whose payload names that task. Minting tokens stays the client's
-and the AM's. `grpc` is imported only when an interceptor is built.
+method whose payload names that task. `grpc` is imported only when an
+interceptor is built.
 """
 
 from __future__ import annotations
@@ -36,10 +39,34 @@ TASK_METHOD_IDENTITY = {
 }
 
 
+def generate_token() -> str:
+    return secrets.token_hex(32)
+
+
 def derive_task_token(secret: str, task_id: str) -> str:
     """Per-task token: HMAC-SHA256(app secret, "task:<task id>")."""
     return hmac.new(secret.encode(), f"task:{task_id}".encode(),
                     "sha256").hexdigest()
+
+
+def derive_proxy_token(secret: str, name: str) -> str:
+    """Transport-only token for a proxy/portal surface, in a DISTINCT HMAC
+    namespace from task tokens: a leaked proxy token (browser history,
+    Referer) must never double as an AM RPC credential — `derive_task_token`
+    output would (the interceptor accepts any valid task:<id> pair)."""
+    return hmac.new(secret.encode(), f"proxy:{name}".encode(),
+                    "sha256").hexdigest()
+
+
+def write_token_file(app_dir: str, token: str) -> str:
+    """Persist the app secret with owner-only permissions."""
+    path = os.path.join(app_dir, TOKEN_FILE)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+    try:
+        os.write(fd, token.encode())
+    finally:
+        os.close(fd)
+    return path
 
 
 def read_token_file(app_dir: str) -> Optional[str]:

@@ -1,13 +1,17 @@
-"""Host, port, path and backoff helpers of the AM, the executor and the
-RPC clients.
+"""Polling, env parsing, host, port, path and backoff helpers of the
+client, the AM, the executor and the RPC clients.
 
-The port's copy of what they use of `tony_tpu/utils/common.py`.
+The port's copy of `tony_tpu/utils/common.py`.
 """
 
 from __future__ import annotations
 
 import random
 import socket
+import time
+from typing import Callable, Optional, TypeVar
+
+T = TypeVar("T")
 
 
 def equal_jitter_backoff_sec(base_sec: float, max_sec: float, exponent: int,
@@ -22,6 +26,44 @@ def equal_jitter_backoff_sec(base_sec: float, max_sec: float, exponent: int,
     if max_sec > 0:
         cap = min(max_sec, cap)
     return rng.uniform(cap / 2.0, cap)
+
+
+def poll(func: Callable[[], bool], interval_sec: float, timeout_sec: float) -> bool:
+    """Call `func` every `interval_sec` until it returns True or timeout.
+    Returns whether it ever returned True (Utils.poll, util/Utils.java:89-109)."""
+    deadline = time.monotonic() + timeout_sec
+    while True:
+        if func():
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(interval_sec)
+
+
+def poll_till_non_null(func: Callable[[], Optional[T]], interval_sec: float,
+                       timeout_sec: float) -> Optional[T]:
+    """Call `func` until it returns non-None or timeout; returns the value or
+    None (Utils.pollTillNonNull, util/Utils.java:111-143)."""
+    deadline = time.monotonic() + timeout_sec
+    while True:
+        result = func()
+        if result is not None:
+            return result
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(interval_sec)
+
+
+def parse_env_list(entries: list[str]) -> dict[str, str]:
+    """Parse ['A=1', 'B=x=y'] → {'A': '1', 'B': 'x=y'}
+    (Utils.parseKeyValue, util/Utils.java:243-263)."""
+    out: dict[str, str] = {}
+    for entry in entries:
+        if not entry:
+            continue
+        k, sep, v = entry.partition("=")
+        out[k.strip()] = v if sep else ""
+    return out
 
 
 def framework_pythonpath() -> str:

@@ -1,5 +1,5 @@
-"""Container-side resource localization: the port's copy of the executor's
-half of `tony_tpu/utils/localization.py`.
+"""Resource localization: the port's copy of
+`tony_tpu/utils/localization.py`.
 
 A resource spec is ``path[::newName][#archive]``. The client staged each
 one (a directory zipped) and wrote its URI into the frozen conf; the
@@ -18,7 +18,7 @@ import shutil
 import tempfile
 from dataclasses import dataclass
 
-from tony_tpu_torch.utils.fs import copy_into, unzip
+from tony_tpu_torch.utils.fs import copy_into, unzip, zip_dir
 
 ARCHIVE_SUFFIX = "#archive"
 NAME_SEP = "::"
@@ -219,6 +219,30 @@ class LocalizableResource:
         if not path:
             raise ValueError(f"empty path in resource spec {spec!r}")
         return cls(source_path=path, local_name=name, is_archive=is_archive)
+
+
+def stage_resource(spec: str, staging_dir_or_store) -> str:
+    """Ship one resource into the staging store (dirs are zipped, like
+    TonyClient.java:539-551). Returns the staged spec string (URI
+    [+#archive]) to write back into the conf. Accepts a plain dir path
+    (wrapped in a LocalDirStore) or any `StagingStore`."""
+    from tony_tpu_torch.storage import LocalDirStore, StagingStore
+
+    store = (staging_dir_or_store
+             if isinstance(staging_dir_or_store, StagingStore)
+             else LocalDirStore(staging_dir_or_store))
+    res = LocalizableResource.parse(spec)
+    src = res.source_path
+    if not os.path.exists(src):
+        raise FileNotFoundError(f"resource not found: {src}")
+    if os.path.isdir(src):
+        with tempfile.TemporaryDirectory() as tmp:
+            zipped = os.path.join(tmp, res.local_name + ".zip")
+            zip_dir(src, zipped)
+            staged = store.put(zipped, res.local_name + ".zip")
+        return staged + ARCHIVE_SUFFIX
+    staged = store.put(src, res.local_name)
+    return staged + (ARCHIVE_SUFFIX if res.is_archive else "")
 
 
 def fetch_remote_spec(path: str, dest_dir: str, name: str = "",
