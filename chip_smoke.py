@@ -300,8 +300,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
               its launches exactly 2 x the train phase's step, `cli logs
               <app> worker:0 --follow` (run beside the job) prints the
               trainer's launch line, `cli diagnose` finds no failure
-              record, `cli alerts` exits 2 naming
-              observability/alerts.py. (b) On the remote backend over
+              record, `cli alerts` finds no alert bundle (exit 1: no
+              rule is set). (b) On the remote backend over
               the exec transport (two nodes on this host under one node
               root), staged through `tony.staging.location`: the CLI
               exits 0, the worker ran in a workdir under the node root
@@ -314,13 +314,45 @@ Phases (any failure exits non-zero, and the result line is not printed):
               lease against the cold spawn), the user process's span,
               its end -> the application span's end -> CLI exit, the
               job's wall, and the phase's time.
+17. fleet   — the serving fleet, from the same copy of `tony_tpu_torch/`
+              alone: `cli submit` of a served llama3_1b_proxy (bf16,
+              random weights from the entry point's seed, 2 slots a
+              replica, 1 chip asked a replica) with the AM's autoscaler
+              (1 to 3 replicas; up on a queue of more than 2 a replica
+              for 2 passes of the 300 ms monitor; a 20 s cooldown; no
+              scale-down), the arbiter's inventory at 2 chips, and the
+              queue-depth alert at 4 (2 s / 4 s burn windows, 500 ms
+              for); `cli router <app_dir>` in front. Burst A, 16 streams
+              of prompt 256 and 64 new tokens through the router, 40 ms
+              apart: the arbiter admits the scale-up, and the moment it
+              does a second tenant (`cli submit` of a sleeping worker
+              asking 2 chips into the same staging location) fills the
+              inventory; serving:1 launches and registers. Burst B, the
+              same 16 over both replicas: the next ask is queued. Held:
+              every stream equals `generate` on the same weights (this
+              process, one prompt at a time); the event record in order
+              (the admitted decision, serving:1 started and registered, a
+              queued decision at 2 replicas, no third replica;
+              ALERT_FIRING for `serve.queue_depth_burn` inside burst A
+              and its ALERT_RESOLVED before burst B); each replica's own
+              /v1/metrics gained a request in burst B; `cli alerts`,
+              `cli top --once` (the job RUNNING at 2 chips), `cli
+              arbiter --chips 1` (queue) and `cli router --status` (2 UP
+              endpoints) while the job runs; each replica's own count of
+              its launches equal to its own admissions and decode steps;
+              after SIGTERM to the CLIs, the router's and both replicas'
+              ports closed. Prints TTFT p50/p95 a burst, scale-up ->
+              registration, queue crossing -> ALERT_FIRING, the router's
+              added wall (routed less direct, in turns) and the phase's
+              seconds.
 
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
 parallel slice, `--phases build,pipeline` the pipeline and ep slice,
 `--phases build,spec,vision` the model zoo, `--phases build,executor`
 the task executor, `--phases build,am` the jobs under the port's AM,
-`--phases build,cli` the jobs submitted through the port's CLI.
+`--phases build,cli` the jobs submitted through the port's CLI,
+`--phases build,fleet` the serving fleet.
 The kernels phase also holds K1-K3 at ViT's attention shapes (B64 H6
 S197 D64 and S17, non-causal, timed and bit for bit over two calls;
 vit_tiny's D16 in f32) and K4 at its rows (64 x 197 and the 64 CLS
@@ -339,8 +371,8 @@ its four full-width runs, vision the ViT runs of train_allreduce (its own
 count) and of the Trainer at 224/16, executor the trainer's own count
 under the executor, am the trainer's and the server's own counts under
 the port's AM, cli the trainer's own counts in the two jobs submitted
-through the port's CLI; the cache phase's processes are uncounted), then
-the
+through the port's CLI, fleet the two replicas' own counts; the cache
+phase's processes are uncounted), then the
 card's name and power limit from nvidia-smi; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -5583,6 +5615,20 @@ def _cli_spans(app_dir: str, app_id: str) -> dict[str, dict]:
         return {s["name"]: s for s in json.load(f)}
 
 
+def _submit(root: str, env: dict, tag: str, conf: dict, executes: str):
+    """`python -m tony_tpu_torch.cli submit` in its own session, its
+    output in `<root>/<tag>.cli.log`."""
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit"]
+    if executes:
+        argv += ["--executes", executes]
+    for k, v in conf.items():
+        argv += ["--conf", f"{k}={v}"]
+    with open(os.path.join(root, f"{tag}.cli.log"), "w") as out:
+        return subprocess.Popen(argv, cwd=root, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
 def _cli_job(root: str, env: dict, cache: str, tag: str,
              extra: dict) -> dict:
     """`python -m tony_tpu_torch.cli submit` of one training job, with
@@ -5603,17 +5649,10 @@ def _cli_job(root: str, env: dict, cache: str, tag: str,
             "tony.application.framework": "pytorch",
             "tony.cluster.workdir": workdir,
             "tony.executor.jax-cache-dir": cache, **extra}
-    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
-            "--executes", command]
-    for k, v in conf.items():
-        argv += ["--conf", f"{k}={v}"]
     cli_log = os.path.join(root, f"{tag}.cli.log")
     logs_out = os.path.join(root, f"{tag}.logs.out")
     t_spawn = time.time()
-    with open(cli_log, "w") as out:
-        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=out,
-                                stderr=subprocess.STDOUT,
-                                start_new_session=True)
+    proc = _submit(root, env, tag, conf, command)
     follower = None
     try:
         deadline = time.monotonic() + CLI_JOB_S
@@ -5722,8 +5761,9 @@ def _cli_warm(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
         [sys.executable, "-m", "tony_tpu_torch.cli", "alerts",
          job["app_dir"]], cwd=root, env=env, capture_output=True,
         text=True, timeout=120)
-    check(alerts.returncode == 2
-          and "observability/alerts.py" in alerts.stderr,
+    # no alert rule is set, so the AM built no engine and wrote no bundle
+    check(alerts.returncode == 1
+          and "no alert bundle found" in alerts.stderr,
           f"cli: warm: `cli alerts` exited {alerts.returncode}: "
           f"{alerts.stderr[-1000:]}")
     log(f"cli: warm: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
@@ -5731,7 +5771,7 @@ def _cli_warm(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
         f"backend with one warm executor: SUCCEEDED; {leases[0]}; the "
         f"trainer's own count of its launches {launched}; `cli logs "
         f"--follow` carried its launch line; `cli diagnose`: no failure "
-        f"record; `cli alerts`: exit 2 ({alerts.stderr.strip()}); {smi}")
+        f"record; `cli alerts`: no bundle, exit 1; {smi}")
     _cli_timing("warm", job, smi)
     return launched
 
@@ -5806,12 +5846,573 @@ def phase_cli(smi: str) -> dict[str, int]:
             for k in set(warm) | set(remote)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: a served model scaled from one replica to two behind `cli router`
+# ---------------------------------------------------------------------------
+
+FLEET_CONFIG = TRAIN_CONFIG
+FLEET_SLOTS = 2
+FLEET_REQUESTS, FLEET_PROMPT, FLEET_NEW = 16, 256, 64
+FLEET_SEED = 18
+FLEET_JOB_S = 300.0
+FLEET_QUEUE_SLO = 4
+# the second tenant must be in the book before the cooldown after the
+# admitted scale-up ends; burst B waits for the cooldown's end
+FLEET_COOLDOWN_MS = 20000
+FLEET_PAIRS = 30
+# a burst's requests start this far apart, so the router's load probes
+# (refreshed every 25 ms at a 100 ms TTL) see each one queue; the router
+# counts no dispatch between probes, so a burst with no gap goes to the
+# replica the last probe ranked first (measured, not held)
+FLEET_GAP_S = 0.04
+
+
+def _fleet_conf(cache: str, workdir: str, stage: str) -> dict:
+    """The served job: one replica of 2 slots asking 1 chip, the
+    autoscaler on (1 to 3 replicas, up on a queue of more than 2 a
+    replica for 2 passes, never down), the arbiter's inventory 2
+    chips, the queue-depth alert at 4 with 2 s / 4 s burn windows, the
+    AM's monitor every 300 ms and the replicas' pushes every 300 ms."""
+    return {**{k: v for k, v in AM_CONF.items()
+               if k != "tony.am.stop-poll-timeout-ms"},
+            "tony.am.monitor-interval-ms": 300,
+            "tony.task.metrics-interval-ms": 300,
+            "tony.cluster.workdir": workdir,
+            "tony.executor.jax-cache-dir": cache,
+            "tony.task.term-grace-ms": 3000,
+            "tony.serving.instances": 1, "tony.serving.tpus": 1,
+            "tony.serving.slots": FLEET_SLOTS,
+            "tony.serving.token-budget": FLEET_PROMPT + FLEET_NEW,
+            "tony.serving.command": f"{sys.executable} -m "
+                                    f"tony_tpu_torch.serve --config "
+                                    f"{FLEET_CONFIG} --device cuda",
+            "tony.staging.location": stage,
+            "tony.fleet.publish-interval-ms": 500,
+            "tony.autoscaler.enabled": "true",
+            "tony.autoscaler.min-replicas": 1,
+            "tony.autoscaler.max-replicas": 3,
+            "tony.autoscaler.queue-depth-up": 2,
+            "tony.autoscaler.hysteresis-passes": 2,
+            "tony.autoscaler.cooldown-ms": FLEET_COOLDOWN_MS,
+            # no scale-down: the idle gaps between the bursts would drain
+            # the second replica
+            "tony.autoscaler.occupancy-down-pct": 0,
+            "tony.arbiter.total-tpus": 2,
+            "tony.alerts.queue-depth-slo": FLEET_QUEUE_SLO,
+            "tony.alerts.for-ms": 500,
+            "tony.alerts.fast-window-ms": 2000,
+            "tony.alerts.slow-window-ms": 4000,
+            "tony.alerts.flap-suppress-ms": 0}
+
+
+def _fleet_events(app_dir: str) -> list:
+    """The job's events so far, from the history file the AM appends
+    to (the final file once the AM has renamed it)."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.events.handler import parse_events
+    found = glob.glob(os.path.join(app_dir, C.HISTORY_DIR_NAME, "*",
+                                   "*.jhist*"))
+    return parse_events(found[0]) if found else []
+
+
+class _Waiter:
+    """Polls a condition under the phase's deadline, failing the phase
+    (with the processes' state) when it runs out."""
+
+    def __init__(self, procs: dict):
+        self.procs = procs
+        self.deadline = time.monotonic() + FLEET_JOB_S
+
+    def until(self, cond, what: str, poll: float = 0.05):
+        while True:
+            got = cond()
+            if got:
+                return got
+            for name, proc in list(self.procs.items()):
+                check(proc.poll() is None,
+                      f"fleet: {name} exited {proc.poll()} waiting for "
+                      f"{what}")
+            check(time.monotonic() < self.deadline,
+                  f"fleet: no {what} within {FLEET_JOB_S:.0f} s")
+            time.sleep(poll)
+
+
+def _of(events: list, etype: str, **match) -> list:
+    return [e for e in events if e.type.name == etype
+            and all(getattr(e.payload, k) == v for k, v in match.items())]
+
+
+def _get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _burst(url: str, prompts: list, gap_s: float = FLEET_GAP_S) -> dict:
+    """Every prompt streamed, each started `gap_s` after the last, all
+    in flight together; returns the answers, the wall and its start and
+    end on the wall clock (ms, as events are stamped)."""
+    results: dict[int, object] = {}
+
+    def run(i: int) -> None:
+        try:
+            results[i] = _post(url, {"prompt": prompts[i],
+                                     "max_new_tokens": FLEET_NEW},
+                               stream=True)
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+
+    t0, t0_ms = time.monotonic(), time.time() * 1000
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+        time.sleep(gap_s)
+    for t in threads:
+        t.join(timeout=FLEET_JOB_S)
+    out = [results.get(i) for i in range(len(prompts))]
+    for i, r in enumerate(out):
+        check(isinstance(r, dict) and len(r["tokens"]) == FLEET_NEW
+              and r["finish_reason"] == "length",
+              f"fleet: burst request {i}: {r!r}")
+    return {"answers": out, "wall": time.monotonic() - t0,
+            "start_ms": t0_ms, "end_ms": time.time() * 1000}
+
+
+def _pct(values: list, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+def _fleet_reference(prompts: list) -> list:
+    """`generate` on the replicas' weights (the entry point's seed), in
+    this process, one prompt at a time."""
+    import torch
+
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.serve.__main__ import _load_model, build_arg_parser
+
+    device = torch.device("cuda")
+    params, cfg = _load_model(build_arg_parser().parse_args(
+        ["--config", FLEET_CONFIG, "--device", "cuda"]), device)
+    want = [generate(params, cfg, torch.tensor([p], device=device),
+                     FLEET_NEW)[0].tolist() for p in prompts]
+    del params
+    torch.cuda.empty_cache()
+    return want
+
+
+def _fleet_job(root: str, env: dict, cache: str, smi: str) -> dict:
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.models.llama import get_config
+
+    import numpy as np
+
+    cfg = get_config(FLEET_CONFIG)
+    rng = np.random.RandomState(FLEET_SEED)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size,
+                                            size=FLEET_PROMPT)]
+               for _ in range(FLEET_REQUESTS)]
+    workdir, stage = os.path.join(root, "work"), os.path.join(root, "stage")
+    procs: dict = {}
+    wait = _Waiter(procs)
+    out: dict = {"prompts": prompts, "spawn_ms": time.time() * 1000}
+    t_spawn = time.monotonic()
+    marks: dict[str, float] = {}
+
+    def mark(what: str) -> None:
+        marks[what] = round(time.monotonic() - t_spawn, 2)
+    procs["cli submit"] = _submit(root, env, "serve",
+                                  _fleet_conf(cache, workdir, stage), "")
+    router_log = os.path.join(root, "router.out")
+    try:
+        app_dir = wait.until(lambda: (glob.glob(os.path.join(
+            workdir, "application_*")) or [None])[0], "application dir")
+        out["app_dir"] = app_dir
+        want = _fleet_reference(prompts)
+        mark("generate")
+        wait.until(lambda: _of(_fleet_events(app_dir),
+                               "SERVING_ENDPOINT_REGISTERED",
+                               task_index=0), "serving:0's registration")
+        mark("serving:0")
+        with open(router_log, "w") as f:
+            procs["cli router"] = subprocess.Popen(
+                [sys.executable, "-m", "tony_tpu_torch.cli", "router",
+                 app_dir, "--port", "0", "--host", "127.0.0.1",
+                 "--poll-ms", "300", "--probe-ttl-ms", "100"], cwd=root,
+                env=env, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+
+        def router_up():
+            with open(router_log) as f:
+                return next((line.split()[1] for line in f
+                             if line.startswith("ROUTER_UP ")), None)
+        router = wait.until(router_up, "ROUTER_UP")
+        out["router"] = router
+
+        def up_endpoints(n):
+            def ready():
+                eps = _get_json(router + "/v1/fleet")["endpoints"]
+                return [e for e in eps if e["state"] == "UP"
+                        and e["load"]] if len(eps) == n else []
+            return ready
+        [ep0] = wait.until(up_endpoints(1), "the router's first endpoint")
+        mark("router")
+        replicas = {0: ep0["url"]}
+
+        # burst A: the holder job is submitted the moment the arbiter
+        # admits the scale-up, so the book is full for every later ask
+        holder = {}
+
+        def holder_running():
+            found = glob.glob(os.path.join(stage, "*", C.FLEET_DIR_NAME,
+                                           C.JOBSTATE_FILE))
+            for path in found:
+                with open(path) as f:
+                    js = json.load(f)
+                if js["app_id"] != os.path.basename(app_dir) \
+                        and js["state"] == "RUNNING":
+                    return js
+            return None
+
+        def watch_scale_up():
+            first = wait.until(lambda: _of(
+                _fleet_events(app_dir), "AUTOSCALE_DECISION",
+                direction="up"), "the scale-up decision")[0]
+            holder["decision"] = first
+            holder["t"] = time.monotonic()
+            mark("scale-up")
+            if first.payload.arbiter_action == "admit":
+                procs["holder"] = _submit(root, env, "holder", {
+                    **{k: v for k, v in AM_CONF.items()
+                       if k != "tony.am.stop-poll-timeout-ms"},
+                    "tony.cluster.workdir": os.path.join(root, "hold"),
+                    "tony.staging.location": stage,
+                    "tony.fleet.publish-interval-ms": 500,
+                    "tony.worker.instances": 1, "tony.worker.tpus": 2},
+                    f"{sys.executable} -c 'import time; time.sleep(600)'")
+                holder["held"] = wait.until(holder_running,
+                                            "the holder's jobstate")
+                holder["after_s"] = time.monotonic() - holder["t"]
+                mark("holder")
+        watcher = threading.Thread(target=watch_scale_up, daemon=True)
+        watcher.start()
+        burst_a = _burst(router, prompts)
+        mark("burst A done")
+        watcher.join(timeout=FLEET_JOB_S)
+        check("decision" in holder, "fleet: no scale-up during burst A")
+        first = holder["decision"]
+        check(first.payload.arbiter_action == "admit"
+              and (first.payload.from_replicas,
+                   first.payload.to_replicas) == (1, 2),
+              f"fleet: the scale-up decision {first.payload}")
+
+        check("held" in holder, "fleet: the holder's jobstate never "
+                                "showed RUNNING")
+        held = holder["held"]
+        out["holder_after_s"] = holder["after_s"]
+        check(out["holder_after_s"] * 1000 < FLEET_COOLDOWN_MS,
+              f"fleet: the holder's jobstate came "
+              f"{out['holder_after_s']:.2f} s after the scale-up, past the "
+              f"{FLEET_COOLDOWN_MS} ms cooldown")
+        reg1 = wait.until(lambda: _of(_fleet_events(app_dir),
+                                      "SERVING_ENDPOINT_REGISTERED",
+                                      task_index=1),
+                          "serving:1's registration")[0]
+        mark("serving:1")
+        eps = wait.until(up_endpoints(2), "the router's second endpoint")
+        replicas[1] = next(e["url"] for e in eps if e["url"] != ep0["url"])
+
+        def alerts_clear():
+            ev = _fleet_events(app_dir)
+            fired = _of(ev, "ALERT_FIRING")
+            return fired and len(_of(ev, "ALERT_RESOLVED")) >= len(fired)
+        wait.until(alerts_clear, "ALERT_RESOLVED after burst A")
+        cooled = holder["t"] + FLEET_COOLDOWN_MS / 1000 + 0.5
+        time.sleep(max(0.0, cooled - time.monotonic()))
+        mark("cooled")
+        before = {i: _get_json(u + "/v1/metrics")
+                  for i, u in replicas.items()}
+        burst_b = _burst(router, prompts)
+        mark("burst B done")
+        after = {i: _get_json(u + "/v1/metrics")
+                 for i, u in replicas.items()}
+        wait.until(lambda: _of(_fleet_events(app_dir), "AUTOSCALE_DECISION",
+                               arbiter_action="queue"),
+                   "a queued AUTOSCALE_DECISION")
+        mark("queued")
+        # burst B again with no gap: the split the router gives requests
+        # that arrive between two probes
+        burst_b0 = _burst(router, prompts, gap_s=0.0)
+        after0 = {i: _get_json(u + "/v1/metrics")
+                  for i, u in replicas.items()}
+        mark("burst B0 done")
+        wait.until(alerts_clear, "ALERT_RESOLVED after burst B")
+        mark("resolved")
+
+        # the router's own wall: the same short request through the
+        # router, then direct to the replica the router sent it to
+        short = {"prompt": prompts[0][:16], "max_new_tokens": 1}
+
+        def sent():
+            return {e["url"]: e["sent"] for e in
+                    _get_json(router + "/v1/fleet")["endpoints"]}
+        pairs = []
+        for _ in range(FLEET_PAIRS):
+            s0 = sent()
+            routed = _post(router, short, stream=False)["wall_s"]
+            s1 = sent()
+            went = [u for u in s1 if s1[u] != s0.get(u)]
+            check(len(went) == 1, f"fleet: one routed request moved the "
+                                  f"router's counts {s0} -> {s1}")
+            direct = _post(went[0], short, stream=False)["wall_s"]
+            pairs.append((direct, routed))
+
+        def cli(*argv):
+            r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
+                                *argv], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=120)
+            return r.returncode, r.stdout, r.stderr
+        arb_conf = os.path.join(root, "arbiter.properties")
+        with open(arb_conf, "w") as f:
+            f.write("tony.arbiter.total-tpus=2\n")
+        out["cli"] = {"alerts": cli("alerts", app_dir),
+                      "top": cli("top", stage, "--once"),
+                      "arbiter": cli("arbiter", stage, "--chips", "1",
+                                     "--queues-conf", arb_conf),
+                      "router": cli("router", "--status", router)}
+        final = {i: _get_json(u + "/v1/metrics")
+                 for i, u in replicas.items()}
+        mark("verbs")
+    except SmokeFailure:
+        log(f"fleet: seconds from the CLI's spawn: {marks}")
+        for name in ("serve.cli.log", "holder.cli.log", "router.out"):
+            path = os.path.join(root, name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"fleet: {name}:\n{f.read()[-3000:]}")
+        for path in glob.glob(os.path.join(workdir, "application_*",
+                                           C.AM_STDERR)):
+            with open(path) as f:
+                log(f"fleet: {path}:\n" + "\n".join(
+                    m for m in _log_messages(f.read())
+                    if "autoscal" in m or "alert" in m or "arbiter" in m
+                    or "fleet" in m)[-3000:])
+        raise
+    finally:
+        # the router stops on SIGINT (its KeyboardInterrupt path), a
+        # submitting CLI kills its job on SIGTERM
+        for name, sig in (("cli router", signal.SIGINT),
+                          ("holder", signal.SIGTERM),
+                          ("cli submit", signal.SIGTERM)):
+            proc = procs.get(name)
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(sig)
+        rcs = {}
+        for name, proc in procs.items():
+            try:
+                rcs[name] = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                rcs[name] = proc.wait(timeout=30)
+    mark("shut down")
+    statuses = {}
+    for name, d in (("cli submit", app_dir),
+                    ("holder", glob.glob(os.path.join(
+                        root, "hold", "application_*"))[0])):
+        with open(os.path.join(d, C.AM_STATUS_FILE)) as f:
+            statuses[name] = json.load(f)["status"]
+    out.update(want=want, burst_a=burst_a, burst_b=burst_b,
+               burst_b0=burst_b0, marks=marks, before=before, after=after,
+               after0=after0, final=final, statuses=statuses,
+               replicas=replicas, pairs=pairs, rcs=rcs, held=held,
+               first=first, reg1=reg1,
+               phase_s=time.monotonic() - t_spawn,
+               events=_fleet_events(app_dir))
+    return out
+
+
+def _fleet_checks(job: dict, smi: str) -> dict[str, int]:
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.models.llama import get_config
+
+    cfg = get_config(FLEET_CONFIG)
+    app_dir, events = job["app_dir"], job["events"]
+    names = [e.type.name for e in events]
+    # streams: every one is generate's, whichever replica served it
+    for tag in ("burst_a", "burst_b", "burst_b0"):
+        for i, r in enumerate(job[tag]["answers"]):
+            check(r["tokens"] == job["want"][i],
+                  f"fleet: {tag} request {i}: {r['tokens']} != generate "
+                  f"{job['want'][i]}")
+    # the event record, in order
+    decisions = _of(events, "AUTOSCALE_DECISION")
+    first = decisions[0]
+    started1 = _of(events, "TASK_STARTED", task_type="serving",
+                   task_index=1)
+    check(started1 and events.index(first) < events.index(started1[0])
+          < events.index(_of(events, "SERVING_ENDPOINT_REGISTERED",
+                             task_index=1)[0]),
+          f"fleet: scale-up -> serving:1 launched -> registered: {names}")
+    queued = [d for d in decisions if d.payload.arbiter_action == "queue"]
+    check(queued and queued[0].payload.from_replicas == 2
+          and events.index(queued[0]) > events.index(started1[0]),
+          f"fleet: no queued ask at 2 replicas: "
+          f"{[vars(d.payload) for d in decisions]}")
+    check(not [d for d in decisions[1:]
+               if d.payload.arbiter_action == "admit"]
+          and not _of(events, "TASK_STARTED", task_type="serving",
+                      task_index=2),
+          f"fleet: a third replica was admitted: "
+          f"{[vars(d.payload) for d in decisions]}")
+    # the queue-depth alert fired during burst A and resolved as its
+    # queue drained, before burst B began
+    fired = _of(events, "ALERT_FIRING", rule_id="serve.queue_depth_burn")
+    resolved = _of(events, "ALERT_RESOLVED",
+                   rule_id="serve.queue_depth_burn")
+    a, b = job["burst_a"], job["burst_b"]
+    check(fired and resolved
+          and a["start_ms"] <= fired[0].timestamp <= a["end_ms"]
+          and any(fired[0].timestamp < r.timestamp <= b["start_ms"]
+                  and r.payload.key == fired[0].payload.key
+                  for r in resolved),
+          f"fleet: the queue-depth alert's record "
+          f"{[(e.type.name, e.timestamp, e.payload.key)
+              for e in fired + resolved]}"
+          f" against burst A {a['start_ms']:.0f}-{a['end_ms']:.0f}, burst B "
+          f"from {b['start_ms']:.0f}")
+    # spread: both replicas served burst B
+    served = {i: job["after"][i]["requests_finished"]
+              - job["before"][i]["requests_finished"]
+              for i in job["replicas"]}
+    check(min(served.values()) >= 1 and sum(served.values())
+          == FLEET_REQUESTS,
+          f"fleet: burst B served per replica {served}")
+    served0 = {i: job["after0"][i]["requests_finished"]
+               - job["after"][i]["requests_finished"]
+               for i in job["replicas"]}
+    check(sum(served0.values()) == FLEET_REQUESTS,
+          f"fleet: burst B at gap 0 served per replica {served0}")
+    # the CLI verbs
+    rc, text, err = job["cli"]["alerts"]
+    check(rc == 0 and "serve.queue_depth_burn" in text
+          and "RESOLVED" in text and "FIRING" in text,
+          f"fleet: `cli alerts` exited {rc}: {text[-2000:]}{err[-1000:]}")
+    app_id = os.path.basename(app_dir)
+    rc, text, err = job["cli"]["top"]
+    row = next((line for line in text.splitlines()
+                if line.startswith(app_id[:36])), "")
+    check(rc == 0 and row.split()[3:6] == ["RUNNING", "2", "2"],
+          f"fleet: `cli top` exited {rc}, row {row!r}: {text[-2000:]}"
+          f"{err[-1000:]}")
+    rc, text, err = job["cli"]["arbiter"]
+    check(rc == 0 and json.loads(text)["action"] == "queue",
+          f"fleet: `cli arbiter` exited {rc}: {text[-2000:]}{err[-1000:]}")
+    rc, text, err = job["cli"]["router"]
+    check(rc == 0 and sum(" UP " in line for line in text.splitlines())
+          == 2, f"fleet: `cli router --status` exited {rc}: {text}{err}")
+    # shutdown: the router stopped cleanly, each CLI exited as the
+    # submitter does on SIGTERM (cluster_submitter.py: 130) with its job
+    # KILLED, and the router's and both replicas' ports closed
+    check(job["rcs"] == {"cli submit": 130, "cli router": 0, "holder": 130}
+          and job["statuses"] == {"cli submit": "KILLED",
+                                  "holder": "KILLED"},
+          f"fleet: exits {job['rcs']}, final statuses {job['statuses']}")
+    for url in [job["router"], *job["replicas"].values()]:
+        check(not _listening(int(url.rsplit(":", 1)[1])),
+              f"fleet: {url} still listens after SIGTERM")
+    # each replica's own launches against its own prefill and step counts
+    launches: dict[str, int] = {}
+    for i in job["replicas"]:
+        stats = job["final"][i]
+        with open(os.path.join(app_dir, C.CONTAINERS_DIR_NAME,
+                               f"serving_{i}_s0", "stderr")) as f:
+            got = _am_launches(f.read(), f"fleet serving:{i}")
+        admissions, steps = stats["admissions"], stats["decode_steps"]
+        want = {"flash_fwd": cfg.n_layers * admissions,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "rmsnorm_fwd": (2 * cfg.n_layers + 1)
+                * (admissions + steps), "int8_matmul": 0}
+        check(got == want, f"fleet: serving:{i} launched {got}, its "
+                           f"{admissions} admissions and {steps} decode "
+                           f"steps want {want}")
+        log(f"fleet: serving:{i} at {job['replicas'][i]}: "
+            f"{stats['requests_finished']} requests, {admissions} "
+            f"admissions, {steps} decode steps, its own count of its "
+            f"launches {got}; burst B sent it {served[i]}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    # the numbers
+    with open(os.path.join(glob.glob(os.path.join(
+            app_dir, C.HISTORY_DIR_NAME, "*"))[0], C.METRICS_FILE)) as f:
+        depth = json.load(f).get("serving:0", {}).get(
+            "SERVING_QUEUE_DEPTH", [])
+    crossed = next((ts for ts, v in depth if v > FLEET_QUEUE_SLO), None)
+    reg0 = _of(events, "SERVING_ENDPOINT_REGISTERED", task_index=0)[0]
+    check(crossed is not None, f"fleet: serving:0's queue never crossed "
+                               f"{FLEET_QUEUE_SLO}: {depth}")
+    ttft = {tag: [r["first_s"] * 1e3 for r in job[tag]["answers"]]
+            for tag in ("burst_a", "burst_b", "burst_b0")}
+    added = [(r - d) * 1e3 for d, r in job["pairs"]]
+    log(f"fleet: {FLEET_CONFIG} {str(cfg.dtype).replace('torch.', '')} on "
+        f"{FLEET_SLOTS}-slot replicas through "
+        f"`cli router`: {3 * FLEET_REQUESTS} streams (prompt "
+        f"{FLEET_PROMPT}, {FLEET_NEW} new) equal generate; events "
+        f"{[n for n in names if n not in ('TASK_FINISHED',)]}; decisions "
+        f"{[(d.payload.direction, d.payload.from_replicas,
+             d.payload.to_replicas, d.payload.arbiter_action)
+            for d in decisions]}; "
+        f"the holder job {job['held']['app_id']} at "
+        f"{job['held']['requested_chips']} chips {job['holder_after_s']:.2f}"
+        f" s after the scale-up; {smi}")
+    log(f"fleet: burst A {a['wall']:.2f} s, TTFT p50 "
+        f"{_pct(ttft['burst_a'], 0.5):.1f} ms p95 "
+        f"{_pct(ttft['burst_a'], 0.95):.1f} ms; burst B "
+        f"{b['wall']:.2f} s, TTFT p50 {_pct(ttft['burst_b'], 0.5):.1f}"
+        f" ms p95 {_pct(ttft['burst_b'], 0.95):.1f} ms; {smi}")
+    b0 = job["burst_b0"]
+    log(f"fleet: burst B with no gap between requests {b0['wall']:.2f} s, "
+        f"TTFT p50 {_pct(ttft['burst_b0'], 0.5):.1f} ms p95 "
+        f"{_pct(ttft['burst_b0'], 0.95):.1f} ms; served per replica "
+        f"{served0}, against {served} {FLEET_GAP_S * 1e3:.0f} ms apart; "
+        f"{smi}")
+    log(f"fleet: scale-up decision -> serving:1 registered "
+        f"{(job['reg1'].timestamp - job['first'].timestamp) / 1e3:.2f} s; "
+        f"queue crossing {FLEET_QUEUE_SLO} -> ALERT_FIRING "
+        f"{fired[0].timestamp - crossed} ms; the router's added wall per "
+        f"request (routed - direct to the replica it went to, "
+        f"{FLEET_PAIRS} pairs of prompt 16, 1 new) median "
+        f"{_pct(added, 0.5):.2f} ms, p25 {_pct(added, 0.25):.2f} ms, p75 "
+        f"{_pct(added, 0.75):.2f} ms, each "
+        f"{[round(a, 2) for a in added]}; CLI spawn -> serving:0 "
+        f"registered {(reg0.timestamp - job['spawn_ms']) / 1e3:.2f} s; "
+        f"the phase "
+        f"{job['phase_s']:.1f} s; exits {job['rcs']}; {smi}")
+    log(f"fleet: seconds from the CLI's spawn: {job['marks']}")
+    return launches
+
+
+def phase_fleet(smi: str) -> dict[str, int]:
+    """The served model through `cli router`, scaled by the AM's
+    autoscaler through the arbiter, with no module of tony_tpu
+    importable. Returns the replicas' own counts of their launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    try:
+        cache, env = _am_tree(root)
+        job = _fleet_job(root, env, cache, smi)
+        return _fleet_checks(job, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision,executor,am,cli",
+                            "pipeline,spec,vision,executor,am,cli,fleet",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -5879,6 +6480,8 @@ def main(argv=None) -> int:
             launches["am"] = phase_am(smi)
         if "cli" in phases:
             launches["cli"] = phase_cli(smi)
+        if "fleet" in phases:
+            launches["fleet"] = phase_fleet(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,9 +10,10 @@ last `TASK_FINISHED` is left out of the order: whether the JAX AM emits
 it before it stops is a race of that AM.
 
 Also here: a port AM killed mid-job and relaunched by its supervisor
-(the recovery record of `tests/test_recovery.py`), the features the port
-refuses by name, a job run where `tony_tpu` cannot be imported, and the
-isolation probe of the AM core.
+(the recovery record of `tests/test_recovery.py`), the alert engine's
+rules and a rule that fires and resolves, the replica autoscaler's
+scale-up and queued ask, a job run where `tony_tpu` cannot be imported,
+and the isolation probe of the AM core.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from tony_tpu_torch.conf import TonyConfiguration as PortConf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "tests", "scripts")
+# the port's own task programs (they import only the port)
+PORT_SCRIPTS = os.path.join(REPO, "tests", "torch_scripts")
 
 BASE = {
     "tony.am.monitor-interval-ms": 100,
@@ -127,6 +130,10 @@ def _both(tmp_path, name, settings, **kw) -> dict[str, Job]:
 
 def _script(name: str) -> str:
     return f"{sys.executable} {os.path.join(SCRIPTS, name)}"
+
+
+def _port_script(name: str) -> str:
+    return f"{sys.executable} {os.path.join(PORT_SCRIPTS, name)}"
 
 
 # ---------------------------------------------------------------------------
@@ -291,90 +298,8 @@ def test_the_supervisor_recovers_a_killed_am_alike(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# features refused by name
+# the alert engine and the replica autoscaler
 # ---------------------------------------------------------------------------
-
-REFUSED = {
-    "alert-rule": ({"tony.alerts.rules":
-                    "r1:TRAIN_STEP_TIME_MS>500:warning"}, "tony.alerts.rules"),
-    "autoscaler": ({"tony.autoscaler.enabled": "true",
-                    "tony.serving.instances": 1}, "tony.autoscaler.enabled"),
-}
-
-
-def _refused_job(tmp_path, settings: dict):
-    from tony_tpu_torch.am.application_master import ApplicationMaster
-    conf = PortConf()
-    for k, v in {**BASE, "tony.worker.instances": 1,
-                 "tony.task.command": "exit 0", **settings}.items():
-        conf.set(k, v.replace("{tmp}", str(tmp_path))
-                 if isinstance(v, str) else v, "test")
-    app_dir = str(tmp_path / "application_refused")
-    os.makedirs(app_dir)
-    conf.write(os.path.join(app_dir, C.TONY_FINAL_CONF))
-    ok = ApplicationMaster(conf, "application_refused", app_dir).run()
-    return ok, Job(app_dir, 0 if ok else 1, "")
-
-
-def test_refused_alert_rule(tmp_path):
-    _assert_refused(tmp_path, "alert-rule")
-
-
-def test_refused_autoscaler(tmp_path):
-    _assert_refused(tmp_path, "autoscaler")
-
-
-def _assert_refused(tmp_path, case: str):
-    settings, key = REFUSED[case]
-    ok, job = _refused_job(tmp_path, settings)
-    assert not ok and job.status["status"] == "FAILED"
-    assert job.status["message"].startswith(key + "=")
-    assert job.diagnostics["message"] == job.status["message"]
-    assert [e.type.name for e in job.events] == [
-        "DIAGNOSTICS_READY", "APPLICATION_FINISHED"]   # nothing launched
-    assert not os.path.exists(os.path.join(job.app_dir,
-                                           C.CONTAINERS_DIR_NAME))
-
-
-def test_what_is_not_refused_runs(tmp_path):
-    """The refusal names only a switch that is on: the defaults, an SLO
-    threshold with alerting off (the watchdog the port has), an
-    autoscaler without a serving jobtype (the JAX AM builds none), the
-    remote backend, the warm pool and a staging location pass, and
-    `backend_from_conf` builds the backends they ask for."""
-    from tony_tpu_torch.am.application_master import unported_feature
-    from tony_tpu_torch.cluster import (
-        LocalClusterBackend, RemoteClusterBackend, backend_from_conf,
-    )
-    from tony_tpu_torch.cluster.warmpool import WarmExecutorPool
-    remote = {"tony.cluster.backend": "remote",
-              "tony.cluster.node-transport": "exec",
-              "tony.cluster.nodes": "nodeA:1,nodeB:1"}
-    for settings in ({}, {"tony.alerts.enabled": "false",
-                          "tony.slo.step-time-regression-pct": 20},
-                     {"tony.autoscaler.enabled": "true",
-                      "tony.worker.instances": 1},
-                     remote, {"tony.warmpool.enabled": "true"},
-                     {"tony.staging.location": str(tmp_path / "stage")}):
-        conf = PortConf()
-        for k, v in settings.items():
-            conf.set(k, v, "test")
-        assert unported_feature(conf) is None, settings
-    conf = PortConf()
-    for k, v in remote.items():
-        conf.set(k, v, "test")
-    backend = backend_from_conf(conf, "app")
-    assert isinstance(backend, RemoteClusterBackend) and backend.off_host
-    assert [n.host for n in backend._nodes] == ["nodeA", "nodeB"]
-    conf = PortConf()
-    conf.set("tony.warmpool.enabled", "true", "test")
-    backend = backend_from_conf(conf, "app")
-    try:
-        assert isinstance(backend, LocalClusterBackend)
-        assert isinstance(backend._warmpool, WarmExecutorPool)
-    finally:
-        backend._warmpool.stop()
-
 
 @pytest.mark.parametrize("key,value", [
     ("tony.alerts.step-regression-pct", "20"),
@@ -385,15 +310,144 @@ def test_what_is_not_refused_runs(tmp_path):
     ("tony.alerts.ttft-p95-slo-ms", "500ms"),
     ("tony.alerts.queue-depth-slo", "8"),
     ("tony.alerts.reject-rate-budget-pct", "1"),
-    ("tony.alerts.rules", "r1:TRAIN_STEP_TIME_MS>500:warning"),
+    ("tony.alerts.rules", "r1:TRAIN_STEP_TIME_MS>500:severity=warning"),
 ])
-def test_every_alert_rule_is_refused_by_its_key(key, value):
-    """Each threshold that gives the JAX AM's alert engine a rule (read
-    with the getter that engine uses) names its key in the refusal."""
-    from tony_tpu_torch.am.application_master import unported_feature
-    conf = PortConf()
-    conf.set(key, value, "test")
-    assert unported_feature(conf).startswith(f"{key}={value} ")
+def test_every_alert_key_builds_the_jax_rule_set(key, value):
+    """Each key that gives the JAX AM's engine a rule gives the port's
+    AM the same rule set: ids, severities, scopes, for-durations and
+    descriptions, and the engine's own knobs."""
+    from tony_tpu.observability import alerts as jalerts
+    from tony_tpu_torch.observability import alerts as palerts
+    got = {}
+    for pkg, Conf, A in (("jax", JaxConf, jalerts),
+                         ("port", PortConf, palerts)):
+        conf = Conf()
+        conf.set(key, value, "test")
+        eng = A.engine_from_conf(conf)
+        got[pkg] = ([(r.rule_id, r.severity, r.scope, r.for_ms,
+                      r.description) for r in eng.rules],
+                    eng._default_for_ms, eng._flap_suppress_ms)
+        eng.close()
+    assert got["port"] == got["jax"]
+    assert len(got["port"][0]) == 1
+
+
+def _alert_log(job: Job) -> list:
+    with open(os.path.join(os.path.dirname(glob.glob(os.path.join(
+            job.app_dir, C.HISTORY_DIR_NAME, "*", "*." + C.HISTORY_SUFFIX))[
+                0]), C.ALERTS_FILE)) as f:
+        bundle = json.load(f)
+    return [{k: t[k] for k in ("rule_id", "key", "status", "severity",
+                               "scope", "value", "threshold", "message",
+                               "suppressed")} for t in bundle["log"]] + [
+        {"rules": bundle["rules"], "firing": bundle["firing"]}]
+
+
+def test_an_alert_rule_fires_and_resolves_alike(tmp_path):
+    """A custom rule on a gauge the task pushes high, then low: both AMs
+    record ALERT_FIRING then ALERT_RESOLVED in the same place among the
+    job's events, and write the same transitions to alerts.json."""
+    jobs = _both(tmp_path, "alert", {
+        "tony.worker.instances": 1,
+        "tony.task.command": _port_script("alert_gauge_task.py"),
+        "tony.alerts.rules": "t.gauge:TEST_GAUGE>5:for=200ms",
+        "tony.alerts.flap-suppress-ms": 0})
+    records = {pkg: job.record() for pkg, job in jobs.items()}
+    assert records["port"] == records["jax"]
+    assert records["port"]["status"] == "SUCCEEDED"
+    events = records["port"]["events"]
+    assert events.index("ALERT_FIRING") < events.index("ALERT_RESOLVED")
+    logs = {pkg: _alert_log(job) for pkg, job in jobs.items()}
+    assert logs["port"] == logs["jax"]
+    assert [t["status"] for t in logs["port"][:-1]] == ["firing",
+                                                        "resolved"]
+    fired = jobs["port"].of("ALERT_FIRING")[0]
+    assert (fired.rule_id, fired.key) == ("t.gauge", "worker:0")
+
+
+def _events_so_far(app_dir: str) -> list:
+    found = glob.glob(os.path.join(app_dir, C.HISTORY_DIR_NAME, "*",
+                                   "*.inprogress"))
+    return parse_events(found[0]) if found else []
+
+
+def _write_holder(stage: str, now_ms: int) -> None:
+    """Another tenant's live jobstate, holding the whole inventory."""
+    path = os.path.join(stage, "application_holder", C.FLEET_DIR_NAME,
+                        C.JOBSTATE_FILE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    from tony_tpu_torch.observability.fleet import job_summary
+    with open(path, "w") as f:
+        json.dump(job_summary("application_holder", "other", "default",
+                              "RUNNING", gang_width=1, allocated_chips=2,
+                              started_ms=now_ms, heartbeat_ms=now_ms), f)
+
+
+def test_the_autoscaler_scales_up_then_queues_alike(tmp_path):
+    """A serving job on stub replicas whose pushed queue stays deep:
+    each AM's first ask is admitted by the arbiter (an empty book of 2
+    chips) and launches serving:1; once another tenant's jobstate holds
+    the 2 chips, the next ask is queued. Both AMs record the same
+    decisions in the same place among their events."""
+    procs = {}
+    for pkg in ("jax", "port"):
+        procs[pkg] = _start(tmp_path, pkg, "scale", {
+            "tony.serving.instances": 1, "tony.serving.tpus": 1,
+            "tony.serving.command": _port_script("stub_serving_replica.py"),
+            "tony.task.term-grace-ms": 1000,
+            "tony.autoscaler.enabled": "true",
+            "tony.autoscaler.hysteresis-passes": 1,
+            "tony.autoscaler.queue-depth-up": 8,
+            "tony.autoscaler.cooldown-ms": 4000,
+            "tony.autoscaler.max-replicas": 3,
+            "tony.arbiter.total-tpus": 2,
+            "tony.staging.location": str(tmp_path / f"stage_{pkg}"),
+            "tony.fleet.publish-interval-ms": 200})
+    jobs = {}
+    try:
+        for pkg, (proc, app_dir) in procs.items():
+            _wait_for(lambda: proc.poll() is not None or [
+                e for e in _events_so_far(app_dir)
+                if e.type.name == "AUTOSCALE_DECISION"], 60,
+                f"{pkg}: the first AUTOSCALE_DECISION")
+            _write_holder(str(tmp_path / f"stage_{pkg}"),
+                          int(time.time() * 1000))
+        for pkg, (proc, app_dir) in procs.items():
+            _wait_for(lambda: proc.poll() is not None or len(
+                [e for e in _events_so_far(app_dir)
+                 if e.type.name == "AUTOSCALE_DECISION"]) >= 2, 60,
+                f"{pkg}: the second AUTOSCALE_DECISION")
+            proc.send_signal(signal.SIGTERM)
+        for pkg, (proc, app_dir) in procs.items():
+            _, stderr = proc.communicate(timeout=120)
+            jobs[pkg] = Job(app_dir, proc.returncode, stderr)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    keep = ("APPLICATION_INITED", "TASK_STARTED", "AUTOSCALE_DECISION",
+            "APPLICATION_FINISHED")
+    got = {}
+    for pkg, job in jobs.items():
+        got[pkg] = {
+            "events": [e.type.name for e in job.events
+                       if e.type.name in keep],
+            "decisions": [vars(p) for p in job.of("AUTOSCALE_DECISION")],
+            "registered": sorted({p.task_index for p in
+                                  job.of("SERVING_ENDPOINT_REGISTERED")}),
+            "status": job.status["status"]}
+    assert got["port"] == got["jax"]
+    assert got["port"]["events"][:5] == [
+        "APPLICATION_INITED", "TASK_STARTED", "AUTOSCALE_DECISION",
+        "TASK_STARTED", "AUTOSCALE_DECISION"]
+    first, second = got["port"]["decisions"][:2]
+    assert (first["direction"], first["from_replicas"],
+            first["to_replicas"], first["chips"],
+            first["arbiter_action"]) == ("up", 1, 2, 1, "admit")
+    assert (second["from_replicas"], second["arbiter_action"]) == (
+        2, "queue")
+    assert got["port"]["registered"] == [0, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +491,10 @@ def test_the_am_core_imports_no_torch_jax_grpc_or_tony_tpu():
         "import tony_tpu_torch.cluster.warmpool, tony_tpu_torch.proxy\n"
         "import tony_tpu_torch.utils.native, tony_tpu_torch.events.render\n"
         "import tony_tpu_torch.version\n"
+        "import tony_tpu_torch.observability.alerts\n"
+        "import tony_tpu_torch.cluster.arbiter\n"
+        "import tony_tpu_torch.serve.autoscaler\n"
+        "import tony_tpu_torch.serve.router\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'torch', 'jax', 'jaxlib', 'grpc', 'tony_tpu'}))\n")
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,

@@ -7,8 +7,9 @@
 - The offline subcommands (`diagnose`, `stragglers`, `trace`, `flame`)
   print the same text from the same history, and the live ones (`logs`,
   `resize`, `rollout`) the same text from the same running AM.
-- `alerts`, `top`, `arbiter` and `router` exit 2 naming the module they
-  wait for.
+- The fleet subcommands (`alerts`, `top --once`, `arbiter`, `router
+  --status`) print the same text from the same history, staging store
+  and running router.
 - `submit` runs a job where `tony_tpu` cannot be imported.
 """
 
@@ -23,7 +24,9 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
@@ -276,20 +279,170 @@ def test_live_subcommands_print_the_jax_text(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the refusals, the usage line
+# the fleet subcommands, the usage line
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("verb,module", [
-    ("alerts", "observability/alerts.py"),
-    ("top", "observability/fleet.py"),
-    ("arbiter", "cluster/arbiter.py"),
-    ("router", "serve/router.py"),
-])
-def test_unported_subcommands_exit_2_naming_their_module(verb, module,
-                                                         tmp_path):
-    out = _cli("port", [verb, str(tmp_path)], tmp_path)
-    assert out.returncode == 2
-    assert module in out.stderr and out.stdout == ""
+def _alerts_history(root) -> str:
+    """A history dir with an event log (the JAX handler's), an alert
+    bundle and a diagnostics bundle: what `alerts` renders."""
+    from tony_tpu.events.handler import EventHandler
+    from tony_tpu.events.history import JobMetadata, write_alerts_file
+    from tony_tpu.events.schema import (
+        AlertFiring, AlertResolved, Event, EventType,
+    )
+    hist = os.path.join(root, "history", "application_alerts_1")
+    handler = EventHandler(hist, JobMetadata(
+        application_id="application_alerts_1", started=1000))
+    handler.start()
+    handler.emit(Event(EventType.ALERT_FIRING, AlertFiring(
+        rule_id="serve.queue_depth_burn", key="serving:0",
+        severity="critical", scope="task", value=28.0, threshold=14.0,
+        message="burning", for_ms=600), timestamp=5000))
+    handler.emit(Event(EventType.ALERT_RESOLVED, AlertResolved(
+        rule_id="serve.queue_depth_burn", key="serving:0",
+        active_ms=4000), timestamp=9000))
+    handler.stop("SUCCEEDED")
+    write_alerts_file(hist, {
+        "firing": [{"rule_id": "t.hot", "key": "serving:1",
+                    "severity": "warning", "scope": "task",
+                    "since_ms": 9500, "value": 9.0, "threshold": 5.0,
+                    "message": "M 9.0 > 5.0 on serving:1", "flaps": 0}],
+        "log": [{"ts_ms": 5000, "rule_id": "serve.queue_depth_burn",
+                 "key": "serving:0", "status": "firing",
+                 "severity": "critical", "scope": "task", "value": 28.0,
+                 "threshold": 14.0, "message": "burning",
+                 "suppressed": False, "for_ms": 600},
+                {"ts_ms": 9000, "rule_id": "serve.queue_depth_burn",
+                 "key": "serving:0", "status": "resolved",
+                 "severity": "critical", "scope": "task", "value": 28.0,
+                 "threshold": 14.0, "message": "", "suppressed": False,
+                 "active_ms": 4000}],
+        "rules": ["serve.queue_depth_burn", "t.hot"],
+        "generated_ms": 9600})
+    with open(os.path.join(hist, C.DIAGNOSTICS_FILE), "w") as f:
+        json.dump({"first_failure": {"task_id": "serving:1", "attempt": 0,
+                                     "ts_ms": 9700, "reason": "exit 1"}}, f)
+    return hist
+
+
+def _fleet_store(root) -> tuple[str, str, str]:
+    """A staging location of published jobstates, and the two conf files
+    `top --queues-conf` (a frozen conf) and `arbiter --queues-conf`
+    (properties) read."""
+    from tony_tpu.conf import TonyConfiguration
+    from tony_tpu.observability import fleet
+    from tony_tpu.storage import staging_store
+    stage = os.path.join(root, "stage")
+    now = int(time.time() * 1000)
+    for app, state, chips, queue in (("app_serve", "RUNNING", 2, "prod"),
+                                     ("app_train", "RUNNING", 4, "dev"),
+                                     ("app_done", "SUCCEEDED", 8, "prod")):
+        fleet.publish_job_state(
+            staging_store(stage, os.path.join(root, "apps", app)),
+            fleet.job_summary(app, "alice", queue, state, gang_width=2,
+                              allocated_chips=chips, started_ms=now - 5000,
+                              heartbeat_ms=now, goodput_pct=80.0,
+                              serving_tokens_per_sec=(
+                                  120.0 if app == "app_serve" else None)),
+            root)
+    top_conf = os.path.join(root, "queues.json")
+    conf = TonyConfiguration()
+    conf.set("tony.queues.prod.max-tpus", 4, "test")
+    conf.set("tony.queues.dev.max-tpus", 8, "test")
+    conf.write(top_conf)
+    arb_conf = os.path.join(root, "arbiter.properties")
+    with open(arb_conf, "w") as f:
+        f.write("tony.arbiter.total-tpus=8\n"
+                "tony.queues.prod.capacity-share=50\n"
+                "tony.queues.dev.capacity-share=75\n")
+    return stage, top_conf, arb_conf
+
+
+@pytest.mark.parametrize("verb", ["alerts", "top", "arbiter", "router"])
+def test_fleet_subcommands_print_alike(verb, tmp_path, monkeypatch):
+    """`alerts` (offline, with its incident timeline), `top --once`,
+    `arbiter` and `router --status` print the JAX CLI's text on the same
+    inputs, with the wall clock held for `top`'s heartbeat ages."""
+    root = str(tmp_path)
+    stop = []
+    if verb == "alerts":
+        hist = _alerts_history(root)
+        argvs = [[hist], [hist, "--json"],
+                 [os.path.join(root, "nothing-here")]]
+    elif verb == "top":
+        stage, top_conf, _ = _fleet_store(root)
+        argvs = [[stage, "--once"], [stage, "--once", "--queues-conf",
+                                     top_conf]]
+    elif verb == "arbiter":
+        stage, _, arb_conf = _fleet_store(root)
+        argvs = [[stage, "--chips", n, "--queue", q, "--queues-conf",
+                  arb_conf] for n, q in (("1", "prod"), ("2", "dev"),
+                                         ("6", "dev"))] + [[stage]]
+    else:
+        from tony_tpu_torch.serve.router import FleetRouter
+        stubs = [_LoadStub(queue_depth=1, slots_free=1),
+                 _LoadStub(queue_depth=0, slots_free=2,
+                           kv_pages_total=64, kv_pages_free=16,
+                           kv_hit_rate_pct=40.0, role="prefill")]
+        rtr = FleetRouter([s.url for s in stubs], port=0,
+                          host="127.0.0.1", probe_ttl_ms=30)
+        rtr.start()
+        stop = [rtr.stop] + [s.stop for s in stubs]
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and not all(
+                e["load"] for e in rtr.endpoints()):
+            time.sleep(0.05)
+        argvs = [["--status", f"http://127.0.0.1:{rtr.port}"],
+                 ["--status", "http://127.0.0.1:9"]]
+    now = time.time() + 2.0
+    outs = []
+    try:
+        for argv in argvs:
+            said = {}
+            for pkg in MODULES:
+                monkeypatch.setattr(time, "time", lambda: now)
+                said[pkg] = _in_process(pkg, verb, argv)
+                monkeypatch.undo()
+            assert said["port"][:2] == said["jax"][:2], argv
+            assert said["port"][2].replace("tony_tpu_torch.cli",
+                                           "tony_tpu.cli") == said["jax"][2]
+            outs.append(said["port"])
+    finally:
+        for f in stop:
+            f()
+    rc, out, _ = outs[0]
+    assert rc == 0 and out
+    if verb == "router":
+        assert out.count(" UP ") == 2
+    if verb == "top":
+        assert "2 live job(s), 6 chip(s) in use" in out
+
+
+class _LoadStub:
+    """A replica answering /v1/load with a fixed load."""
+
+    def __init__(self, **load):
+        body = json.dumps({"ok": True, "active_slots": 0, "n_slots": 2,
+                           "draining": False, **load}).encode()
+
+        class H(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler API
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
 
 
 @pytest.mark.parametrize("argv", [[], ["no-such-verb"]])

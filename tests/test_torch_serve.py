@@ -384,7 +384,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "cli.local_submitter", "cli.cluster_submitter",
                    "cli.notebook_submitter", "cluster.remote",
                    "cluster.warmpool", "proxy", "utils.native",
-                   "events.render", "version"):
+                   "events.render", "version", "observability.fleet",
+                   "observability.alerts", "cluster.arbiter",
+                   "serve.autoscaler", "serve.router"):
         assert f"tony_tpu_torch.{module}" in names, module
     assert bad == "", f"loaded: {bad}"
 

@@ -1,6 +1,6 @@
 """`python -m tony_tpu_torch.cli
-{submit|local|notebook|profile|logs|diagnose|stragglers|preempt|resize
-|rollout|trace|flame} ...`
+{submit|local|notebook|profile|logs|diagnose|stragglers|alerts|top
+|preempt|resize|arbiter|router|rollout|trace|flame} ...`
 
 The port's copy of `tony_tpu/cli/__main__.py`: the same subcommands, the
 same text and exit codes, the client, AM and executor of the port.
@@ -26,6 +26,18 @@ same text and exit codes, the client, AM and executor of the port.
 - stragglers — render a job's cross-task skew bundle (skew.json) offline
              from history: latched stragglers with evidence, gang
              quantiles per signal, and the step-time heatmap.
+- alerts   — render a job's alert bundle (alerts.json) offline from
+             history: firing alerts, the transition log, and the
+             incident timeline correlated with events + diagnostics;
+             `--follow` polls for new transitions.
+- top      — polling text view of the live fleet over a shared staging
+             location (the jobstate.json registry every AM publishes
+             into): per-job state/chips/goodput plus per-queue
+             quota-utilization rollups. `--once` prints one frame.
+- router   — serving fleet router (serve/router.py): one front door
+             spreading /v1/generate least-loaded across the app's
+             registered serving endpoints, with 429 spill-over,
+             connection draining, and dead-endpoint eviction.
 - rollout  — zero-downtime rolling weight update over a running app's
              serving replicas (request_rolling_update RPC): drain one,
              relaunch on the latest checkpoint, wait healthy, repeat.
@@ -38,10 +50,6 @@ same text and exit codes, the client, AM and executor of the port.
              get_profile RPC, or the profile.folded history sidecar)
              as a sorted hot-stack table; `--folded` emits raw
              flamegraph.pl / speedscope input.
-
-`alerts`, `top`, `arbiter` and `router` read modules the port does not
-have yet (`UNPORTED`): each exits 2 with a message naming the module it
-waits for, instead of running with part of the feature missing.
 """
 
 from __future__ import annotations
@@ -57,14 +65,6 @@ USAGE = ("usage: python -m tony_tpu_torch.cli "
          "{submit|local|notebook|profile|logs|diagnose|stragglers"
          "|alerts|top|preempt|resize|arbiter|router|rollout|trace"
          "|flame} [args...]")
-
-# subcommand -> the module of the JAX package it waits for
-UNPORTED = {
-    "alerts": "observability/alerts.py",
-    "top": "the fleet reader (FleetView in observability/fleet.py)",
-    "arbiter": "cluster/arbiter.py",
-    "router": "serve/router.py",
-}
 
 
 def _am_client(app_dir: str):
@@ -397,6 +397,230 @@ def stragglers(argv: list[str]) -> int:
     return 0
 
 
+def _print_alert_line(t: dict) -> None:
+    status = str(t.get("status", "?")).upper()
+    print(f"  [{t.get('ts_ms', 0)}] {status:<8} "
+          f"[{t.get('severity', 'warning')}] {t.get('rule_id', '?')} "
+          f"on {t.get('key', '?')}"
+          + (f": {t['message']}" if t.get("message") else ""))
+
+
+def alerts(argv: list[str]) -> int:
+    """`python -m tony_tpu_torch.cli alerts <target> [--json] [--follow]` —
+    render a job's alert bundle offline from history (the same
+    alerts.json the portal's panel reads): firing alerts, the bounded
+    transition log, and the incident timeline correlated from the event
+    log + diagnostics bundle when they sit next to it. `--follow`
+    re-polls the bundle and prints new transitions as the AM appends
+    them (the AM refreshes alerts.json on every transition)."""
+    import argparse
+    import glob as _glob
+    import json
+    import os
+    import time
+
+    from tony_tpu_torch import constants as C
+
+    parser = argparse.ArgumentParser(prog="tony_tpu_torch.cli alerts")
+    parser.add_argument("target",
+                        help="app dir, history dir, or an alerts.json")
+    parser.add_argument("--json", action="store_true",
+                        help="dump the raw bundle instead of a summary")
+    parser.add_argument("--follow", "-f", action="store_true",
+                        help="keep polling for new transitions until "
+                             "Ctrl-C")
+    parser.add_argument("--poll-ms", type=int, default=1000,
+                        help="--follow poll interval")
+    args = parser.parse_args(argv)
+    bundle, searched = _find_history_json(args.target, C.ALERTS_FILE)
+    if bundle is None:
+        print("no alert bundle found (searched: "
+              + ", ".join(searched[:4])
+              + "). The job may predate alerting, have no live rules, "
+                "or never have evaluated one.", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(bundle, indent=1, sort_keys=True))
+        return 0
+    firing = bundle.get("firing") or []
+    if firing:
+        print(f"{len(firing)} firing alert(s):")
+        for a in firing:
+            print(f"  [{a.get('severity', 'warning')}] "
+                  f"{a.get('rule_id', '?')} on {a.get('key', '?')} "
+                  f"since {a.get('since_ms', 0)}: "
+                  f"{a.get('message', '')} "
+                  f"(value {a.get('value', 0)} vs threshold "
+                  f"{a.get('threshold', 0)})")
+    else:
+        print("no firing alerts")
+    log = bundle.get("log") or []
+    if log:
+        print(f"{len(log)} transition(s) in the log:")
+        for t in log[-20:]:
+            _print_alert_line(t)
+    # incident timeline when the bundle sits inside a history dir that
+    # also holds the event log / diagnostics bundle
+    bundle_path = next((p for p in searched if os.path.isfile(p)), None)
+    if bundle_path is not None:
+        hist_dir = os.path.dirname(os.path.abspath(bundle_path))
+        events = []
+        for jhist in sorted(_glob.glob(os.path.join(
+                hist_dir, "*." + C.HISTORY_SUFFIX))):
+            try:
+                from tony_tpu_torch.events.handler import parse_events
+                events = [e.to_dict() for e in parse_events(jhist)]
+                break
+            except Exception:  # noqa: BLE001 — timeline is best-effort
+                continue
+        diagnostics, _ = _find_history_json(hist_dir, C.DIAGNOSTICS_FILE)
+        from tony_tpu_torch.observability.alerts import build_incident_timeline
+        timeline = build_incident_timeline(
+            events=events, alerts_bundle=bundle,
+            diagnostics=diagnostics)
+        if timeline:
+            print(f"incident timeline ({len(timeline)} entr(ies)):")
+            for r in timeline:
+                spans = r.get("span_ids") or []
+                print(f"  [{r.get('ts_ms', 0)}] "
+                      f"{r.get('severity', 'info'):<8} "
+                      f"{r.get('kind', '?'):<9} "
+                      f"{r.get('summary', '')}"
+                      + (f" (spans: {', '.join(spans)})"
+                         if spans else ""))
+    if not args.follow:
+        return 0
+    last_ts = max((int(t.get("ts_ms", 0) or 0) for t in log), default=0)
+    try:
+        while True:
+            time.sleep(max(100, args.poll_ms) / 1000.0)
+            bundle, _ = _find_history_json(args.target, C.ALERTS_FILE)
+            if bundle is None:
+                continue
+            fresh = [t for t in bundle.get("log") or []
+                     if int(t.get("ts_ms", 0) or 0) > last_ts]
+            for t in fresh:
+                _print_alert_line(t)
+                last_ts = max(last_ts, int(t.get("ts_ms", 0) or 0))
+            sys.stdout.flush()
+    except KeyboardInterrupt:
+        return 0
+
+
+def _render_fleet_frame(view) -> str:
+    """One `cli top` frame: the live jobs table (state-then-start
+    order, like the portal index) + per-queue quota rollups."""
+    from tony_tpu_torch.observability.fleet import chips_of, quota_utilization
+    import time as _time
+
+    lines = []
+    jobs = view.registry.jobs()
+    live = [j for j in jobs if j.get("state") == "RUNNING"]
+    now_ms = int(_time.time() * 1000)
+    lines.append(f"fleet @ {view.location} — {len(live)} live job(s), "
+                 f"{sum(chips_of(j) for j in live)} chip(s) in use")
+    header = (f"{'APP':<36} {'QUEUE':<10} {'USER':<10} {'STATE':<9} "
+              f"{'W':>7} {'CHIPS':>5} {'GOOD%':>6} {'MFU%':>6} "
+              f"{'STRAG':>5} {'ALRT':>4} {'TOK/S':>7} {'HB':>5}")
+    lines.append(header)
+    for j in jobs:
+        age = max(0.0, (now_ms - int(j.get("heartbeat_ms", 0) or 0))
+                  / 1000.0)
+
+        def _pct(v):
+            return "-" if v is None else f"{float(v):.1f}"
+
+        # elastic width surface: "cur>req" while a resize is in flight
+        # (requested width diverges from current), bare width otherwise
+        cur_w = int(j.get("gang_width", 0) or 0)
+        req_w = int(j.get("requested_width", cur_w) or cur_w)
+        width_cell = f"{cur_w}>{req_w}" if req_w != cur_w else str(cur_w)
+        lines.append(
+            f"{str(j.get('app_id', ''))[:36]:<36} "
+            f"{str(j.get('queue', ''))[:10]:<10} "
+            f"{str(j.get('user', ''))[:10]:<10} "
+            f"{str(j.get('state', '?')):<9} "
+            f"{width_cell:>7} "
+            f"{chips_of(j):>5} "
+            f"{_pct(j.get('goodput_pct')):>6} "
+            f"{_pct(j.get('mfu_pct')):>6} "
+            f"{int(j.get('straggler_count', 0) or 0):>5} "
+            f"{int(j.get('alerts_firing', 0) or 0):>4} "
+            + (f"{float(j['serving_tokens_per_sec']):>7.0f} "
+               if j.get("serving_tokens_per_sec") is not None
+               else f"{'-':>7} ")
+            + f"{age:>4.0f}s")
+    util = quota_utilization(view.queues, live)
+    if util:
+        lines.append("queues:")
+        for q in sorted(util):
+            b = util[q]
+            if b["max_tpus"] > 0:
+                lines.append(
+                    f"  {q:<12} {b['chips_in_use']}/{b['max_tpus']} chips "
+                    f"({b.get('utilization_pct', 0.0):.0f}% of quota), "
+                    f"{b['live_jobs']} live job(s)")
+            else:
+                lines.append(f"  {q:<12} {b['chips_in_use']} chips "
+                             f"(no quota), {b['live_jobs']} live job(s)")
+    return "\n".join(lines)
+
+
+def top(argv: list[str]) -> int:
+    """`python -m tony_tpu_torch.cli top <staging-location> [--interval-ms N]
+    [--once] [--json]` — the live fleet, polled straight off the
+    registry files (no portal required)."""
+    import argparse
+    import json
+    import time
+
+    parser = argparse.ArgumentParser(prog="tony_tpu_torch.cli top")
+    parser.add_argument("location",
+                        help="shared staging location the AMs publish "
+                             "jobstate into (tony.staging.location)")
+    parser.add_argument("--interval-ms", type=int, default=2000,
+                        help="poll cadence")
+    parser.add_argument("--once", action="store_true",
+                        help="print a single frame and exit")
+    parser.add_argument("--json", action="store_true",
+                        help="dump the /api/fleet payload instead of "
+                             "the table (implies --once)")
+    parser.add_argument("--queues-conf", default="",
+                        help="conf file declaring tony.queues.<name>."
+                             "max-tpus quotas for the utilization rollup")
+    args = parser.parse_args(argv)
+    from tony_tpu_torch.conf import TonyConfiguration
+    from tony_tpu_torch.conf.queues import configured_queues
+    from tony_tpu_torch.observability.fleet import FleetView
+
+    queues = {}
+    if args.queues_conf:
+        queues = configured_queues(TonyConfiguration.read(args.queues_conf))
+    # read-only observer: top renders the registry + quotas but never
+    # folds/saves the durable accounting (that's the portal's job, run
+    # with the cluster's configured staleness/bounds)
+    view = FleetView(args.location, queues=queues,
+                     refresh_interval_ms=max(200, args.interval_ms // 2),
+                     settle_accounting=False)
+    try:
+        while True:
+            view.refresh(force=True)
+            if args.json:
+                print(json.dumps(view.api_fleet(), indent=1,
+                                 sort_keys=True))
+                return 0
+            frame = _render_fleet_frame(view)
+            if not args.once:
+                # ANSI home+clear keeps the frame in place like top(1)
+                print("\x1b[H\x1b[2J", end="")
+            print(frame, flush=True)
+            if args.once:
+                return 0
+            time.sleep(max(200, args.interval_ms) / 1000.0)
+    except KeyboardInterrupt:
+        return 0
+
+
 def profile(argv: list[str]) -> int:
     """`python -m tony_tpu_torch.cli profile <app_dir> [--task-id worker:0]
     [--steps N]` — the operator verb behind the request_profile RPC."""
@@ -535,6 +759,233 @@ def resize(argv: list[str]) -> int:
         client.close()
     print(json.dumps(resp or {}, indent=1))
     return 0 if not (resp or {}).get("error") else 1
+
+
+def arbiter(argv: list[str]) -> int:
+    """`python -m tony_tpu_torch.cli arbiter <staging-location> --chips N
+    [--queue q --user u --priority p] [--queues-conf file] [--evict]
+    [--offer-idle N]` — one gang-admission verdict against the LIVE
+    fleet registry: prints admit / reclaim (elastic jobs shrink in
+    place, preferred) / queue / preempt (with the minimal victim set);
+    with --evict, delivers request_resize shrinks to reclaim victims
+    and request_preemption to eviction victims. `--offer-idle N` is the
+    offer loop's edge instead: hand N idle chips to RUNNING elastic
+    jobs that can widen (the jobs the annotated
+    fleet.chips_idle_while_queued alert names)."""
+    import argparse
+    import json
+
+    from tony_tpu_torch.cluster.arbiter import (
+        Arbiter, GangAsk, execute_preemption, execute_reclaims,
+        offer_idle_chips,
+    )
+    from tony_tpu_torch.conf import TonyConfiguration
+    from tony_tpu_torch.observability.fleet import FleetRegistry
+
+    parser = argparse.ArgumentParser(prog="tony_tpu_torch.cli arbiter")
+    parser.add_argument("location",
+                        help="staging-store location the fleet registry "
+                             "scans (tony.staging.location)")
+    parser.add_argument("--chips", type=int, default=0,
+                        help="the gang's summed chip ask (all-or-nothing)")
+    parser.add_argument("--offer-idle", type=int, default=0,
+                        help="offer this many idle chips to widenable "
+                             "elastic jobs (request_resize grow) instead "
+                             "of judging an ask")
+    parser.add_argument("--queue", default="default")
+    parser.add_argument("--user", default="")
+    parser.add_argument("--priority", type=int, default=0)
+    parser.add_argument("--app-id", default="ask")
+    parser.add_argument("--queues-conf", default="",
+                        help="conf file declaring tony.queues.* / "
+                             "tony.arbiter.* (defaults apply otherwise)")
+    parser.add_argument("--evict", action="store_true",
+                        help="on a preempt verdict, actually deliver "
+                             "request_preemption to the victim AMs")
+    parser.add_argument("--grace-ms", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    conf = TonyConfiguration()
+    if args.queues_conf:
+        conf.merge_file(args.queues_conf, "arbiter-cli")
+    registry = FleetRegistry(location=args.location)
+    registry.refresh(force=True)
+    if args.offer_idle > 0:
+        delivered = offer_idle_chips(
+            registry.live_jobs(), args.offer_idle,
+            reason=f"operator offer of {args.offer_idle} idle chip(s)",
+            requested_by="arbiter")
+        print(json.dumps({"action": "offer", "offered": delivered},
+                         indent=1))
+        return 0
+    if args.chips <= 0:
+        print("arbiter: need --chips (or --offer-idle)", file=sys.stderr)
+        return 2
+    arb = Arbiter.from_conf(conf)
+    arb.sync_from_fleet(registry.live_jobs())
+    ask = GangAsk(app_id=args.app_id, chips=args.chips, queue=args.queue,
+                  user=args.user, priority=args.priority)
+    decision = arb.decide(ask)
+    out = {"action": decision.action, "reason": decision.reason,
+           "victims": [v.app_id for v in decision.victims],
+           "reclaims": [(a.app_id, chips)
+                        for a, chips in decision.reclaims],
+           "free_chips": (arb.free_chips() if arb.total_chips > 0
+                          else None),
+           "total_chips": arb.total_chips or None,
+           "running": sorted(arb.running)}
+    from tony_tpu_torch.conf import keys as K
+    grace_ms = args.grace_ms or conf.get_time_ms(K.ARBITER_GRACE_MS,
+                                                 30_000)
+    if decision.action == "reclaim" and args.evict:
+        out["reclaimed"] = execute_reclaims(
+            decision.reclaims, grace_ms=grace_ms,
+            reason=f"reclaimed to admit {args.app_id} "
+                   f"(priority {args.priority}, {args.chips} chips)")
+    if decision.action == "preempt" and args.evict:
+        out["evicted"] = execute_preemption(
+            decision.victims, grace_ms=grace_ms,
+            reason=f"preempted to admit {args.app_id} "
+                   f"(priority {args.priority}, {args.chips} chips)")
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _router_status(url: str) -> int:
+    """One-shot fleet table off a running router's /v1/fleet bundle:
+    per replica — role, health state, queue/slots, paged-KV page
+    occupancy and prefix hit rate (from the cached /v1/load probes) —
+    plus the router's routing counters incl. prefix-affinity hit/miss."""
+    import json as _json
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url.rstrip("/") + "/v1/fleet",
+                                    timeout=5.0) as resp:
+            bundle = _json.loads(resp.read().decode("utf-8"))
+    except Exception as exc:  # noqa: BLE001 — operator-facing one-liner
+        print(f"router: /v1/fleet unreachable at {url}: {exc}",
+              file=sys.stderr)
+        return 1
+    print(f"{'ENDPOINT':<28} {'ROLE':<8} {'STATE':<9} {'QUEUE':>5} "
+          f"{'FREE':>4} {'KV-OCC%':>7} {'KV-HIT%':>7}")
+    for ep in bundle.get("endpoints") or []:
+        load = ep.get("load") or {}
+        occ = hit = "-"
+        total = float(load.get("kv_pages_total", 0) or 0)
+        if total > 0:
+            free = float(load.get("kv_pages_free", 0) or 0)
+            occ = f"{100.0 * (1.0 - free / total):.1f}"
+            hit = f"{float(load.get('kv_hit_rate_pct', 0) or 0):.1f}"
+        role = str(ep.get("role", "") or load.get("role", "") or "both")
+        print(f"{ep.get('url', ''):<28} {role:<8} "
+              f"{ep.get('state', '?'):<9} "
+              f"{int(load.get('queue_depth', 0) or 0):>5} "
+              f"{int(load.get('slots_free', 0) or 0):>4} "
+              f"{occ:>7} {hit:>7}")
+    stats = bundle.get("stats") or {}
+    hits = int(stats.get("affinity_hits", 0) or 0)
+    misses = int(stats.get("affinity_misses", 0) or 0)
+    routed = hits + misses
+    pct = f" ({100.0 * hits / routed:.1f}%)" if routed else ""
+    print(f"routed={stats.get('requests_routed', 0)} "
+          f"failed={stats.get('requests_failed', 0)} "
+          f"spillovers={stats.get('spillovers_429', 0)} "
+          f"affinity hits={hits} misses={misses}{pct}")
+    return 0
+
+
+def router(argv: list[str]) -> int:
+    """`python -m tony_tpu_torch.cli router <app_dir> [--port N]` (or
+    `--endpoints url1,url2` standalone) — stand up the serving fleet
+    router (serve/router.py): one front door spreading /v1/generate
+    least-loaded across the app's registered serving endpoints, with
+    429 spill-over, connection draining, and dead-endpoint eviction.
+    Orchestrated mode polls the AM's task infos so endpoint
+    registrations, drain marks, and rolling-update generation bumps
+    reach the router live."""
+    import argparse
+    import threading
+    import time
+
+    from tony_tpu_torch.conf import TonyConfiguration, keys as K
+    from tony_tpu_torch.serve.router import AmEndpointWatcher, FleetRouter
+
+    parser = argparse.ArgumentParser(prog="tony_tpu_torch.cli router")
+    parser.add_argument("app_dir", nargs="?", default="",
+                        help="the application dir the client created "
+                             "(holds the amhostport file)")
+    parser.add_argument("--endpoints", default="",
+                        help="comma-separated replica URLs (standalone "
+                             "mode, no AM)")
+    parser.add_argument("--port", type=int, default=-1,
+                        help="router HTTP port (-1 = "
+                             "tony.serving.fleet.router-port)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--poll-ms", type=int, default=1000,
+                        help="AM endpoint-set poll cadence")
+    parser.add_argument("--probe-ttl-ms", type=int, default=-1,
+                        help="load-probe cache TTL (-1 = "
+                             "tony.serving.fleet.probe-ttl-ms)")
+    parser.add_argument("--spillover-retries", type=int, default=-1,
+                        help="429/5xx spill-over retries (-1 = "
+                             "tony.serving.fleet.spillover-retries)")
+    parser.add_argument("--status", default="",
+                        help="one-shot: render a RUNNING router's "
+                             "/v1/fleet table (pass the router URL) "
+                             "and exit")
+    args = parser.parse_args(argv)
+    if args.status:
+        return _router_status(args.status)
+    if not args.app_dir and not args.endpoints:
+        print("router: need an app_dir or --endpoints", file=sys.stderr)
+        return 2
+    conf = TonyConfiguration()
+    # the router is a long-running front door: same always-on coverage
+    # as the AM/executor/portal/serve daemons (profiler + stall
+    # watchdog + SIGUSR2 all-thread dump)
+    from tony_tpu_torch.observability.profiler import install_process_profiler
+    install_process_profiler("router", conf=conf)
+    port = args.port if args.port >= 0 \
+        else conf.get_int(K.SERVING_FLEET_ROUTER_PORT, 0)
+    rtr = FleetRouter(
+        endpoints=[u for u in args.endpoints.split(",") if u],
+        port=port, host=args.host,
+        probe_ttl_ms=(args.probe_ttl_ms if args.probe_ttl_ms >= 0 else
+                      conf.get_time_ms(K.SERVING_FLEET_PROBE_TTL_MS,
+                                       500)),
+        probe_timeout_ms=conf.get_time_ms(
+            K.SERVING_FLEET_PROBE_TIMEOUT_MS, 1000),
+        spillover_retries=(args.spillover_retries
+                           if args.spillover_retries >= 0 else
+                           conf.get_int(
+                               K.SERVING_FLEET_SPILLOVER_RETRIES, 2)),
+        dead_after_failures=conf.get_int(
+            K.SERVING_FLEET_DEAD_AFTER_FAILURES, 2))
+    watcher = None
+    client = None
+    if args.app_dir:
+        client, err = _am_client(args.app_dir)
+        if err:
+            print(err, file=sys.stderr)
+            return 1
+        watcher = AmEndpointWatcher(rtr, client,
+                                    interval_s=args.poll_ms / 1000.0)
+        watcher.start()
+    rtr.start()
+    # log-ok: greppable bring-up marker (mirrors SERVING_UP)
+    print(f"ROUTER_UP http://127.0.0.1:{rtr.port}", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        if client is not None:
+            client.close()
+        rtr.stop()
+    return 0
 
 
 def rollout(argv: list[str]) -> int:
@@ -771,14 +1222,18 @@ def main(argv: list[str] | None = None) -> int:
         return diagnose(rest)
     if cmd == "stragglers":
         return stragglers(rest)
-    if cmd in UNPORTED:
-        print(f"{cmd}: not in the port yet: it waits for "
-              f"{UNPORTED[cmd]}", file=sys.stderr)
-        return 2
+    if cmd == "alerts":
+        return alerts(rest)
+    if cmd == "top":
+        return top(rest)
     if cmd == "preempt":
         return preempt(rest)
     if cmd == "resize":
         return resize(rest)
+    if cmd == "arbiter":
+        return arbiter(rest)
+    if cmd == "router":
+        return router(rest)
     if cmd == "rollout":
         return rollout(rest)
     if cmd == "trace":

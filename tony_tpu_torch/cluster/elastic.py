@@ -377,6 +377,7 @@ class ElasticCoordinator:
             EventType.RESIZE_STARTED,
             ResizeStarted(am.app_id, job, from_width, to_width,
                           members=len(members))))
+        self._publish()
         self._wake()
         return {"app_id": am.app_id, "job_name": job,
                 "from_width": from_width, "to_width": to_width,
@@ -638,6 +639,7 @@ class ElasticCoordinator:
                             r["to_width"], duration_ms=duration_ms,
                             added_tasks=len(r["added"]),
                             removed_tasks=int(r.get("removed_count", 0)))))
+        self._publish()
         self._wake()
 
     def _rollback(self, r: dict) -> None:
@@ -742,6 +744,7 @@ class ElasticCoordinator:
                     relaunch(task, f"elastic shrink victim released "
                                    f"before the resize failed ({reason})",
                              count_failure=False, force=True)
+        self._publish()
         self._wake()
 
     # -- session lifecycle ---------------------------------------------
@@ -754,6 +757,15 @@ class ElasticCoordinator:
             self._resize = None
             self._released_cids.clear()
             self._settled_mesh_shape = ""
+
+    def _publish(self) -> None:
+        publish = getattr(self.am, "_publish_fleet_state", None)
+        if publish is not None:
+            try:
+                publish(force=True)
+            except Exception:  # noqa: BLE001 — fleet must not block a resize
+                LOG.debug("fleet publish after resize transition failed",
+                          exc_info=True)
 
     def _wake(self) -> None:
         wake = getattr(self.am, "_wake", None)

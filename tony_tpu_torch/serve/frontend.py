@@ -54,7 +54,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
@@ -117,15 +117,6 @@ MAX_MIGRATE_BYTES = 1024 * 1024 * 1024
 # streaming stall guard: an engine wedged mid-request must not pin the
 # handler thread forever
 STREAM_TOKEN_TIMEOUT_SEC = 300.0
-
-
-class BurstBacklogHTTPServer(ThreadingHTTPServer):
-    """ThreadingHTTPServer with a listen backlog sized for bursts: the
-    stdlib default of 5 overflows under a few dozen concurrent opens and
-    the spilled SYNs come back 1 s or 3 s later (kernel retransmit), which
-    reads as a made-up TTFT tail."""
-    request_queue_size = 128
-    daemon_threads = True
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -600,6 +591,7 @@ class ServeFrontend:
                  on_migrated=None, collector=None):
         self.engine = engine
         self.collector = collector
+        from tony_tpu_torch.serve.router import BurstBacklogHTTPServer
         handler = type("BoundHandler", (_Handler,), {
             "engine": engine,
             "migrate_targets": tuple(migrate_targets or ()),
