@@ -346,13 +346,48 @@ Phases (any failure exits non-zero, and the result line is not printed):
               added wall (routed less direct, in turns) and the phase's
               seconds.
 
+18. portal — the history portal and the workflow adapter, from the same
+              copy of `tony_tpu_torch/` alone. (a) A workflow step (a
+              script calling `TonyWorkflowJob(props).run()`) submits a
+              job whose worker exits 3, staged through a local staging
+              location with its history kept where the portal does not
+              look: `run()` returns 1. (b) `python -m
+              tony_tpu_torch.portal --port 0 --history-location H
+              --history-store S` (mover and purger every second, a day's
+              retention) prints its banner; the fetcher's first pass
+              brings the failed job in from S: /api/jobs lists it FAILED,
+              its diagnostics name exit 3. (c) The train phase's model
+              and batch for 16 steps as a workflow step with its history
+              under H: while it runs, /, /api/jobs (RUNNING) and
+              /jobs/<id> answer, worker:0's stderr through the portal's
+              live log route shows a step line and the next poll's
+              offset advances, skew and alerts answer live from the AM
+              (an MFU floor of 1% makes it run its alert engine), and
+              `POST /api/jobs/<id>/profile` (worker:0, 2 steps) answers
+              200. After `run()` returns 0: the mover files the job under
+              finished/y/M/d, /api/jobs shows it SUCCEEDED, its events
+              are the am phase's (TASK_FINISHED and the one
+              PROFILE_CAPTURED of that request left out), the trainer's
+              own count of its launches is exactly 16 x the train phase's
+              step, a TPU_UTILIZATION point is >= 50, every
+              TRAIN_MFU_PCT point and goodput's mfu_pct is a value the
+              trainer logged, /config shows every tony.* prop, /api/fleet
+              lists it at 1 chip, /metrics parses. SIGINT: the daemon
+              exits 0. Prints workflow spawn -> AM start -> first
+              container launch, spawn -> the first step line seen
+              through the portal, the profile POST's round trip, the
+              AM's verdict -> the job dir in finished/, and the phase's
+              seconds; on a failure, the portal's, the AMs' and the
+              workflow steps' output.
+
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
 parallel slice, `--phases build,pipeline` the pipeline and ep slice,
 `--phases build,spec,vision` the model zoo, `--phases build,executor`
 the task executor, `--phases build,am` the jobs under the port's AM,
 `--phases build,cli` the jobs submitted through the port's CLI,
-`--phases build,fleet` the serving fleet.
+`--phases build,fleet` the serving fleet, `--phases build,portal` the
+portal and the workflow adapter.
 The kernels phase also holds K1-K3 at ViT's attention shapes (B64 H6
 S197 D64 and S17, non-causal, timed and bit for bit over two calls;
 vit_tiny's D16 in f32) and K4 at its rows (64 x 197 and the 64 CLS
@@ -360,8 +395,8 @@ rows, D 384).
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe, parallel, pipeline, spec, vision, executor and am paths
-together, split in `launches_by_path`; the orch path counts its training
+orch, moe, parallel, pipeline, spec, vision, executor, am, cli, fleet
+and portal paths together, split in `launches_by_path`; the orch path counts its training
 run, the ckpt path its runs and servers on the local and the gs://
 directory, the moe path its two bursts and its training runs, the
 parallel path the mesh run's own count of its launches, parallel_sp
@@ -371,7 +406,8 @@ its four full-width runs, vision the ViT runs of train_allreduce (its own
 count) and of the Trainer at 224/16, executor the trainer's own count
 under the executor, am the trainer's and the server's own counts under
 the port's AM, cli the trainer's own counts in the two jobs submitted
-through the port's CLI, fleet the two replicas' own counts; the cache
+through the port's CLI, fleet the two replicas' own counts, portal the
+trainer's own count in the workflow's training job; the cache
 phase's processes are uncounted), then the
 card's name and power limit from nvidia-smi; the last line is {"ok":
 true, "device": {...}}.
@@ -383,6 +419,7 @@ import argparse
 import contextlib
 import gc
 import glob
+import html
 import json
 import math
 import os
@@ -5349,6 +5386,11 @@ AM_INTERVAL_MS = 500
 AM_TRAIN_STEPS = 6
 AM_JOB_S = 300.0
 AM_SERVE_TOKENS = 16
+# the record of a one-worker training job under the port's AM, as the am
+# phase's job writes it (TASK_FINISHED left out: whether the last one
+# lands before the AM stops is a race of the JAX AM too)
+TRAIN_JOB_EVENTS = ["APPLICATION_INITED", "TASK_STARTED",
+                    "APPLICATION_FINISHED"]
 # the AM's own cadences, and no wait for a client at the end
 AM_CONF = {"tony.am.monitor-interval-ms": 200,
            "tony.task.heartbeat-interval-ms": AM_INTERVAL_MS,
@@ -5483,11 +5525,9 @@ def _am_train(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
           f"{stderr[-3000:]}")
     events, hist = _am_history(app_dir, app_id)
     names = [e.type.name for e in events]
-    order = [names.index(n) for n in ("APPLICATION_INITED", "TASK_STARTED",
-                                      "APPLICATION_FINISHED")
-             if n in names]
-    check(len(order) == 3 and order == sorted(order),
-          f"am: train: events {names}")
+    check([n for n in names if n != "TASK_FINISHED"] == TRAIN_JOB_EVENTS,
+          f"am: train: events {names}, want {TRAIN_JOB_EVENTS} with "
+          f"TASK_FINISHED left out")
     launched = _am_launches(stderr, "train")
     per_step = _step_launches(get_config(TRAIN_CONFIG).n_layers)
     want = {k: AM_TRAIN_STEPS * v for k, v in per_step.items()}
@@ -6407,12 +6447,437 @@ def phase_fleet(smi: str) -> dict[str, int]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the history portal and the workflow adapter
+# ---------------------------------------------------------------------------
+
+PORTAL_TRAIN_STEPS = 16
+PORTAL_MOVER_MS = 1000
+PORTAL_JOB_S = 300.0
+PORTAL_FAIL_EXIT = 3
+PORTAL_PROFILE_STEPS = 2
+# a workflow engine's step: the props file in, `run()`'s return code out
+WORKFLOW_STEP = """import json, sys
+from tony_tpu_torch.workflow import TonyWorkflowJob
+with open(sys.argv[1]) as f:
+    props = json.load(f)
+rc = TonyWorkflowJob(props, working_dir=sys.argv[2]).run()
+print(f"WORKFLOW_RC {rc}", flush=True)
+sys.exit(rc)
+"""
+STEP_LINE = re.compile(r"step (\d+) loss ")
+MFU_LINE = re.compile(r"^step (\d+) TRAIN_MFU_PCT (\S+)$")
+
+
+def _workflow_start(root: str, env: dict, tag: str, props: dict):
+    """The step script in its own session, its output in
+    `<root>/<tag>.wf.log`. Returns (process, spawn time)."""
+    wd = os.path.join(root, f"{tag}.wd")
+    os.makedirs(wd)
+    props_path = os.path.join(root, f"{tag}.props.json")
+    with open(props_path, "w") as f:
+        json.dump({k: str(v) for k, v in props.items()}, f)
+    step = os.path.join(root, "workflow_step.py")
+    if not os.path.exists(step):
+        with open(step, "w") as f:
+            f.write(WORKFLOW_STEP)
+    t_spawn = time.time()
+    with open(os.path.join(root, f"{tag}.wf.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, step, props_path, wd], cwd=root, env=env,
+            stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, t_spawn
+
+
+def _workflow_rc(root: str, tag: str, proc) -> int:
+    """`run()`'s return value as the step script printed it."""
+    with open(os.path.join(root, f"{tag}.wf.log")) as f:
+        said = f.read()
+    rcs = re.findall(r"^WORKFLOW_RC (-?\d+)$", said, re.M)
+    check(len(rcs) == 1 and int(rcs[0]) == proc.returncode,
+          f"portal: {tag}: the step exited {proc.returncode} and said:"
+          f"\n{said[-3000:]}")
+    return int(rcs[0])
+
+
+def _workflow_props(cache: str, workdir: str, stage: str,
+                    intermediate: str) -> dict:
+    """The tony.* keys of the cli phase's job, staged and with its
+    history where the caller says."""
+    return {**{k: v for k, v in AM_CONF.items()
+               if k != "tony.am.stop-poll-timeout-ms"},
+            "tony.worker.instances": 1,
+            "tony.application.framework": "pytorch",
+            "tony.cluster.workdir": workdir,
+            "tony.executor.jax-cache-dir": cache,
+            "tony.staging.location": stage,
+            "tony.history.intermediate": intermediate}
+
+
+class _Portal:
+    """`python -m tony_tpu_torch.portal` in its own session."""
+
+    def __init__(self, root: str, env: dict, hist: str, stage: str):
+        conf = _write_conf(os.path.join(root, "portal.json"), {
+            "tony.history.mover-interval-ms": PORTAL_MOVER_MS,
+            # a day: every job of the run is spared, the purger still
+            # walks the finished tree each second
+            "tony.history.retention-sec": 24 * 3600,
+            "tony.history.purger-interval-ms": PORTAL_MOVER_MS,
+            "tony.fleet.publish-interval-ms": PORTAL_MOVER_MS})
+        self.out = os.path.join(root, "portal.out")
+        self.err = os.path.join(root, "portal.err")
+        t0 = time.monotonic()
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "tony_tpu_torch.portal", "--port",
+                 "0", "--history-location", hist, "--history-store",
+                 stage, "--conf", conf], cwd=root,
+                env=dict(env, PYTHONUNBUFFERED="1"), stdout=out,
+                stderr=err, start_new_session=True)
+        self.url = ""
+        while not self.url and time.monotonic() - t0 < 120:
+            check(self.proc.poll() is None,
+                  f"portal: the daemon exited {self.proc.poll()}")
+            with open(self.out) as f:
+                found = re.findall(r"^tony-tpu portal: (http://\S+)/$",
+                                   f.read(), re.M)
+            self.url = found[0] if found else ""
+            time.sleep(0.05)
+        check(self.url, "portal: no banner within 120 s")
+        self.up_s = time.monotonic() - t0
+
+    def get(self, path: str) -> tuple[int, bytes]:
+        code, _, body = _http(self.url + path, timeout=30)
+        return code, body
+
+    def json(self, path: str):
+        code, body = self.get(path)
+        check(code == 200, f"portal: GET {path} answered {code}: "
+                           f"{body[:500]!r}")
+        return json.loads(body)
+
+    def job(self, app_id: str) -> dict:
+        jobs = {j["application_id"]: j for j in self.json("/api/jobs")}
+        return jobs.get(app_id, {})
+
+    def tail(self) -> str:
+        with open(self.err) as f:
+            return f.read()[-3000:]
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+            return -9
+
+
+def _portal_failing_job(root: str, env: dict, cache: str, stage: str
+                        ) -> str:
+    """(1) A failing job through the workflow adapter, its history kept
+    off the portal's tree: it reaches the portal only through the
+    store. Returns its app id."""
+    script = os.path.join(root, "exit3.py")
+    with open(script, "w") as f:
+        f.write(f"import sys\nsys.exit({PORTAL_FAIL_EXIT})\n")
+    workdir = os.path.join(root, "fail.apps")
+    props = {**_workflow_props(cache, workdir, stage,
+                               os.path.join(root, "offhost-history")),
+             "executes": script}
+    proc, t_spawn = _workflow_start(root, env, "fail", props)
+    try:
+        proc.wait(timeout=PORTAL_JOB_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"portal: fail: the workflow ran past "
+                           f"{PORTAL_JOB_S:.0f} s")
+    rc = _workflow_rc(root, "fail", proc)
+    check(rc == 1, f"portal: fail: run() returned {rc}, want 1")
+    [app_dir] = glob.glob(os.path.join(workdir, "application_*"))
+    log(f"portal: fail: `run()` of a job whose worker exits "
+        f"{PORTAL_FAIL_EXIT} returned 1 in {time.time() - t_spawn:.2f} s; "
+        f"its history under {root}/offhost-history, published to the "
+        f"store")
+    return os.path.basename(app_dir)
+
+
+def _portal_fetched(portal: "_Portal", app_id: str) -> None:
+    """(2) The fetcher's first pass brought the failing job in."""
+    deadline = time.monotonic() + 10 * PORTAL_MOVER_MS / 1000.0
+    job = portal.job(app_id)
+    while job.get("status") != "FAILED" and time.monotonic() < deadline:
+        time.sleep(0.1)
+        job = portal.job(app_id)
+    check(job.get("status") == "FAILED",
+          f"portal: the fetched job {app_id} lists as {job}")
+    diag = portal.json(f"/api/jobs/{app_id}/diagnostics")
+    first = diag.get("first_failure") or {}
+    check(first.get("exit_code") == PORTAL_FAIL_EXIT,
+          f"portal: {app_id}'s diagnostics name {first}")
+    log(f"portal: the fetcher's first pass brought {app_id} in from the "
+        f"store: /api/jobs lists it FAILED, its diagnostics name "
+        f"{first.get('task_id')} exit {first.get('exit_code')} "
+        f"({first.get('reason')})")
+
+
+def _portal_live(portal: "_Portal", proc, t_spawn: float) -> dict:
+    """(3) While the job runs: the pages, the live log route, skew,
+    alerts and the profile POST, all through the portal."""
+    deadline = time.monotonic() + PORTAL_JOB_S
+    app_id = ""
+    while not app_id and time.monotonic() < deadline:
+        check(proc.poll() is None, f"portal: train: the workflow exited "
+                                   f"{proc.poll()} before the job ran")
+        running = [j["application_id"] for j in portal.json("/api/jobs")
+                   if j["status"] == "RUNNING"]
+        app_id = running[0] if running else ""
+        time.sleep(0.05)
+    check(app_id, "portal: train: no RUNNING job within the limit")
+    # follow worker:0's stderr from its start until a step line shows
+    route = f"/api/jobs/{app_id}/logs/worker:0?stream=stderr"
+    offset, text, chunks = 0, "", 0
+    while not STEP_LINE.search(text):
+        check(time.monotonic() < deadline and proc.poll() is None,
+              f"portal: train: no step line through {route} "
+              f"({chunks} chunks, {len(text)} bytes)")
+        code, body = portal.get(f"{route}&offset={offset}")
+        if code == 200:
+            chunk = json.loads(body)
+            check(chunk["next_offset"] >= offset,
+                  f"portal: train: {route} went back: {chunk}")
+            text += chunk.get("data", "")
+            offset = chunk["next_offset"]
+            chunks += 1
+        time.sleep(0.1)
+    seen_s = time.time() - t_spawn
+    index_code, index = portal.get("/")
+    check(index_code == 200 and app_id.encode() in index
+          and b"RUNNING" in index,
+          f"portal: train: / answered {index_code} without {app_id} "
+          f"RUNNING")
+    check(portal.job(app_id).get("status") == "RUNNING",
+          f"portal: train: /api/jobs lists {portal.job(app_id)}")
+    page_code, _ = portal.get(f"/jobs/{app_id}")
+    check(page_code == 200, f"portal: train: /jobs/{app_id} answered "
+                            f"{page_code}")
+    time.sleep(1.0)
+    chunk = portal.json(f"{route}&offset={offset}")
+    check(chunk["next_offset"] > offset and chunk.get("data"),
+          f"portal: train: the next poll of {route} at {offset} gave "
+          f"{ {k: v for k, v in chunk.items() if k != 'data'} }")
+    skew = portal.json(f"/api/jobs/{app_id}/skew")
+    alerts = portal.json(f"/api/jobs/{app_id}/alerts")
+    check(skew.get("source") == "live" and alerts.get("source") == "live",
+          f"portal: train: skew from {skew.get('source')}, alerts from "
+          f"{alerts.get('source')}: want both live from the AM")
+    rules = alerts.get("rules", [])
+    check("train.mfu_floor" in rules, f"portal: train: rules {rules}")
+    t0 = time.monotonic()
+    code, _, body = _http(
+        f"{portal.url}/api/jobs/{app_id}/profile",
+        data=json.dumps({"task_id": "worker:0",
+                         "num_steps": PORTAL_PROFILE_STEPS}).encode(),
+        headers={"Content-Type": "application/json"}, timeout=30)
+    post_ms = (time.monotonic() - t0) * 1e3
+    ask = json.loads(body)
+    check(code == 200 and not ask.get("error") and ask.get("request_id"),
+          f"portal: train: the profile POST answered {code}: {ask}")
+    check(proc.poll() is None, "portal: train: the job ended before the "
+                               "live probes did: raise its steps")
+    log(f"portal: train: while {app_id} ran: / and /api/jobs showed it "
+        f"RUNNING, /jobs/{app_id} 200; worker:0's stderr through the "
+        f"portal's live route in {chunks} chunks to {offset} bytes, the "
+        f"next poll {offset} -> {chunk['next_offset']}; skew and alerts "
+        f"live from the AM ({len(skew.get('signals', {}) or {})} skew "
+        f"signals, rules {rules}); POST profile -> "
+        f"{ask.get('request_id')} ({ask.get('task_id')}, "
+        f"{ask.get('num_steps')} steps) in {post_ms:.1f} ms")
+    return {"app_id": app_id, "seen_s": seen_s, "post_ms": post_ms,
+            "request_id": ask["request_id"]}
+
+
+def _portal_train(root: str, env: dict, cache: str, stage: str, hist: str,
+                  portal: "_Portal", smi: str) -> dict[str, int]:
+    """(3) The full-width training job through the workflow adapter, its
+    history under the portal's own tree."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.models.llama import get_config
+    from tony_tpu_torch.portal.mover import finished_subdir
+
+    workdir = os.path.join(root, "train.apps")
+    props = {**_workflow_props(cache, workdir, stage,
+                               os.path.join(hist, "intermediate")),
+             "tony.worker.tpus": 1,
+             "tony.fleet.publish-interval-ms": PORTAL_MOVER_MS,
+             # a floor no healthy step comes near: the AM then runs its
+             # alert engine, which the portal's alerts route reads live
+             "tony.alerts.mfu-floor-pct": 1,
+             "executes": f"{sys.executable} -m tony_tpu_torch.train",
+             "task_params": f"--config {TRAIN_CONFIG} --batch-size "
+                            f"{TRAIN_BATCH} --seq-len {TRAIN_SEQ} --steps "
+                            f"{PORTAL_TRAIN_STEPS} --log-every 1"}
+    proc, t_spawn = _workflow_start(root, env, "train", props)
+    live = _portal_live(portal, proc, t_spawn)
+    app_id = live["app_id"]
+    app_dir = os.path.join(workdir, app_id)
+    moved_at, deadline = 0.0, time.monotonic() + PORTAL_JOB_S
+    pattern = os.path.join(hist, "finished", "*", "*", "*", app_id)
+    while proc.poll() is None or not moved_at:
+        check(time.monotonic() < deadline,
+              f"portal: train: the workflow or the mover ran past "
+              f"{PORTAL_JOB_S:.0f} s")
+        if not moved_at and glob.glob(pattern):
+            moved_at = time.time()
+        time.sleep(0.02)
+    rc = _workflow_rc(root, "train", proc)
+    stderr = _am_task_log(app_dir, "worker_0", "stderr")
+    check(rc == 0, f"portal: train: run() returned {rc}; the task's "
+                   f"stderr:\n{stderr[-3000:]}")
+    with open(os.path.join(app_dir, C.AM_STATUS_FILE)) as f:
+        completed_ms = json.load(f)["completed"]
+    check(glob.glob(pattern) == [os.path.join(finished_subdir(
+        os.path.join(hist, "finished"), completed_ms), app_id)],
+        f"portal: train: finished dirs {glob.glob(pattern)}")
+    job = portal.job(app_id)
+    check(job.get("status") == "SUCCEEDED",
+          f"portal: train: /api/jobs lists {job} after the move")
+    # the record, the launches
+    record = portal.json(f"/api/jobs/{app_id}/events")
+    events = [e["type"] for e in record]
+    captured = [e["payload"] for e in record
+                if e["type"] == "PROFILE_CAPTURED"]
+    check([e for e in events if e not in ("TASK_FINISHED",
+                                          "PROFILE_CAPTURED")]
+          == TRAIN_JOB_EVENTS,
+          f"portal: train: events {events}, want {TRAIN_JOB_EVENTS} with "
+          f"TASK_FINISHED and PROFILE_CAPTURED left out")
+    check([c.get("request_id") for c in captured] == [live["request_id"]]
+          and captured[0].get("num_steps") == PORTAL_PROFILE_STEPS,
+          f"portal: train: PROFILE_CAPTURED {captured}")
+    launched = _am_launches(stderr, "portal train")
+    per_step = _step_launches(get_config(TRAIN_CONFIG).n_layers)
+    want = {k: PORTAL_TRAIN_STEPS * v for k, v in per_step.items()}
+    check({k: launched.get(k) for k in want} == want,
+          f"portal: train: the trainer launched {launched}, want {want}")
+    check("nvcc compiled" not in stderr,
+          "portal: train: the task compiled a kernel the cache held")
+    # the gauges through the portal against the trainer's own log
+    series = portal.json(f"/api/jobs/{app_id}/metrics").get("worker:0", {})
+    duty = [v for _, v in series.get("TPU_UTILIZATION", [])]
+    check(duty and max(duty) >= 50.0,
+          f"portal: train: TPU_UTILIZATION {duty}: none >= 50")
+    logged = {}
+    for m in _log_messages(stderr):
+        hit = MFU_LINE.match(m)
+        if hit:
+            logged[int(hit.group(1))] = float(hit.group(2))
+    mfu = [v for _, v in series.get("TRAIN_MFU_PCT", [])]
+    check(len(mfu) >= 3 and set(mfu) <= set(logged.values()),
+          f"portal: train: TRAIN_MFU_PCT {mfu} against the trainer's "
+          f"logged {logged}")
+    goodput = portal.json(f"/api/jobs/{app_id}/goodput")
+    task_mfu = (goodput.get("tasks", {}).get("worker:0") or {}).get(
+        "mfu_pct")
+    check(task_mfu in set(logged.values()),
+          f"portal: train: goodput's mfu_pct {task_mfu}, logged "
+          f"{sorted(logged.values())}")
+    code, page = portal.get(f"/config/{app_id}")
+    conf = portal.json(f"/api/jobs/{app_id}/config")
+    missing = [k for k, v in props.items() if k.startswith("tony.") and (
+        str(conf.get(k)) != str(v)
+        or f"<td>{html.escape(k)}</td><td>{html.escape(str(conf[k]))}"
+           f"</td>" not in page.decode())]
+    check(code == 200 and not missing,
+          f"portal: train: /config/{app_id} ({code}) lacks {missing}")
+    fleet = {j["app_id"]: j for j in portal.json("/api/fleet")["jobs"]}
+    from tony_tpu_torch.observability.fleet import chips_of
+    mine = fleet.get(app_id, {})
+    check(mine.get("state") == "SUCCEEDED" and chips_of(mine) == 1,
+          f"portal: train: /api/fleet lists {mine}")
+    code, text = portal.get("/metrics")
+    from tony_tpu_torch.observability.prometheus import parse
+    try:
+        samples = parse(text.decode())
+    except ValueError as e:
+        raise SmokeFailure(f"portal: /metrics: {e}")
+    check(code == 200 and samples, f"portal: /metrics answered {code}")
+    spans = {sp["name"]: sp
+             for sp in portal.json(f"/api/jobs/{app_id}/spans")}
+    app_span, task = spans["application"], spans["task:worker:0"]
+    lag = moved_at - completed_ms / 1000.0
+    mfu_sorted = sorted(mfu)
+    log(f"portal: train: {TRAIN_CONFIG} B{TRAIN_BATCH} x S{TRAIN_SEQ}, "
+        f"{PORTAL_TRAIN_STEPS} steps through `TonyWorkflowJob.run()`: 0; "
+        f"served SUCCEEDED from {os.path.dirname(glob.glob(pattern)[0])}; "
+        f"events {events}; the trainer's own count of its launches "
+        f"{launched} (= {PORTAL_TRAIN_STEPS} x the train phase's step); "
+        f"TPU_UTILIZATION max {max(duty)} of {len(duty)} points; "
+        f"TRAIN_MFU_PCT {len(mfu)} points, each one the trainer logged, "
+        f"min {mfu_sorted[0]} median {mfu_sorted[len(mfu) // 2]} max "
+        f"{mfu_sorted[-1]}; goodput mfu_pct {task_mfu}; /config shows "
+        f"all {sum(k.startswith('tony.') for k in props)} tony.* props; "
+        f"/api/fleet {mine['state']} at 1 chip; /metrics {len(samples)} "
+        f"samples; {smi}")
+    log(f"portal: train: workflow spawn -> AM start "
+        f"{app_span['start_ms'] - 1000 * t_spawn:.0f} ms, AM start -> "
+        f"first container launch "
+        f"{task['start_ms'] - app_span['start_ms']} ms, workflow spawn -> "
+        f"first step line through the portal {live['seen_s']:.2f} s, the "
+        f"profile POST's round trip {live['post_ms']:.1f} ms, the AM's "
+        f"verdict -> the job dir in finished/ {lag * 1e3:.0f} ms (mover "
+        f"every {PORTAL_MOVER_MS} ms); {smi}")
+    return {k: launched.get(k, 0) for k in per_step}
+
+
+def phase_portal(smi: str) -> dict[str, int]:
+    """The workflow adapter and `python -m tony_tpu_torch.portal` around a
+    failing job and a full-width training job, with no module of tony_tpu
+    importable. Returns the trainer's own count of its launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-portal-")
+    t0 = time.monotonic()
+    portal = None
+    try:
+        cache, env = _am_tree(root)
+        stage, hist = os.path.join(root, "stage"), os.path.join(root, "hist")
+        failed = _portal_failing_job(root, env, cache, stage)
+        portal = _Portal(root, env, hist, stage)
+        log(f"portal: up at {portal.url} in {portal.up_s:.2f} s")
+        _portal_fetched(portal, failed)
+        launched = _portal_train(root, env, cache, stage, hist, portal, smi)
+        rc = portal.stop()
+        check(rc == 0, f"portal: SIGINT: the daemon exited {rc}")
+        log(f"portal: SIGINT: the daemon exited 0; the phase "
+            f"{time.monotonic() - t0:.1f} s; {smi}")
+        return launched
+    except SmokeFailure as e:
+        tails = [f"the portal's stderr:\n{portal.tail()}"] if portal else []
+        for am_err in glob.glob(os.path.join(root, "*.apps", "*",
+                                             "am.stderr")):
+            with open(am_err) as f:
+                tails.append(f"{am_err}:\n{f.read()[-3000:]}")
+        for wf in glob.glob(os.path.join(root, "*.wf.log")):
+            with open(wf) as f:
+                tails.append(f"{wf}:\n{f.read()[-2000:]}")
+        raise SmokeFailure("\n".join([str(e)] + tails))
+    finally:
+        if portal is not None and portal.proc.poll() is None:
+            os.killpg(portal.proc.pid, signal.SIGKILL)
+            portal.proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision,executor,am,cli,fleet",
+                            "pipeline,spec,vision,executor,am,cli,fleet,portal",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -6482,6 +6947,8 @@ def main(argv=None) -> int:
             launches["cli"] = phase_cli(smi)
         if "fleet" in phases:
             launches["fleet"] = phase_fleet(smi)
+        if "portal" in phases:
+            launches["portal"] = phase_portal(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

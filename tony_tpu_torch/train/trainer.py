@@ -526,8 +526,15 @@ class Trainer:
                                                    / peak)
                     last_t, last_step = now, self.step
                     pending = (self.step, loss, now - t0, interval)
-                    self._metrics_reporter.report(
-                        extra=self._perf_metrics())
+                    perf = self._perf_metrics()
+                    self._metrics_reporter.report(extra=perf)
+                    if rank() == 0:
+                        # the MFU gauge as pushed (%r: the float exactly),
+                        # so the AM's series can be held against the log
+                        for m in perf:
+                            if m["name"] == "TRAIN_MFU_PCT":
+                                LOG.info("step %d TRAIN_MFU_PCT %r",
+                                         self.step, m["value"])
                     if profile is not None:
                         profile.poll()
                 if (cfg.eval_every and self.eval_data_iter is not None
