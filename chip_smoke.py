@@ -379,6 +379,41 @@ Phases (any failure exits non-zero, and the result line is not printed):
               AM's verdict -> the job dir in finished/, and the phase's
               seconds; on a failure, the portal's, the AMs' and the
               workflow steps' output.
+19. long   — long context and the last entry points. (a) K1-K3 at
+              pretrain_long's attention, B1 H16/8 S32768 D128 bf16
+              causal, held against `blockwise_forward` /
+              `blockwise_backward` as the kernels phase holds them (twice
+              and bit for bit), timed beside the plain versions and
+              SDPA; they join the kernels line as each entry's "long".
+              (b) The ring and Ulysses over SP_RANKS = 4 virtual ranks at
+              that shape (8192 tokens a rank): exactly 10 and 4 launches
+              of each of K1-K3, held against K1-K3 on the whole sequence
+              and the plain versions. (c) `pretrain_long.main(
+              ["--config", "llama3_1b_proxy", "--seq-len", "32768",
+              "--batch-size", "1", "--rope-scaling", "8", "--steps",
+              "4"])` in this process on an NCCL world of one (mesh fsdp 1
+              x sp 1): full width and depth, each step's launches
+              exactly the train phase's step (16/16/16/65), finite
+              losses, the first within 0.5 of ln 32000, its last line;
+              prints the median step, tokens/s, MFU and peak memory.
+              Then step 1 at 2 layers (the same rescaled config, seeded
+              weights, pretrain_long's first batch) through the kernels
+              and through the plain versions (swapped in on the card for
+              that one step): the loss within bf16's 3e-2 relative and
+              every gradient within 1e-2 by norm. (d) `python -m
+              tony_tpu_torch.examples.serve_submit --quant int8 --smoke`
+              from the copy of `tony_tpu_torch/` alone, serving the ckpt
+              phase's kept llama3_1b_proxy checkpoint (or, without that
+              phase, one written by one step of `python -m
+              tony_tpu_torch.train`) on one slot and a budget of prompt
+              + new tokens (generate's shapes): exit 0 and
+              SERVE_SMOKE_OK, the 16 tokens equal to `generate` in this
+              process on the same restored and int8-quantized weights,
+              the server's own K1, K4 and K5 counts exactly one
+              admission's and 15 decode steps'. (e) `python -m
+              tony_tpu_torch.tools.goodput_report` on that job's app dir:
+              exit 0, its --json equal to the goodput.json it found, the
+              table printed. Prints the phase's seconds.
 
 `--phases build,kernels` (for instance) runs a subset; `--phases
 build,moe` runs the MoE slice alone, `--phases build,parallel` the
@@ -387,7 +422,8 @@ parallel slice, `--phases build,pipeline` the pipeline and ep slice,
 the task executor, `--phases build,am` the jobs under the port's AM,
 `--phases build,cli` the jobs submitted through the port's CLI,
 `--phases build,fleet` the serving fleet, `--phases build,portal` the
-portal and the workflow adapter.
+portal and the workflow adapter, `--phases build,long` long context,
+the serving submitter and the goodput report.
 The kernels phase also holds K1-K3 at ViT's attention shapes (B64 H6
 S197 D64 and S17, non-causal, timed and bit for bit over two calls;
 vit_tiny's D16 in f32) and K4 at its rows (64 x 197 and the 64 CLS
@@ -395,8 +431,8 @@ rows, D 384).
 
 Two lines before the last is a JSON object with one entry per kernel
 (`launches`: its launches on the serve, quant, kvcache, train, ckpt,
-orch, moe, parallel, pipeline, spec, vision, executor, am, cli, fleet
-and portal paths together, split in `launches_by_path`; the orch path counts its training
+orch, moe, parallel, pipeline, spec, vision, executor, am, cli, fleet,
+portal and long paths together, split in `launches_by_path`; the orch path counts its training
 run, the ckpt path its runs and servers on the local and the gs://
 directory, the moe path its two bursts and its training runs, the
 parallel path the mesh run's own count of its launches, parallel_sp
@@ -407,8 +443,11 @@ count) and of the Trainer at 224/16, executor the trainer's own count
 under the executor, am the trainer's and the server's own counts under
 the port's AM, cli the trainer's own counts in the two jobs submitted
 through the port's CLI, fleet the two replicas' own counts, portal the
-trainer's own count in the workflow's training job; the cache
-phase's processes are uncounted), then the
+trainer's own count in the workflow's training job, long
+pretrain_long's steps and the serving submitter's server's own count,
+long_sp the ring's and Ulysses' chunk launches at S32768; the cache
+phase's processes are uncounted; K1-K3's entries carry the long
+phase's shape as "long"), then the
 card's name and power limit from nvidia-smi; the last line is {"ok":
 true, "device": {...}}.
 """
@@ -420,6 +459,7 @@ import contextlib
 import gc
 import glob
 import html
+import io
 import json
 import math
 import os
@@ -593,6 +633,9 @@ ORCH_SERVE_RUNS = ("off", "on", "off", "on")
 ORCH_SERVER_UP_S = 300.0
 # the train phase's median step interval, for the orch phase to compare
 TRAIN_INTERVAL: dict = {}
+# a llama3_1b_proxy checkpoint the ckpt phase wrote, kept for the long
+# phase's serving submitter: {"root": its temporary root, "dir": it}
+KEPT_CKPT: dict = {}
 # the moe phase: mixtral_proxy at full width and depth, bf16. Served at
 # no-drop capacity (the entry point's), the serve phase's burst; its
 # prefill's last logits held to moe_forward's at MOE_FORWARD_PROMPT
@@ -2792,9 +2835,10 @@ def _gs_resume(cfg, c_losses: list, c_params: list, bitwise: bool,
     return served
 
 
-def phase_ckpt(smi: str) -> dict[str, int]:
+def phase_ckpt(smi: str, keep: bool = False) -> dict[str, int]:
     """Returns each kernel's launches over the phase's training steps,
-    evals and served requests."""
+    evals and served requests. With `keep`, run B's checkpoint directory
+    outlives the phase, in KEPT_CKPT."""
     import torch
 
     from tony_tpu_torch.device import peak_flops
@@ -2890,7 +2934,14 @@ def phase_ckpt(smi: str) -> dict[str, int]:
 
         served = _serve_from_checkpoint(d, b.params, cfg)
         del b
-        shutil.rmtree(d)
+        if keep:
+            # run B's directory (its steps 2 and 4), for the long phase's
+            # serving submitter; main removes it at the end
+            KEPT_CKPT["root"] = tempfile.mkdtemp(prefix="chip-smoke-kept-")
+            KEPT_CKPT["dir"] = shutil.move(d, os.path.join(
+                KEPT_CKPT["root"], "run"))
+        else:
+            shutil.rmtree(d)
         torch.cuda.empty_cache()
 
         # the same resume on a gs:// directory, through the stand-in
@@ -4124,7 +4175,7 @@ def _sp_ulysses(q, k, v, g, scale: float, n: int):
             dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _sp_hold(tag: str, got, want, plain) -> None:
+def _sp_hold(tag: str, got, want, plain, phase: str = "parallel") -> None:
     """out, dq, dk, dv by norm (NORM_TOL, whole tensor and worst row) and
     lse elementwise (LSE_TOL), against K1-K3 on the whole sequence and
     against the plain versions."""
@@ -4140,14 +4191,16 @@ def _sp_hold(tag: str, got, want, plain) -> None:
                 parts.append(f"{name} {total:.2e}/{row:.2e}")
             check(ok, f"{tag} {name} against {ref_name}: "
                       f"{parts[-1]} {'' if name == 'lse' else where}")
-        log(f"parallel: {tag} vs {ref_name} (norm / worst row): "
+        log(f"{phase}: {tag} vs {ref_name} (norm / worst row): "
             + ", ".join(parts))
 
 
-def _parallel_sp() -> dict[str, int]:
-    """(b): the ring and Ulysses for SP_RANKS virtual ranks at SP_SHAPE,
-    exact launches, held against K1-K3 on the whole sequence and the
-    plain versions, timed beside them. Returns their launches."""
+def _parallel_sp(shape: tuple = SP_SHAPE, phase: str = "parallel"
+                 ) -> dict[str, int]:
+    """(b): the ring and Ulysses for SP_RANKS virtual ranks at `shape`
+    (B, H, Hkv, S, D), exact launches, held against K1-K3 on the whole
+    sequence and the plain versions, timed beside them; `phase` heads
+    the log lines. Returns their launches."""
     import torch
 
     from tony_tpu_torch.ops import cuda_lib
@@ -4156,7 +4209,7 @@ def _parallel_sp() -> dict[str, int]:
         flash_bwd_cuda, flash_fwd_cuda,
     )
 
-    b, h, hk, s, d = SP_SHAPE
+    b, h, hk, s, d = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def rand(*shape):
@@ -4191,13 +4244,13 @@ def _parallel_sp() -> dict[str, int]:
         torch.cuda.synchronize()
         counts = {name: cuda_lib.launches()[name] for name in
                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-        log(f"parallel: {tag} sp={n} at B{b} H{h}/{hk} S{s} D{d} bf16 "
+        log(f"{phase}: {tag} sp={n} at B{b} H{h}/{hk} S{s} D{d} bf16 "
             f"causal: launches {counts}" + (
                 f" ({n * n - pairs} future pairs launch nothing)"
                 if tag == "ring" else ""))
         check(counts == dict.fromkeys(counts, want_n),
               f"{tag} launches {counts}, want {want_n} each")
-        _sp_hold(f"{tag} sp={n}", got, want, plain)
+        _sp_hold(f"{tag} sp={n}", got, want, plain, phase)
         launches[tag] = counts
         del got
     # device time of the whole path (forward and backward, all n ranks'
@@ -4205,7 +4258,7 @@ def _parallel_sp() -> dict[str, int]:
     whole_ms = timed(lambda: (whole_fwd(), whole_bwd()), 3)[0]
     for tag, fn in (("ring", _sp_ring), ("ulysses", _sp_ulysses)):
         ms = timed(lambda: fn(q, k, v, g, scale, n), 3)[0]
-        log(f"parallel: {tag} sp={n} forward + backward, every rank's "
+        log(f"{phase}: {tag} sp={n} forward + backward, every rank's "
             f"chunks: {ms:.4f} ms on the device; K1 + K2/K3 on the whole "
             f"sequence {whole_ms:.4f} ms ({ms / whole_ms:.2f}x)")
     cuda_lib.reset_launches()
@@ -6872,12 +6925,444 @@ def phase_portal(smi: str) -> dict[str, int]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: long-context training, the train -> serve handoff, the goodput
+# report
+# ---------------------------------------------------------------------------
+
+# pretrain_long on the train phase's model at S LONG_SEQ, rescaled RoPE
+LONG_SEQ = 32768
+LONG_ROPE_SCALING = 8
+LONG_STEPS = 4
+LONG_ARGV = ["--config", TRAIN_CONFIG, "--seq-len", str(LONG_SEQ),
+             "--batch-size", "1", "--rope-scaling", str(LONG_ROPE_SCALING),
+             "--steps", str(LONG_STEPS)]
+# its attention: (B, H, Hkv, S, D), for K1-K3 and the ring and Ulysses
+LONG_SHAPE = (1, 16, 8, LONG_SEQ, 128)
+# the NCCL world of one it trains on, sp of 1
+LONG_MESH = {"TPU_MESH_SHAPE": "1,1", "TPU_MESH_AXES": "fsdp,sp"}
+# the step of the plain versions beside the kernels': its depth (all 16
+# layers' plain attention at S 32768 would take tens of seconds), and the
+# limits: the loss at bf16's tolerance, each gradient by norm
+LONG_PLAIN_LAYERS = 2
+LONG_LOSS_TOL = TOL["bfloat16"]
+LONG_GRAD_TOL = NORM_TOL
+# the first loss's distance from ln(vocab) (random weights)
+LONG_LOSS0_TOL = 0.5
+# the serving submitter's limit; its engine runs at generate's shapes (one
+# slot, a budget of prompt + new tokens: K5 plans its split of K by the row
+# count, so 4 slots would sum a decode step's products otherwise than
+# generate's one row does)
+SUBMIT_JOB_S = 300.0
+# K1-K3 at LONG_SHAPE, for the kernels line
+LONG_CASES: dict = {}
+
+
+def _long_kernels(peaks) -> None:
+    """(a): K1-K3 at LONG_SHAPE against `blockwise_forward` /
+    `blockwise_backward`, twice and bit for bit, timed beside the plain
+    versions and SDPA, kept in LONG_CASES."""
+    import torch
+
+    b, h, hk, s, d = LONG_SHAPE
+    dq, dkv, fwd = _flash_bwd_case(b, h, hk, s, d, True, "bfloat16", "bshd",
+                                   peaks, timed_case=True)
+    for name, r in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
+                    ("flash_bwd_dkv", dkv)):
+        r["summary"] = False
+        _report(name, r)
+        _hold_all(name, [r])
+        LONG_CASES[name] = r
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The flash forward, its backward and the RMSNorm forward take their
+    plain versions on the card too while inside, for a step of the plain
+    versions on the same weights and batch as the kernels' step."""
+    from tony_tpu_torch.ops import attention, rmsnorm
+
+    def fwd(q, k, v, causal, sm_scale):
+        out, lse = attention.blockwise_forward(q, k, v, causal, sm_scale)
+        return out.transpose(1, 2).contiguous(), lse
+
+    saved = (attention._flash_fwd_cuda_bshd, attention.flash_backward,
+             rmsnorm.rms_norm_cuda)
+    attention._flash_fwd_cuda_bshd = fwd
+    attention.flash_backward = attention.blockwise_backward
+    rmsnorm.rms_norm_cuda = rmsnorm.rms_norm_reference
+    try:
+        yield
+    finally:
+        (attention._flash_fwd_cuda_bshd, attention.flash_backward,
+         rmsnorm.rms_norm_cuda) = saved
+
+
+@contextlib.contextmanager
+def _counted_trainer(record: dict):
+    """Every Trainer set up inside has its step wrapped: counts set to 0
+    just before a step and read just after, the step's wall (from a
+    drained device to a drained device), its loss. The Trainer lands in
+    record["trainer"], the steps in record["steps"]."""
+    import torch
+    import torch.distributed as dist
+
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.trainer import Trainer
+
+    setup = Trainer.setup
+
+    def counted_setup(self):
+        setup(self)
+        record["trainer"] = self
+        record["backend"] = dist.get_backend() if dist.is_initialized() \
+            else None
+        step_fn = self.train_step
+
+        def counted_step(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            cuda_lib.reset_launches()
+            out = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            record["steps"].append({
+                "s": time.monotonic() - t0, "loss": out[2],
+                "launches": dict(cuda_lib.launches())})
+            return out
+        self.train_step = counted_step
+
+    Trainer.setup = counted_setup
+    try:
+        yield
+    finally:
+        Trainer.setup = setup
+
+
+def _long_plain_step(cfg, tokens) -> None:
+    """Step 1's loss and gradients of the kernels against the plain
+    versions on the same weights (seeded) and batch, at LONG_PLAIN_LAYERS
+    layers of `cfg`."""
+    import dataclasses
+
+    import torch
+
+    from tony_tpu_torch.models.llama import llama_init, llama_loss
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.checkpoint import flatten_with_paths
+
+    cfg = dataclasses.replace(cfg, n_layers=LONG_PLAIN_LAYERS)
+    params = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = flatten_with_paths(params)
+    for _, leaf in leaves:
+        leaf.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    def step() -> tuple[float, dict, float, dict]:
+        for _, leaf in leaves:
+            leaf.grad = None
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.monotonic()
+        loss = llama_loss(params, batch, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.item(), {path: leaf.grad.clone()
+                              for path, leaf in leaves},
+                time.monotonic() - t0, dict(cuda_lib.launches()))
+
+    loss, grads, wall, launched = step()
+    with _plain_kernels():
+        plain_loss, plain_grads, plain_wall, plain_launched = step()
+    cuda_lib.reset_launches()
+    want = _step_launches(LONG_PLAIN_LAYERS)
+    check({k: launched[k] for k in want} == want,
+          f"long: the kernels' step launched {launched}, want {want}")
+    check(not any(plain_launched.values()),
+          f"long: the plain step launched {plain_launched}")
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    errs = {path: _grad_norm_err(grads[path], plain_grads[path])
+            for path in grads}
+    worst = max(errs, key=errs.get)
+    log(f"long: step 1 at {LONG_PLAIN_LAYERS} layers, B1 x S{LONG_SEQ}: "
+        f"kernels' loss {loss:.6f}, plain versions' {plain_loss:.6f} "
+        f"(relative {rel:.2e}, tol {LONG_LOSS_TOL}); worst gradient by "
+        f"norm {errs[worst]:.2e} ({'/'.join(worst)}, tol {LONG_GRAD_TOL}); "
+        f"wall {wall:.3f} s against the plain {plain_wall:.3f} s")
+    check(rel <= LONG_LOSS_TOL, f"long: step 1 loss {loss} against the "
+          f"plain versions' {plain_loss}")
+    check(errs[worst] <= LONG_GRAD_TOL, f"long: gradient {'/'.join(worst)} "
+          f"{errs[worst]:.2e} by norm against the plain versions'")
+    del params, leaves, grads, plain_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _long_pretrain(smi: str) -> dict[str, int]:
+    """(c): `pretrain_long.main(LONG_ARGV)` in this process on an NCCL
+    world of one (mesh LONG_MESH), then step 1 against the plain versions.
+    Returns its launches."""
+    import torch
+
+    from tony_tpu_torch.device import peak_flops
+    from tony_tpu_torch.examples import pretrain_long
+    from tony_tpu_torch.train.data import synthetic_tokens
+
+    cfg, seq = pretrain_long.long_config(
+        pretrain_long.build_arg_parser().parse_args(LONG_ARGV))
+    from tony_tpu_torch.models.llama import get_config
+    window = get_config(TRAIN_CONFIG).max_seq
+    check(seq == LONG_SEQ and cfg.max_seq == LONG_SEQ
+          and cfg.rope_orig_max_seq == window
+          and cfg.rope_scaling_factor == LONG_ROPE_SCALING,
+          f"long: pretrain_long's config {cfg}")
+    env = {"WORLD": "1", "RANK": "0",
+           "INIT_METHOD": f"tcp://127.0.0.1:{_free_port()}", **LONG_MESH}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    record: dict = {"steps": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        with _counted_trainer(record), contextlib.redirect_stdout(
+                io.StringIO()) as out:
+            rc = pretrain_long.main(LONG_ARGV)
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.monotonic() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    last = out.getvalue().strip().splitlines()[-1]
+    mesh = record["trainer"].mesh
+    steps = record["steps"]
+    losses = [float(s["loss"]) for s in steps]
+    log(f"long: pretrain_long {' '.join(LONG_ARGV)} on an NCCL world of "
+        f"one, mesh {LONG_MESH}: exit {rc}, last line {last!r}; the "
+        f"process group {record['backend']}, the Trainer's mesh "
+        f"{None if mesh is None else mesh.mesh_dim_names}; wall "
+        f"{wall:.1f} s")
+    check(rc == 0 and last == f"final loss {losses[-1]:.4f} "
+          f"(seq={LONG_SEQ}, sp_mode=ring)",
+          f"long: pretrain_long exited {rc}, printed {last!r}")
+    check(record["backend"] == "nccl" and mesh is not None
+          and tuple(mesh.mesh_dim_names) == ("fsdp", "sp"),
+          f"long: a {record['backend']} group, mesh {mesh}")
+    want = _step_launches(cfg.n_layers)
+    total = dict.fromkeys(want, 0)
+    for i, s in enumerate(steps, 1):
+        got = {k: s["launches"][k] for k in want}
+        log(f"long: step {i} loss {losses[i - 1]:.4f} wall {s['s']:.4f} s "
+            f"launches {got}")
+        check(got == want, f"long: step {i} launched {got}, want {want}")
+        for k in want:
+            total[k] += got[k]
+    check(len(steps) == LONG_STEPS, f"long: {len(steps)} steps")
+    check(all(math.isfinite(x) for x in losses), f"long: losses {losses}")
+    uniform = math.log(cfg.vocab_size)
+    check(abs(losses[0] - uniform) <= LONG_LOSS0_TOL,
+          f"long: the first loss {losses[0]} is not within "
+          f"{LONG_LOSS0_TOL} of ln {cfg.vocab_size} = {uniform:.4f}")
+    # steps 2.. (step 1 builds the allocator's pools)
+    step_s = sorted(s["s"] for s in steps[1:])[(len(steps) - 1) // 2]
+    tok_s = (LONG_SEQ + 1) / step_s
+    peak = peak_flops(torch.device("cuda"))
+    mfu = 100.0 * tok_s * cfg.flops_per_token(LONG_SEQ) / peak
+    log(f"long: {TRAIN_CONFIG} B1 x S{LONG_SEQ}, RoPE rescaled x"
+        f"{LONG_ROPE_SCALING} from {window}: median step (steps 2-"
+        f"{LONG_STEPS}) {step_s:.4f} s = {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.2f}% of {peak / 1e12:.0f} TFLOP/s (flops_per_token "
+        f"{cfg.flops_per_token(LONG_SEQ):.4e}); first loss "
+        f"{losses[0]:.4f} (ln {cfg.vocab_size} = {uniform:.4f}); peak "
+        f"memory allocated {peak_gib:.2f} GiB; {smi}")
+    del mesh, record, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = next(synthetic_tokens(1, LONG_SEQ, cfg.vocab_size))["tokens"]
+    _long_plain_step(cfg, tokens)
+    return total
+
+
+def _long_checkpoint(root: str, env: dict) -> str:
+    """The ckpt phase's kept llama3_1b_proxy checkpoint, else one written
+    by one step of `python -m tony_tpu_torch.train`."""
+    if KEPT_CKPT.get("dir"):
+        log(f"long: serving the ckpt phase's checkpoint {KEPT_CKPT['dir']}")
+        return KEPT_CKPT["dir"]
+    d = os.path.join(root, "ckpt")
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.train", "--config",
+         TRAIN_CONFIG, "--steps", "1", "--batch-size", "1", "--seq-len",
+         "128", "--checkpoint-dir", d], cwd=root, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"long: the checkpoint's training run exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    log(f"long: wrote a {TRAIN_CONFIG} checkpoint by one step of python -m "
+        f"tony_tpu_torch.train in {time.monotonic() - t0:.1f} s")
+    return d
+
+
+def _long_generate(ckpt: str) -> list[int]:
+    """`generate` on the checkpoint's latest params, int8-quantized as the
+    server quantizes them, in this process."""
+    import torch
+
+    from tony_tpu_torch.examples.serve_submit import (
+        SMOKE_NEW_TOKENS, SMOKE_PROMPT,
+    )
+    from tony_tpu_torch.models.convert import empty_params
+    from tony_tpu_torch.models.generate import generate
+    from tony_tpu_torch.models.llama import get_config
+    from tony_tpu_torch.models.quant import quantize_params
+    from tony_tpu_torch.ops import cuda_lib
+    from tony_tpu_torch.train.checkpoint import latest_step, restore_params
+
+    cfg = get_config(TRAIN_CONFIG)
+    with torch.inference_mode():
+        params = quantize_params(restore_params(
+            ckpt, latest_step(ckpt), empty_params(cfg, "cuda")))
+        tokens = generate(params, cfg, torch.tensor([SMOKE_PROMPT],
+                                                    device="cuda"),
+                          SMOKE_NEW_TOKENS)[0].tolist()
+    cuda_lib.reset_launches()
+    del params
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def _long_serve_submit(root: str, env: dict, cache: str, smi: str
+                       ) -> tuple[dict[str, int], str]:
+    """(d): `python -m tony_tpu_torch.examples.serve_submit --smoke` on a
+    llama3_1b_proxy checkpoint, int8, from the copy of `tony_tpu_torch/`
+    alone. Returns the server's own count of its launches and the job's
+    app dir."""
+    from tony_tpu_torch import constants as C
+    from tony_tpu_torch.examples.serve_submit import (
+        SMOKE_NEW_TOKENS, SMOKE_PROMPT,
+    )
+    from tony_tpu_torch.models.llama import get_config
+
+    ckpt = _long_checkpoint(root, dict(env, TONY_JAX_CACHE_DIR=cache))
+    site = os.path.join(root, "site")
+    os.makedirs(site)
+    workdir = os.path.join(root, "apps")
+    with open(os.path.join(site, C.TONY_SITE_CONF), "w") as f:
+        json.dump({**AM_CONF, "tony.cluster.workdir": workdir,
+                   "tony.executor.jax-cache-dir": cache,
+                   # the server drains in well under a second
+                   "tony.task.term-grace-ms": 2000}, f)
+    argv = [sys.executable, "-m", "tony_tpu_torch.examples.serve_submit",
+            "--config", TRAIN_CONFIG, "--checkpoint-dir", ckpt,
+            "--quant", "int8", "--slots", "1", "--token-budget",
+            str(len(SMOKE_PROMPT) + SMOKE_NEW_TOKENS), "--smoke"]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, cwd=root, env=dict(env, TONY_CONF_DIR=site),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=SUBMIT_JOB_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate(timeout=30)
+        raise SmokeFailure(f"long: serve_submit ran past {SUBMIT_JOB_S:.0f} "
+                           f"s: {stdout[-2000:]}{stderr[-3000:]}")
+    wall = time.monotonic() - t0
+    lines = stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines and lines[-1] == "SERVE_SMOKE_OK",
+          f"long: serve_submit exited {proc.returncode}: {stdout[-2000:]}"
+          f"{stderr[-3000:]}")
+    app_id = next(line for line in lines
+                  if line.startswith("submitted ")).split()[1].rstrip(";")
+    served = json.loads(next(line for line in lines
+                             if line.startswith("generated: "))[11:])
+    want_tokens = _long_generate(ckpt)
+    log(f"long: serve_submit --smoke ({TRAIN_CONFIG}, int8, from {ckpt}): "
+        f"exit 0 in {wall:.1f} s; {lines[1]}; served {served}, generate "
+        f"{want_tokens}")
+    check(served == want_tokens, f"long: served {served} != generate "
+                                 f"{want_tokens}")
+    app_dir = os.path.join(workdir, app_id)
+    with open(os.path.join(app_dir, C.CONTAINERS_DIR_NAME, "serving_0_s0",
+                           "stderr")) as f:
+        launched = _am_launches(f.read(), "long serve")
+    cfg = get_config(TRAIN_CONFIG)
+    # one admission (the prompt's prefill), then a decode step of the one
+    # slot per new token after the first
+    steps = SMOKE_NEW_TOKENS - 1
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0,
+            "rmsnorm_fwd": (2 * cfg.n_layers + 1) * (1 + steps),
+            "int8_matmul": _k5_launches(cfg, [len(SMOKE_PROMPT)], steps, 1)}
+    check({k: launched.get(k, 0) for k in want} == want,
+          f"long: the server launched {launched}, one admission and "
+          f"{steps} decode steps want {want}")
+    log(f"long: the server's own count of its launches {launched} (one "
+        f"admission, {steps} decode steps); {smi}")
+    return {k: launched.get(k, 0) for k in want}, app_dir
+
+
+def _long_goodput(root: str, env: dict, app_dir: str) -> None:
+    """(e): `python -m tony_tpu_torch.tools.goodput_report` on the serving
+    job's app dir: the table, and --json equal to the goodput.json found."""
+    from tony_tpu_torch import constants as C
+
+    runs = {}
+    for flags in ((), ("--json",)):
+        out = subprocess.run(
+            [sys.executable, "-m", "tony_tpu_torch.tools.goodput_report",
+             app_dir, *flags], cwd=root, env=env, capture_output=True,
+            text=True, timeout=120)
+        check(out.returncode == 0, f"long: goodput_report {flags} exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        runs[flags] = out.stdout
+    found = glob.glob(os.path.join(app_dir, C.HISTORY_DIR_NAME, "*",
+                                   C.GOODPUT_FILE))
+    check(len(found) == 1, f"long: goodput files {found}")
+    with open(found[0]) as f:
+        want = json.load(f)
+    check(json.loads(runs[("--json",)]) == want,
+          f"long: goodput_report --json {runs[('--json',)][:2000]} != "
+          f"{found[0]}")
+    log(f"long: goodput_report {app_dir}:\n{runs[()].rstrip()}")
+
+
+def phase_long(smi: str, peaks) -> tuple[dict[str, int], dict[str, int]]:
+    """Long-context training at S LONG_SEQ, the serving submitter and the
+    goodput report. Returns (pretrain_long's and the server's launches,
+    the ring's and Ulysses' chunk launches)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _long_kernels(peaks)
+    sp_launches = _parallel_sp(LONG_SHAPE, "long")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _long_pretrain(smi)
+    root = tempfile.mkdtemp(prefix="chip-smoke-long-")
+    try:
+        cache, env = _am_tree(root)
+        served, app_dir = _long_serve_submit(root, env, cache, smi)
+        _long_goodput(root, env, app_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k, v in served.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"long: the phase {time.monotonic() - t0:.1f} s; {smi}")
+    return launches, sp_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,cache,kernels,serve,engine,profile,"
                             "quant,kvcache,train,ckpt,orch,moe,parallel,"
-                            "pipeline,spec,vision,executor,am,cli,fleet,portal",
+                            "pipeline,spec,vision,executor,am,cli,fleet,"
+                            "portal,long",
                     help="comma-separated phases to run")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
@@ -6925,7 +7410,7 @@ def main(argv=None) -> int:
             launches["train"] = phase_train()
             phase_train_parity()
         if "ckpt" in phases:
-            launches["ckpt"] = phase_ckpt(smi)
+            launches["ckpt"] = phase_ckpt(smi, keep="long" in phases)
         if "orch" in phases:
             launches["orch"] = phase_orch(smi)
         if "moe" in phases:
@@ -6949,11 +7434,18 @@ def main(argv=None) -> int:
             launches["fleet"] = phase_fleet(smi)
         if "portal" in phases:
             launches["portal"] = phase_portal(smi)
+        if "long" in phases:
+            launches["long"], launches["long_sp"] = phase_long(smi, peaks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if KEPT_CKPT:
+            shutil.rmtree(KEPT_CKPT["root"], ignore_errors=True)
     from tony_tpu_torch.ops import cuda_lib
     entries = []
+    for kname in LONG_CASES:
+        kernels.setdefault(kname, LONG_CASES[kname])
     for kname, r in kernels.items():
         k = cuda_lib.KERNELS[kname]
         by_path = {path: counts.get(kname, 0)
@@ -6969,6 +7461,12 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "library_call": r.get("library_call"), "shape": r["shape"],
             "dtype": r["dtype"]})
+        if kname in LONG_CASES and LONG_CASES[kname] is not r:
+            # the long phase's shape beside the summary's
+            entries[-1]["long"] = {key: LONG_CASES[kname].get(key) for key in (
+                "shape", "dtype", "max_abs_err", "norm_err", "ms",
+                "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_call")}
     log(f"chip_smoke: phases {phases} passed in "
         f"{time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

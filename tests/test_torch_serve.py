@@ -375,6 +375,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_tony_tpu():
                    "models.mnist", "models.linear", "examples",
                    "examples.generate_demo", "examples.train_allreduce",
                    "examples.mnist_distributed", "examples.linreg_dmlc",
+                   "examples.pretrain_long", "examples.serve_submit",
+                   "tools", "tools.goodput_report",
                    "executor", "executor.__main__", "executor.task_executor",
                    "executor.task_monitor", "executor.cuda_metrics",
                    "executor.gpu_metrics", "executor.runtimes",

@@ -7,7 +7,9 @@ orchestration layer (`conf/`, `security/`, `rpc/`, `observability/`,
 `utils/` and `storage/`), the ApplicationMaster core (`am/`, `session/`,
 `cluster/`, with the warm pool and the remote backend), and the client
 and CLI (`client/`, `cli/`, `proxy.py`, with the native relay's sources
-in `native/`). It imports torch and never jax or anything of
+in `native/`), the history portal and workflow adapter (`portal/`,
+`workflow/`), the example entry points (`examples/`) and the operator's
+goodput report (`tools/`). It imports torch and never jax or anything of
 `tony_tpu`; the JAX package stays the reference the port's tests hold it
 against.
 """

@@ -14,4 +14,8 @@ directories up) on ``sys.path``, as the JAX examples do.
 - `mnist_distributed`: the MNIST MLP; fails below 0.9 accuracy.
 - `linreg_dmlc`: the DMLC env check, then a linear fit; fails when the
   MSE is not below 0.01.
+- `pretrain_long`: long-context Llama training, the sequence over the
+  mesh's sp axis (ring or Ulysses), with the Llama-3.1 RoPE rescale.
+- `serve_submit`: submits a serving job through the client and, with
+  ``--smoke``, answers one /v1/generate (``SERVE_SMOKE_OK``).
 """
