@@ -68,6 +68,7 @@ def _moe_world(rank, world, init, out, jparams, tokens):
 
     from tony_tpu_torch.models import moe
     from tony_tpu_torch.models.convert import params_from_jax
+    from tony_tpu_torch.observability.metrics import REGISTRY
     from tony_tpu_torch.parallel import mesh, sharding
     from tony_tpu_torch.train.data import global_batch
     from tony_tpu_torch.train.optim import tree_leaves, tree_map
@@ -102,12 +103,18 @@ def _moe_world(rank, world, init, out, jparams, tokens):
             return a
 
         moe.route, moe.aux_loss = spy_route, spy_aux
+        counted = [REGISTRY.counter(moe.EXPERT_ROWS_EXECUTED).value,
+                   REGISTRY.counter(moe.EXPERT_ROWS_ROUTED).value]
         try:
             batch = global_batch({"tokens": torch.from_numpy(
                 tokens[idx * rows:(idx + 1) * rows]).long()}, m)
             loss = moe.moe_loss(params, batch, cfg)
         finally:
             moe.route, moe.aux_loss = route, aux_loss
+        counted = [REGISTRY.counter(moe.EXPERT_ROWS_EXECUTED).value
+                   - counted[0],
+                   REGISTRY.counter(moe.EXPERT_ROWS_ROUTED).value
+                   - counted[1]]
         loss.backward()
         keeps, dropped, per_rank_differs = [], 0, 0
         for xt, router, r in routed:
@@ -122,6 +129,7 @@ def _moe_world(rank, world, init, out, jparams, tokens):
                  for p, leaf in _flat(params).items()}
         results.append({
             "loss": loss.item(), "aux": sum(auxes), "keeps": keeps,
+            "rows": counted, "capacities": [r.capacity for *_, r in routed],
             "dropped": dropped, "per_rank_differs": per_rank_differs,
             "grads": grads,
             "we_gate": (tuple(params["layers"]["we_gate"].placements),
@@ -187,6 +195,14 @@ def test_moe_on_split_meshes_matches_jax(tmp_path, monkeypatch):
         for layer, (a, b) in enumerate(zip(res["keeps"], jkeeps)):
             np.testing.assert_array_equal(a, b, err_msg=f"{label} {layer}")
         assert res["dropped"] > 0, f"{label}: no token dropped"
+        # each layer's rows counted once, from the global T = B * S
+        n_tokens = BATCH * SEQ
+        assert res["capacities"] == [int(jcfg.capacity_factor * n_tokens
+                                         * jcfg.top_k / jcfg.n_experts)
+                                     ] * jcfg.n_layers, label
+        assert res["rows"] == [
+            jcfg.n_layers * jcfg.n_experts * res["capacities"][0],
+            jcfg.n_layers * n_tokens * jcfg.top_k], label
         if "fsdp" in axes:
             assert res["per_rank_differs"] > 0, label
         jflat = _flat(jgrads)

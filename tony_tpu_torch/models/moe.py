@@ -28,6 +28,9 @@ which each token takes its `top_k` choices.
   so one K5 launch a bank at decode row counts.
 - **Switch aux loss** over the choices before capacity, summed over the
   layers; `moe_loss` adds `aux_loss_weight` times it to the LM loss.
+- **Counters**: each call adds the rows its banks execute (E * C) and
+  the rows routed to them (T * k, the global T under a mesh) to the
+  health registry (`count_expert_rows`), from host integers.
 - **Under a mesh** (`moe_param_axes`: the expert dim over `ep`, embed
   and mlp over fsdp and tp, the router at ("layers", "embed", None)) the
   MLP routes the GLOBAL token set, as the JAX package's `moe_mlp` does
@@ -67,6 +70,7 @@ from tony_tpu_torch.models.llama import (
     unpack_lm_batch,
 )
 from tony_tpu_torch.models.quant import is_qtensor
+from tony_tpu_torch.observability.metrics import REGISTRY
 from tony_tpu_torch.ops.int8_matmul import int8_bmm
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.parallel.mesh import axis_index, axis_size
@@ -128,6 +132,11 @@ def get_moe_config(name: str, **overrides) -> MoEConfig:
 def is_moe_preset(name: str) -> bool:
     """Whether `name` is an MoE preset: membership in this registry."""
     return name in PRESETS
+
+
+# health-registry counters of `count_expert_rows`
+EXPERT_ROWS_EXECUTED = "tony_moe_expert_rows_executed_total"
+EXPERT_ROWS_ROUTED = "tony_moe_expert_rows_routed_total"
 
 
 def no_drop_capacity_floor(config: MoEConfig) -> float:
@@ -392,9 +401,21 @@ def moe_mlp(x: torch.Tensor, layer: Params, config: MoEConfig
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     r = route(xt, layer["router"], config)
+    count_expert_rows(b * s, r.capacity, config)
     out = _dispatch(config)(xt, r, x.dtype,
                             _all_experts(layer, config.n_experts))
     return out.reshape(b, s, d).to(x.dtype), aux_loss(r, config)
+
+
+def count_expert_rows(n_tokens: int, capacity: int,
+                      config: MoEConfig) -> None:
+    """Add one call's expert rows to the health registry (`/v1/metrics`),
+    from host integers: the rows the banks execute, E * C, and the rows
+    routed to them, T * k. Their ratio is the banks' useful share, 1 / cf
+    where the capacity divides: a quarter at the serving engine's no-drop
+    cf E / k = 4."""
+    REGISTRY.counter(EXPERT_ROWS_EXECUTED).inc(config.n_experts * capacity)
+    REGISTRY.counter(EXPERT_ROWS_ROUTED).inc(n_tokens * config.top_k)
 
 
 def _dispatch(config: MoEConfig):
@@ -477,6 +498,7 @@ def _moe_mlp_sharded(x: DTensor, layer: Params, config: MoEConfig
     b, s, d = x.shape
     xt = x.redistribute(mesh, _placed(mesh)).to_local().reshape(b * s, d)
     r = route(xt, _local_weight(layer["router"]), config)
+    count_expert_rows(b * s, r.capacity, config)
     ep = axis_size(mesh, "ep")
     count = config.n_experts // ep
     experts = _ep_bank(layer, mesh, axis_index(mesh, "ep") * count, count)

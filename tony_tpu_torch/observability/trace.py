@@ -13,6 +13,12 @@ health registry instead of growing. The executor's recorder also renders
 the context into its user process's env (`SpanRecorder.env`). The AM
 records its own spans straight into a `SpanStore` (the recorder's
 ``sink``), which gathers every principal's spans for one app.
+
+`device_range` is the one mechanism for host ranges on the profiler's
+clock: a `torch.profiler.record_function` range while the profiler is on,
+so the range lands in the same event stream as the card's kernels, and a
+flag check otherwise. The serving engine's step phases, the train step
+and its optimizer use it.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import logging
 import threading
 import time
 import uuid
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Union
 
@@ -244,3 +250,19 @@ class SpanStore:
     def __len__(self) -> int:
         with self._lock:
             return len(self._spans)
+
+
+_NO_RANGE = nullcontext()
+
+
+def device_range(name: str, args: Optional[str] = None):
+    """A `record_function(name, args)` range when the profiler is on for
+    this thread, else a shared null context: with the profiler off a range
+    costs a call and a flag check, not a `record_function` enter and exit.
+    torch is imported here: the control plane imports this module and never
+    torch."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return _NO_RANGE
+    return torch.profiler.record_function(name, args)

@@ -49,7 +49,12 @@ iteration (a wedged loop is a stall the watchdog reports), handles carry
 the request-trace context the frontend adopts (`trace`, `trace_ctx`) and
 the phase stamps `record_engine_phases` reads (`kv_match_s`,
 `migrated_in`), and `on_request_finished` is the hook request tracing
-and the serve_request span compose onto.
+and the serve_request span compose onto. The step's own phases
+(`engine.admit`, its `engine.admit.wait`, `engine.decode.launch`,
+`engine.decode.wait`, `engine.decode.emit`) are summed into `EngineStats`
+always (`PHASE_COUNTERS`, also in `snapshot()`), and are profiler ranges
+of those names while the profiler is on (`device_range`), on the same
+clock as the card's kernels.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +75,7 @@ from tony_tpu_torch.models.generate import (
     _sample, _warn_moe_below_capacity, decode_step, empty_cache, prefill,
 )
 from tony_tpu_torch.models.llama import LlamaConfig, Params
+from tony_tpu_torch.observability.trace import device_range
 from tony_tpu_torch.serve import kvcache as kvc
 
 LOG = logging.getLogger(__name__)
@@ -226,6 +232,31 @@ class EngineStats:
     # from a prefill replica (decode role)
     migrated_out: int = 0
     migrated_in: int = 0
+    # the engine thread's phases, summed: wall seconds on perf_counter,
+    # CPU seconds on the thread's thread_time. admit: dequeue to the slot
+    # installed (prefill admissions; admit_cpu_s leaves out the wait,
+    # where the thread may spin), admit_wait: the first token's host read
+    # inside it; decode launch: the step's ops and the sampler, wait: the
+    # sampled tokens' host read, emit: push, latch and finish per slot;
+    # step_s: step() calls that did work, credited as each admission and
+    # decode step ends; idle_wait_s: the loop's wait for work.
+    admit_s: float = 0.0
+    admit_cpu_s: float = 0.0
+    admit_wait_s: float = 0.0
+    prompt_tokens_admitted: int = 0
+    decode_launch_s: float = 0.0
+    decode_launch_cpu_s: float = 0.0
+    decode_wait_s: float = 0.0
+    decode_emit_s: float = 0.0
+    decode_emit_cpu_s: float = 0.0
+    step_s: float = 0.0
+    idle_wait_s: float = 0.0
+
+
+PHASE_COUNTERS = ("admit_s", "admit_cpu_s", "admit_wait_s",
+                  "prompt_tokens_admitted", "decode_launch_s",
+                  "decode_launch_cpu_s", "decode_wait_s", "decode_emit_s",
+                  "decode_emit_cpu_s", "step_s", "idle_wait_s")
 
 
 def _percentile(samples, q: float) -> Optional[float]:
@@ -314,6 +345,8 @@ class ContinuousBatchingEngine:
         self.weights_generation = int(weights_generation)
         self._thread: Optional[threading.Thread] = None
         self.stats = EngineStats()
+        # the engine thread's clock at its last fold into stats (`_fold`)
+        self._t_fold = time.perf_counter()
         # called (outside the engine lock) with each RequestHandle as it
         # finishes
         self.on_request_finished: Optional[Callable] = None
@@ -488,6 +521,7 @@ class ContinuousBatchingEngine:
         requests as there are free slots, then decode every active slot one
         token. Returns True when any work happened (the loop's idle
         signal)."""
+        self._t_fold = time.perf_counter()
         reaped = False
         for slot in self._slots:
             if slot.active and slot.handle.cancelled.is_set():
@@ -497,29 +531,60 @@ class ContinuousBatchingEngine:
         active = [s for s in self._slots if s.active]
         if not active:
             return admitted
-        tokens = torch.tensor(self._tokens_np, device=self.device)
-        pos = torch.tensor(self._pos_np, device=self.device)
-        logits, _ = decode_step(self.params, self.config, self._cache,
-                                tokens, pos)
-        nxt = _sample(logits, self.temperature, self.top_k, self._generator,
-                      self.top_p)
-        nxt_np = nxt.cpu().numpy()
-        now = time.monotonic()
-        with self._lock:
-            self.stats.decode_steps += 1
-        for slot in active:
-            token = int(nxt_np[slot.index])
-            slot.pos += 1
-            self._pos_np[slot.index] = slot.pos
-            self._tokens_np[slot.index] = token
-            slot.emitted += 1
-            slot.handle._push(token, now)
-            with self._lock:
-                self.stats.tokens_emitted += 1
-                self.stats.itl_s.append(now - slot.last_emit_at)
-            slot.last_emit_at = now
-            self._maybe_finish(slot, token, now)
+        self._decode(active)
         return True
+
+    def _fold(self, sums: dict, itl: Sequence[float] = ()) -> None:
+        """Add one admission's or decode step's phase sums, and the step's
+        wall since the last fold, to `stats` under the lock once. Folding
+        as each ends, not once a step, keeps the sums in step with the
+        counts an observer reads mid-step (`admissions`)."""
+        now = time.perf_counter()
+        sums["step_s"] = now - self._t_fold
+        self._t_fold = now
+        with self._lock:
+            for key, value in sums.items():
+                setattr(self.stats, key, getattr(self.stats, key) + value)
+            self.stats.itl_s.extend(itl)
+
+    def _decode(self, active: list[_Slot]) -> None:
+        """One decode step over all slots, in three phases: launch, wait
+        for the sampled tokens, emit them."""
+        with device_range("engine.decode.launch"):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            tokens = torch.tensor(self._tokens_np, device=self.device)
+            pos = torch.tensor(self._pos_np, device=self.device)
+            logits, _ = decode_step(self.params, self.config, self._cache,
+                                    tokens, pos)
+            nxt = _sample(logits, self.temperature, self.top_k,
+                          self._generator, self.top_p)
+            w1, c1 = time.perf_counter(), time.thread_time()
+        with device_range("engine.decode.wait"):
+            nxt_np = nxt.cpu().numpy()
+        with device_range("engine.decode.emit"):
+            w2, c2 = time.perf_counter(), time.thread_time()
+            now = time.monotonic()
+            itl = []
+            for slot in active:
+                token = int(nxt_np[slot.index])
+                slot.pos += 1
+                self._pos_np[slot.index] = slot.pos
+                self._tokens_np[slot.index] = token
+                slot.emitted += 1
+                slot.handle._push(token, now)
+                itl.append(now - slot.last_emit_at)
+                slot.last_emit_at = now
+                self._maybe_finish(slot, token, now)
+            # the streams the pushes woke take the interpreter lock when
+            # freeing the step's tensors lets it go: that wait is the
+            # emit's, so the frees are timed here
+            del tokens, pos, logits, nxt
+            w3, c3 = time.perf_counter(), time.thread_time()
+        self._fold({"decode_steps": 1, "tokens_emitted": len(active),
+                    "decode_launch_s": w1 - w0,
+                    "decode_launch_cpu_s": c1 - c0,
+                    "decode_wait_s": w2 - w1, "decode_emit_s": w3 - w2,
+                    "decode_emit_cpu_s": c3 - c2}, itl)
 
     def _admit_pending(self) -> bool:
         admitted = False
@@ -541,10 +606,20 @@ class ContinuousBatchingEngine:
             if handle.install is not None:
                 self._admit_migrated(free, handle)
             else:
-                self._admit(free, handle)
+                with device_range("engine.admit"):
+                    w0, c0 = time.perf_counter(), time.thread_time()
+                    wait_s, wait_cpu_s = self._admit(free, handle)
+                    w1, c1 = time.perf_counter(), time.thread_time()
+                self._fold({"admit_s": w1 - w0,
+                            "admit_cpu_s": c1 - c0 - wait_cpu_s,
+                            "admit_wait_s": wait_s,
+                            "prompt_tokens_admitted": len(handle.prompt)})
             admitted = True
 
-    def _admit(self, slot: _Slot, handle: RequestHandle) -> None:
+    def _admit(self, slot: _Slot, handle: RequestHandle
+               ) -> tuple[float, float]:
+        """Prefill a dequeued request into `slot`. Returns the wall and
+        CPU seconds of the first token's host read (`engine.admit.wait`)."""
         # queue wait ends when a free slot dequeues the request; everything
         # until the first sampled token reaches the host is the prefill
         t_dequeue = time.monotonic()
@@ -579,8 +654,12 @@ class ContinuousBatchingEngine:
                     for name, arr in self._cache.items()}
             logits, _ = prefill(self.params, prompt, self.config,
                                 self.token_budget, cache=rows)
-        tok0 = int(_sample(logits, self.temperature, self.top_k,
-                           self._generator, self.top_p)[0])
+        first = _sample(logits, self.temperature, self.top_k,
+                        self._generator, self.top_p)
+        with device_range("engine.admit.wait"):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            tok0 = int(first[0])
+            wait = (time.perf_counter() - w0, time.thread_time() - c0)
         if pool is not None:
             # the slot holds the whole prompt's K/V: seal the complete
             # blocks the index lacks, release the admission's pin and
@@ -611,9 +690,6 @@ class ContinuousBatchingEngine:
             self.stats.ttft_s.append(now - handle.submitted_at)
             self.stats.queue_wait_s.append(handle.queue_wait_s)
             self.stats.prefill_s.append(handle.prefill_s)
-        LOG.debug("admitted request %d into slot %d (prompt %d, matched %d, "
-                  "max_new %d)", handle.request_id, i, len(handle.prompt),
-                  start, handle.max_new_tokens)
         if handle.migrate_out:
             done = ((self.eos_id is not None and tok0 == self.eos_id)
                     or handle.max_new_tokens <= 1)
@@ -626,8 +702,9 @@ class ContinuousBatchingEngine:
                 with self._lock:
                     self.stats.migrated_out += 1
                 self._finish_slot(slot, "migrated", now)
-                return
+                return wait
         self._maybe_finish(slot, tok0, now)
+        return wait
 
     def _seal_prefix(self, slot: _Slot, handle: RequestHandle,
                      hashes: list[str], depth: int) -> None:
@@ -763,8 +840,12 @@ class ContinuousBatchingEngine:
                 LOG.exception("engine step failed")    # wedge the server
                 busy = False
             if not busy:
+                t = time.perf_counter()
                 self._work.wait(timeout=0.02)
                 self._work.clear()
+                idle = time.perf_counter() - t
+                with self._lock:
+                    self.stats.idle_wait_s += idle
         beacon.idle()
 
     def stop(self) -> None:
@@ -819,6 +900,8 @@ class ContinuousBatchingEngine:
                 "migrated_in_total": self.stats.migrated_in,
                 "device": str(self.device),
             }
+            snap.update((key, getattr(self.stats, key))
+                        for key in PHASE_COUNTERS)
             if self.kv_pool is not None:
                 snap.update(self.kv_pool.stats_fields())
             itl = _percentile(self.stats.itl_s, 0.50)

@@ -27,24 +27,21 @@ from typing import Any, Callable
 
 import torch
 
+from tony_tpu_torch.observability.trace import device_range
 from tony_tpu_torch.train.optim import Optimizer, OptState, tree_leaves
 
 
 class AnnotatedStep:
-    """Runs each call of the step inside a
-    `torch.profiler.record_function("train_step")` range whose argument is
-    the step counter, so a trace attributes host stalls to the step they
-    delayed. A resuming trainer re-seats `step_num`."""
+    """Runs each call of the step inside a `train_step` range whose
+    argument is the step counter, so a trace attributes host stalls to the
+    step they delayed. A resuming trainer re-seats `step_num`."""
 
-    def __init__(self, fn: Callable, name: str = "train_step",
-                 step_num: int = 0):
+    def __init__(self, fn: Callable, step_num: int = 0):
         self._fn = fn
-        self._name = name
         self.step_num = step_num
 
     def __call__(self, *args, **kwargs):
-        with torch.profiler.record_function(self._name,
-                                            args=str(self.step_num)):
+        with device_range("train_step", str(self.step_num)):
             out = self._fn(*args, **kwargs)
         self.step_num += 1
         return out
@@ -66,11 +63,13 @@ def split_microbatches(batch: dict, grad_accum: int) -> list[dict]:
 
 
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
-                    optimizer: Optimizer, grad_accum: int = 1,
-                    annotate: bool = False) -> Callable:
+                    optimizer: Optimizer, grad_accum: int = 1
+                    ) -> AnnotatedStep:
     """loss_fn(params, batch) -> scalar tensor. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, loss),
-    with opt_state from `optimizer.init(params)`."""
+    with opt_state from `optimizer.init(params)`. Under the profiler each
+    call is a `train_step` range holding a `train.optimizer` range around
+    the update."""
 
     def backward(params: Any, batch: Any) -> torch.Tensor:
         loss = loss_fn(params, batch)
@@ -93,12 +92,13 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
                     p.grad = None
             loss = loss_sum / grad_accum
             grads = [a.div_(grad_accum) for a in acc]
-        opt_state.step(grads)
+        with device_range("train.optimizer"):
+            opt_state.step(grads)
         for p in leaves:
             p.grad = None
         return params, opt_state, loss
 
-    return AnnotatedStep(train_step) if annotate else train_step
+    return AnnotatedStep(train_step)
 
 
 def make_eval_step(loss_fn: Callable[..., torch.Tensor]) -> Callable:

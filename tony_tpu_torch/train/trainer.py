@@ -282,9 +282,8 @@ class Trainer:
         loss_fn = self.loss_fn
         if self.loss_takes_mesh:
             loss_fn = partial(loss_fn, mesh=self.mesh)
-        self.train_step = make_train_step(
-            loss_fn, self.optimizer, grad_accum=cfg.grad_accum,
-            annotate=True)
+        self.train_step = make_train_step(loss_fn, self.optimizer,
+                                          grad_accum=cfg.grad_accum)
         resume = (latest_step(cfg.checkpoint_dir)
                   if cfg.checkpoint_dir else None)
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
