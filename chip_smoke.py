@@ -17,8 +17,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
               built and loaded) started together with
               $TONY_JAX_CACHE_DIR on an empty directory compile each
               source once between them (the build lock); a third
-              compiles nothing and loads every source (the four that
-              hold the five kernels); `python -m
+              compiles nothing and loads every source (the five that
+              hold the six kernels); `python -m
               tony_tpu_torch.train --config tiny --steps 2` under the
               same variable compiles nothing and writes no library into
               `_build/`. Prints the cold and warm walls and the seconds
@@ -46,13 +46,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
               products of each model, and the tiny f32 path's shapes at
               2e-5; K5's library yardstick is torch._weight_int8pack_mm
               on the same int8 weight where it launches, and
-              torch.matmul on the bf16 weight beside it.
+              torch.matmul on the bf16 weight beside it. K6 (the
+              decode attention) at DECODE_ATTN_CASES: Mistral 7B's 32
+              slots at budget 3072 with every row full and at seeded
+              lognormal lengths (median 900), Mixtral's 8 slots at 4112,
+              one row at 4096, bench_350m's D64, llama3_1b_proxy's group
+              of 2, groups of 1 and 8, tiny's f32 D16 and 300 rows (two
+              launches): the output against its plain version (bf16 at
+              3e-2 and by norm), the written cache rows and a second call
+              bit for bit, one launch each 256 rows; timed against its
+              byte bound, the plain version and
+              scaled_dot_product_attention with a boolean mask over the
+              budget; positions -1 and S write nothing and read 0.
 3. serve    — the serving path at full width: `build_server` with
               llama3_8b (bf16, random weights from a fixed seed), 4 slots,
               a 2048-token budget; 8 concurrent HTTP /v1/generate requests
               (2 streamed) with prompts of 1 to 1900 tokens, 16 new tokens
               each. Checks every answer, /v1/metrics, and that the kernel
-              launch counts are exactly what the path must launch.
+              launch counts are exactly what the path must launch (K6
+              once a layer in each decode step; none with an int8
+              cache).
 4. engine   — `tiny` in f32 on the card: the engine's greedy streams under
               staggered arrivals equal the offline `generate`, and the
               forward on the card agrees with the forward on the CPU.
@@ -611,6 +624,32 @@ INT8_EXTRA = (("wk/wv", 4096, 1024, False, 5, "bfloat16"),
               ("wk/wv", 4096, 1024, False, 4, "float32"),
               ("tiny w_gate", 64, 128, False, 3, "float32"),
               ("tiny output", 64, 256, True, 1, "float32"))
+# K6 at the decode step's shapes, (label, B, H, Hkv, budget S, D, dtype,
+# lengths, timed iterations): "full" puts every row at the budget's last
+# position, "mixed" at seeded lognormal lengths (median
+# DECODE_ATTN_MEDIAN, sigma 0.8, as the benchmark's decode cell draws its
+# prompts) within the budget, a tuple gives the positions (the first row
+# and the last budget row among them). Mistral 7B's 32 slots at budget
+# 3072 (the benchmark's decode cell; the mixed case is the summary),
+# Mixtral's 8 slots at 4112, one row at 4096, bench_350m's D64; held and
+# not timed: llama3_1b_proxy's group of 2 at the quant phase's positions,
+# a group of 1, a group of 8 in f32, tiny's f32 D16 and 300 rows (two
+# launches: K6 takes MAX_BATCH rows a launch)
+DECODE_ATTN_CASES = (
+    ("mistral B32 full", 32, 32, 8, 3072, 128, "bfloat16", "full", 50),
+    ("mistral B32 mixed", 32, 32, 8, 3072, 128, "bfloat16", "mixed", 50),
+    ("mixtral B8", 8, 32, 8, 4112, 128, "bfloat16", "mixed", 50),
+    ("B1 4096", 1, 32, 8, 4096, 128, "bfloat16", "full", 50),
+    ("bench_350m D64", 32, 16, 8, 2048, 64, "bfloat16", "mixed", 50),
+    ("llama3_1b_proxy", 4, 16, 8, 2048, 128, "bfloat16",
+     (1900, 700, 300, 20), 0),
+    ("group 1", 4, 8, 8, 1000, 128, "bfloat16", (0, 999, 128, 517), 0),
+    ("group 8 f32", 2, 16, 2, 700, 64, "float32", (0, 699), 0),
+    ("tiny f32 D16", 4, 4, 2, 128, 16, "float32", (0, 127, 5, 64), 0),
+    ("300 rows", 300, 16, 8, 512, 64, "bfloat16", "mixed", 0),
+)
+DECODE_ATTN_MEDIAN = 900
+DECODE_ATTN_SUMMARY = "mistral B32 mixed"
 # the quant phase: the normalized RMSE of int8 logits against bf16's
 # (tests/test_quant.py:55-113), its prompts (B, P), and its decode step's
 # slots and positions (the profile phase's)
@@ -705,14 +744,15 @@ def device_events(prof) -> list:
 
 def log_top(kernels: list, n: int) -> None:
     """The profile's `n` largest device ops, then each of the port's own
-    kernels (by the templates of csrc/: flash_*, rmsnorm_*, w8a16) that
+    kernels (by the templates of csrc/: flash_*, rmsnorm_*, w8a16,
+    decode_attention) that
     is not among them."""
     ranked = sorted(kernels, key=_device_us, reverse=True)
     for e in ranked[:n]:
         log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for e in ranked[n:]:
-        if re.search(r"\b(flash_\w+|rmsnorm_\w+|w8a16)<",
+        if re.search(r"\b(flash_\w+|rmsnorm_\w+|w8a16|decode_attention)<",
                      e.key):
             log(f"profile:   {_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} "
                 f"{e.key[:90]} (a port kernel)")
@@ -852,7 +892,7 @@ def merge(*held: dict) -> dict:
 
 def phase_build() -> None:
     from tony_tpu_torch.ops import (  # noqa: F401 (register)
-        attention, int8_matmul, rmsnorm,
+        attention, decode_attention, int8_matmul, rmsnorm,
     )
     from tony_tpu_torch.ops import cuda_lib
 
@@ -925,7 +965,8 @@ def hgmma_counts(library) -> dict[str, int]:
 CACHE_PROBE = """
 import json, sys, time
 t0 = time.monotonic()
-from tony_tpu_torch.ops import attention, int8_matmul, rmsnorm, cuda_lib
+from tony_tpu_torch.ops import (
+    attention, cuda_lib, decode_attention, int8_matmul, rmsnorm)
 from tony_tpu_torch.utils.compilecache import maybe_enable_compile_cache
 applied = maybe_enable_compile_cache()
 sources = sorted({k.source for k in cuda_lib.KERNELS.values()})
@@ -1392,6 +1433,159 @@ def _int8_bank_case(label: str, e: int, c: int, k: int, n: int,
     return r
 
 
+def _decode_attn_positions(b: int, s: int, lengths) -> list[int]:
+    """Each row's position for a DECODE_ATTN_CASES entry."""
+    import numpy as np
+    if lengths == "full":
+        return [s - 1] * b
+    if lengths == "mixed":
+        rng = np.random.RandomState(b * 7919 + s)
+        n = np.exp(np.log(DECODE_ATTN_MEDIAN) + 0.8 * rng.randn(b))
+        return [int(x) - 1 for x in np.clip(n, 1, s)]
+    return list(lengths)
+
+
+def _decode_attn_case(label: str, b: int, h: int, hkv: int, s: int, d: int,
+                      dtype_name: str, lengths, iters: int, peaks) -> dict:
+    """K6 against its plain version on random q, k, v and a 2-layer cache
+    of noise, at layer 1: the output, and the cache after the call (the
+    written rows) bit for bit; one launch (one each MAX_BATCH rows); run
+    twice, bit for bit; one row decoded alone, bit for bit. Timed
+    when `iters`: the plain version, and `scaled_dot_product_attention`
+    with a boolean mask over the whole budget (attention alone, no RoPE
+    or row write; the port never calls it) as the library yardstick. The
+    bound: the live K and V rows read, the new rows written, q, k, v and
+    the table rows read and the output written, once, at the memory
+    rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from tony_tpu_torch.ops.decode_attention import (
+        DECODE_ATTENTION, MAX_BATCH, decode_attention_cuda,
+        decode_attention_reference,
+    )
+    from tony_tpu_torch.ops.rope import rope_frequencies
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(131 * b + s + d)
+
+    def noise(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    pos_list = _decode_attn_positions(b, s, lengths)
+    pos = torch.tensor(pos_list, dtype=torch.long, device="cuda")
+    q = noise(b, 1, h, d).transpose(1, 2)
+    k = noise(b, 1, hkv, d).transpose(1, 2)
+    v = noise(b, 1, hkv, d).transpose(1, 2)
+    kc, vc = noise(2, b, hkv, s, d), noise(2, b, hkv, s, d)
+    cos, sin = rope_frequencies(d, s, 1e6, device=torch.device("cuda"))
+    kc_ref, vc_ref = kc.clone(), vc.clone()
+
+    def k6():
+        return decode_attention_cuda(q, k, v, kc, vc, 1, cos, sin, pos)
+
+    def plain():
+        return decode_attention_reference(q, k, v, kc_ref, vc_ref, 1, cos,
+                                          sin, pos)
+
+    before = DECODE_ATTENTION.launches
+    out = k6()
+    launches = DECODE_ATTENTION.launches - before
+    again = k6()
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    r = hold(out, ref.view(out.shape), tol,
+             by_norm=dtype_name == "bfloat16", name=label)
+    r["bitwise"] = bool(torch.equal(out, again))
+    rows = bool(torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref))
+    # a row decoded alone gives the batch's bits (the engine's streams are
+    # offline generate's)
+    j = b // 2
+    alone = decode_attention_cuda(
+        q[j:j + 1], k[j:j + 1], v[j:j + 1], kc[:, j:j + 1].contiguous(),
+        vc[:, j:j + 1].contiguous(), 1, cos, sin, pos[j:j + 1])
+    r["alone"] = bool(torch.equal(alone, out[j:j + 1]))
+    r["ok"] = r["ok"] and r["bitwise"] and rows and r["alone"]
+    check(launches == -(-b // MAX_BATCH),
+          f"decode attention {label}: {launches} K6 launches")
+    live = sum(p + 1 for p in pos_list)
+    r.update(shape=f"{label} B{b} H{h}/{hkv} D{d} S{s} (live rows {live}; "
+                   f"cache rows equal {rows}; row {j} alone equal "
+                   f"{r['alone']})",
+             dtype=dtype_name, tol=tol, summary=label == DECODE_ATTN_SUMMARY)
+    if iters:
+        r["ms"], r["call_ms"] = timed(k6, iters)
+        r["plain_ms"], _ = timed(plain, max(3, iters // 10))
+        mask = (torch.arange(s, device="cuda")[None, :]
+                <= pos[:, None])[:, None, None, :]
+        try:
+            r["library_ms"], _ = timed(
+                lambda: F.scaled_dot_product_attention(
+                    q, kc[1], vc[1], attn_mask=mask, enable_gqa=True),
+                iters)
+            r["library_call"] = ("scaled_dot_product_attention, boolean "
+                                 "mask over the budget, enable_gqa")
+        except Exception as e:  # the card's torch may not take it
+            r["library_ms"] = None
+            r["library_call"] = f"{type(e).__name__}: {e}"[:160]
+        es = q.element_size()
+        nbytes = (2 * hkv * d * es * (live - b)      # K, V rows read
+                  + 2 * b * hkv * d * es             # rows p written
+                  + 2 * b * h * d * es               # q read, out written
+                  + 2 * b * hkv * d * es             # k, v read
+                  + 2 * b * d // 2 * 4)              # cos, sin rows
+        r["bound_ms"] = nbytes / peaks[0] * 1e3
+        r["bound_by"] = "bytes"
+        log(f"kernel decode_attention {label}: {100 * r['bound_ms'] / r['ms']:.1f}% "
+            f"of its byte bound ({nbytes / 1e6:.1f} MB)")
+    del q, k, v, kc, vc, kc_ref, vc_ref, out, again, ref, alone
+    torch.cuda.empty_cache()
+    return r
+
+
+def _decode_attn_outside() -> None:
+    """K6 at positions outside [0, S): those rows write nothing and
+    attend to nothing (output 0); a row in range beside them equals the
+    plain version's."""
+    import torch
+
+    from tony_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda, decode_attention_reference,
+    )
+    from tony_tpu_torch.ops.rope import rope_frequencies
+
+    b, h, hkv, s, d = 3, 8, 2, 300, 128
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def noise(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q = noise(b, 1, h, d).transpose(1, 2)
+    k = noise(b, 1, hkv, d).transpose(1, 2)
+    v = noise(b, 1, hkv, d).transpose(1, 2)
+    kc, vc = noise(1, b, hkv, s, d), noise(1, b, hkv, s, d)
+    cos, sin = rope_frequencies(d, s, 1e6, device=torch.device("cuda"))
+    kc0, vc0 = kc.clone(), vc.clone()
+    out = decode_attention_cuda(q, k, v, kc, vc, 0, cos, sin,
+                                torch.tensor([-1, s, 200], device="cuda"))
+    ref = decode_attention_reference(q[2:], k[2:], v[2:], kc0[:, 2:].clone(),
+                                     vc0[:, 2:].clone(), 0, cos, sin,
+                                     torch.tensor([200], device="cuda"))
+    torch.cuda.synchronize()
+    untouched = bool(torch.equal(kc[:, :2], kc0[:, :2])
+                     and torch.equal(vc[:, :2], vc0[:, :2]))
+    zeros = bool((out[:2] == 0).all())
+    err, ok = max_err(out[2:], ref, TOL["bfloat16"])
+    log(f"kernel decode_attention: positions -1 and S: rows untouched "
+        f"{untouched}, outputs 0 {zeros}; the row at 200 beside them "
+        f"max_abs_err {err:.3e}")
+    check(untouched and zeros and ok,
+          "decode attention outside [0, S) wrote, attended or disturbed "
+          "its neighbour")
+
+
 def _k5_step_ms(results: list[dict], key: str) -> tuple[float, float]:
     """The sums, over one decode step's products at M 4, of the cases'
     `key` (ms, bound_ms, ...): llama3_8b's 32 layers of wq, wk, wv, wo,
@@ -1474,12 +1668,13 @@ def phase_kernels(peaks) -> dict[str, dict]:
     from tony_tpu_torch.ops.attention import (
         FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
     )
+    from tony_tpu_torch.ops.decode_attention import DECODE_ATTENTION
     from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
 
     cases = {FLASH_FWD.name: [], FLASH_BWD_DQ.name: [],
              FLASH_BWD_DKV.name: [], RMSNORM_FWD.name: [],
-             INT8_MATMUL.name: []}
+             INT8_MATMUL.name: [], DECODE_ATTENTION.name: []}
     # written and read back between RMSNorm launches timed with a cold L2:
     # twice the L2
     flush = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size
@@ -1518,9 +1713,13 @@ def phase_kernels(peaks) -> dict[str, dict]:
             f"{_k5_step_ms(k5, 'bound_ms')[at]:.4f} ms, plain "
             f"{_k5_step_ms(k5, 'plain_ms')[at]:.4f} ms, library "
             f"{_k5_step_ms(k5, 'library_ms')[at]:.4f} ms")
+    for case in DECODE_ATTN_CASES:
+        add(DECODE_ATTENTION.name, _decode_attn_case(*case, peaks))
+    _decode_attn_outside()
     # the backward cases run on K1's (out, lse): a wrong forward fails here,
     # under its own name
-    for name in (FLASH_FWD.name, RMSNORM_FWD.name, INT8_MATMUL.name):
+    for name in (FLASH_FWD.name, RMSNORM_FWD.name, INT8_MATMUL.name,
+                 DECODE_ATTENTION.name):
         _hold_all(name, cases[name])
     for i, case in enumerate(BWD_CASES):
         layout = case[7] if len(case) > 7 else "bshd"
@@ -1604,6 +1803,27 @@ def _k5_launches(cfg, prompt_lens, steps: int, slots: int) -> int:
         _k5_per_pass(cfg, n) for n in prompt_lens)
 
 
+def _settled(engine) -> dict:
+    """The engine's snapshot once its counters stop moving: a request's
+    answer returns from the step's emit, before the step folds its sums,
+    so the launches and the counted steps agree only after that fold."""
+    before = dict(engine.snapshot())
+    while True:
+        time.sleep(0.1)
+        now = dict(engine.snapshot())
+        if (now["decode_steps"], now["admissions"]) == (
+                before["decode_steps"], before["admissions"]):
+            return now
+        before = now
+
+
+def _k6_launches(cfg, steps: int, flags=()) -> int:
+    """K6's launches over a burst: one a layer in each decode step; none
+    with an int8 cache (`--quant-cache`), whose rows take the dequantize
+    path."""
+    return 0 if "--quant-cache" in flags else cfg.n_layers * steps
+
+
 def phase_serve(config_name: str, flags: tuple = (),
                 tag: str = "serve", hold=None) -> dict[str, int]:
     """Returns each kernel's launch count over the burst. `flags` are
@@ -1617,6 +1837,7 @@ def phase_serve(config_name: str, flags: tuple = (),
     from tony_tpu_torch.ops.attention import (
         FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
     )
+    from tony_tpu_torch.ops.decode_attention import DECODE_ATTENTION
     from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
     from tony_tpu_torch.serve.__main__ import build_arg_parser, build_server
@@ -1668,8 +1889,8 @@ def phase_serve(config_name: str, flags: tuple = (),
         for t in threads:
             t.join(timeout=900)
         burst_s = time.monotonic() - t_burst
+        after = _settled(engine)
         launches = cuda_lib.launches()
-        after = dict(engine.snapshot())
         metrics = json.loads(urllib.request.urlopen(
             server.url + "/v1/metrics", timeout=30).read())
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1693,7 +1914,8 @@ def phase_serve(config_name: str, flags: tuple = (),
                 * (admissions + steps),
                 INT8_MATMUL.name: (_k5_launches(cfg, PROMPT_LENS, steps,
                                                 engine.n_slots)
-                                   if "int8" in flags else 0)}
+                                   if "int8" in flags else 0),
+                DECODE_ATTENTION.name: _k6_launches(cfg, steps, flags)}
         log(f"{tag}: launches {launches}, expected {want} "
             f"({admissions} admissions, {steps} decode steps)")
         check(launches == want, f"launch counts {launches} != {want}")
@@ -2037,8 +2259,8 @@ def _kv_run(engine, prompts, tag: str) -> dict:
               f"{tag}: request {h.request_id}: {h.finish_reason}")
         handles.append(h)
     torch.cuda.synchronize()
+    after = _settled(engine)
     launches = cuda_lib.launches()
-    after = dict(engine.snapshot())
     return {"tokens": [h.tokens for h in handles],
             "wall_s": [h.finished_at - h.submitted_at for h in handles],
             "ttft_s": [h.ttft_s for h in handles],
@@ -2207,6 +2429,7 @@ def phase_kvcache(config_name: str) -> dict[str, int]:
     from tony_tpu_torch.ops.attention import (
         FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
     )
+    from tony_tpu_torch.ops.decode_attention import DECODE_ATTENTION
     from tony_tpu_torch.ops.int8_matmul import INT8_MATMUL
     from tony_tpu_torch.ops.rmsnorm import RMSNORM_FWD
     from tony_tpu_torch.serve.__main__ import _load_model, build_arg_parser
@@ -2247,7 +2470,8 @@ def phase_kvcache(config_name: str) -> dict[str, int]:
     want = {FLASH_FWD.name: cfg.n_layers, FLASH_BWD_DQ.name: 0,
             FLASH_BWD_DKV.name: 0, INT8_MATMUL.name: 0,
             RMSNORM_FWD.name: (2 * cfg.n_layers + 1)
-            * (on["admissions"] + on["steps"])}
+            * (on["admissions"] + on["steps"]),
+            DECODE_ATTENTION.name: _k6_launches(cfg, on["steps"])}
     log(f"kvcache: sharing on: launches {on['launches']}, expected {want} "
         f"({on['admissions']} admissions, {on['steps']} decode steps)")
     check(on["launches"] == want,
@@ -2282,10 +2506,10 @@ def _step_launches(n_layers: int) -> dict[str, int]:
     flash forward once per layer (the replay takes its saved out and lse),
     each backward kernel once per layer, RMSNorm twice per layer plus the
     final norm in the forward and twice per layer again in the replay; K5
-    never (the weights are bf16)."""
+    never (the weights are bf16), K6 never (no decode step)."""
     return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
             "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers + 1,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "decode_attention": 0}
 
 
 def _forward_launches(n_layers: int) -> dict[str, int]:
@@ -2293,7 +2517,8 @@ def _forward_launches(n_layers: int) -> dict[str, int]:
     the flash forward once per layer, RMSNorm twice per layer plus the
     final norm."""
     return {"flash_fwd": n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "rmsnorm_fwd": 2 * n_layers + 1, "int8_matmul": 0}
+            "rmsnorm_fwd": 2 * n_layers + 1, "int8_matmul": 0,
+            "decode_attention": 0}
 
 
 def phase_train() -> dict[str, int]:
@@ -2668,8 +2893,8 @@ def _serve_from_checkpoint(ckpt_dir: str, params, cfg) -> dict[str, int]:
         cuda_lib.reset_launches()
         got = [_post(server.url, {"prompt": p, "max_new_tokens": CKPT_NEW},
                      stream=False)["tokens"] for p in prompts]
+        after = _settled(engine)
         launches = cuda_lib.launches()
-        after = dict(engine.snapshot())
     finally:
         server.stop(drain_timeout=0)
     admissions = after["admissions"] - before["admissions"]
@@ -2677,7 +2902,8 @@ def _serve_from_checkpoint(ckpt_dir: str, params, cfg) -> dict[str, int]:
     want_launches = {"flash_fwd": cfg.n_layers * admissions,
                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                      "rmsnorm_fwd": (2 * cfg.n_layers + 1)
-                     * (admissions + steps), "int8_matmul": 0}
+                     * (admissions + steps), "int8_matmul": 0,
+                     "decode_attention": _k6_launches(cfg, steps)}
     log(f"ckpt: served {len(prompts)} prompts of {CKPT_PROMPT} tokens from "
         f"the checkpoint: launches {launches}, expected {want_launches}")
     check(launches == want_launches,
@@ -3135,7 +3361,8 @@ TRACE_KERNELS = {"flash_fwd": r"\bflash_fwd_(tc|kernel)\b",
                  "flash_bwd_dq": r"\bflash_bwd_dq_(tc|kernel)\b",
                  "flash_bwd_dkv": r"\bflash_bwd_dkv_(tc|kernel)\b",
                  "rmsnorm_fwd": r"\brmsnorm_(vec|scalar)\b",
-                 "int8_matmul": r"\bw8a16\b"}
+                 "int8_matmul": r"\bw8a16\b",
+                 "decode_attention": r"\bdecode_attention<"}
 # the orch phase's capture through the profiler page: steps, and the step
 # whose data pull fetches the trace (the capture starts at step 1's log
 # boundary, so it covers steps 2 and 3)
@@ -4318,7 +4545,8 @@ def _pipeline_launches(n_layers: int, n_micro: int) -> dict[str, int]:
     its replay; and the final norm once."""
     lm = n_layers * n_micro
     return {"flash_fwd": 2 * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
-            "rmsnorm_fwd": 6 * lm + 1, "int8_matmul": 0}
+            "rmsnorm_fwd": 6 * lm + 1, "int8_matmul": 0,
+            "decode_attention": 0}
 
 
 def _grad_norm_err(got, want) -> float:
@@ -4527,7 +4755,8 @@ def _spec_launches(cfg, dcfg, rounds: int, batch: int, prompt: int,
     prefill and each window (gamma + 1 draft windows and one target window
     a round); K5 (int8 target) in each product of at most KERNEL_MAX_ROWS
     rows: the prefill's LM head on its last rows, the windows' where
-    batch * (gamma + 1) is small enough."""
+    batch * (gamma + 1) is small enough. K6 never: the windows attend
+    through `_window_attention`, not `decode_step`."""
     from tony_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
 
     def k4(c):
@@ -4545,7 +4774,7 @@ def _spec_launches(cfg, dcfg, rounds: int, batch: int, prompt: int,
             "rmsnorm_fwd": k4(cfg) + k4(dcfg)
             + rounds * ((gamma + 1) * k4(dcfg) + k4(cfg)),
             "int8_matmul": k5(batch * prompt, batch)
-            + rounds * k5(window, window)}
+            + rounds * k5(window, window), "decode_attention": 0}
 
 
 def _target_windows(rerun, gamma: int) -> tuple:
@@ -4843,7 +5072,7 @@ def _vit_step_launches(n_layers: int) -> dict[str, int]:
     and K4 twice; the CLS rows' final norm once."""
     return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
             "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 2 * n_layers + 1,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "decode_attention": 0}
 
 
 def _allreduce_entry(model: str, preset: str) -> dict[str, int]:
@@ -5656,7 +5885,8 @@ def _am_serve(root: str, env: dict, cache: str, smi: str) -> dict[str, int]:
     launched = _am_launches(_am_task_log(app_dir, "serving_0", "stderr"),
                             "serve")
     check(launched.get("flash_fwd", 0) > 0
-          and launched.get("rmsnorm_fwd", 0) > 0,
+          and launched.get("rmsnorm_fwd", 0) > 0
+          and launched.get("decode_attention", 0) > 0,
           f"am: serve: the server launched {launched}")
     with open(os.path.join(app_dir, "status.json")) as f:
         status = json.load(f)
@@ -6143,10 +6373,11 @@ def _fleet_job(root: str, env: dict, cache: str, smi: str) -> dict:
         out["router"] = router
 
         def up_endpoints(n):
+            # all n endpoints UP with a load, not n listed with fewer UP
             def ready():
                 eps = _get_json(router + "/v1/fleet")["endpoints"]
-                return [e for e in eps if e["state"] == "UP"
-                        and e["load"]] if len(eps) == n else []
+                ups = [e for e in eps if e["state"] == "UP" and e["load"]]
+                return ups if len(eps) == n == len(ups) else []
             return ready
         [ep0] = wait.until(up_endpoints(1), "the router's first endpoint")
         mark("router")
@@ -6424,7 +6655,8 @@ def _fleet_checks(job: dict, smi: str) -> dict[str, int]:
         want = {"flash_fwd": cfg.n_layers * admissions,
                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "rmsnorm_fwd": (2 * cfg.n_layers + 1)
-                * (admissions + steps), "int8_matmul": 0}
+                * (admissions + steps), "int8_matmul": 0,
+                "decode_attention": _k6_launches(cfg, steps)}
         check(got == want, f"fleet: serving:{i} launched {got}, its "
                            f"{admissions} admissions and {steps} decode "
                            f"steps want {want}")
@@ -7296,7 +7528,8 @@ def _long_serve_submit(root: str, env: dict, cache: str, smi: str
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0,
             "rmsnorm_fwd": (2 * cfg.n_layers + 1) * (1 + steps),
-            "int8_matmul": _k5_launches(cfg, [len(SMOKE_PROMPT)], steps, 1)}
+            "int8_matmul": _k5_launches(cfg, [len(SMOKE_PROMPT)], steps, 1),
+            "decode_attention": _k6_launches(cfg, steps)}
     check({k: launched.get(k, 0) for k in want} == want,
           f"long: the server launched {launched}, one admission and "
           f"{steps} decode steps want {want}")

@@ -22,6 +22,7 @@ from tony_tpu.ops import rmsnorm as jrms
 from tony_tpu.ops import rope as jrope
 from tony_tpu_torch.ops import attention, cuda_lib, rmsnorm, rope
 from tony_tpu_torch.ops import int8_matmul  # noqa: F401 (registers K5)
+from tony_tpu_torch.ops import decode_attention  # noqa: F401 (registers K6)
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
@@ -607,12 +608,18 @@ def test_library_path_is_keyed_by_source_content(monkeypatch, tmp_path):
 def test_every_kernel_is_registered_with_its_source():
     assert set(cuda_lib.KERNELS) == {"flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv", "rmsnorm_fwd",
-                                     "int8_matmul"}
+                                     "int8_matmul", "decode_attention"}
     for kernel in cuda_lib.KERNELS.values():
         assert (cuda_lib.CSRC_DIR / kernel.source).is_file()
         if kernel.name == "int8_matmul":
             # no Pallas kernel behind it: XLA's fused dequantize -> dot
             assert kernel.replaces.startswith("tony_tpu/models/quant.py:66 ")
+            continue
+        if kernel.name == "decode_attention":
+            # none either: XLA's RoPE, row update and masked einsums
+            assert kernel.replaces.startswith(
+                "none: XLA's RoPE, dynamic_update_slice and masked einsums "
+                "of tony_tpu/models/generate.py:")
             continue
         path, line = kernel.replaces.split(":")
         assert path.startswith("tony_tpu/ops/") and int(line) > 0

@@ -7,16 +7,20 @@ Counterpart of `tony_tpu/models/generate.py`:
   writes each layer's K/V into a cache laid out as in the JAX package,
   (L, B, Hkv, cache_len, hd).
 - **Decode step**: one token per row, at a scalar position or at per-row
-  positions (B,) (continuous batching). Each layer's new K/V row is
-  written into the cache in place, where JAX used `dynamic_update_slice`
-  on an immutable array, and attention is a masked single-query einsum
-  against the cache, grouped by GQA head group (K/V never repeated).
+  positions (B,) (continuous batching). Each layer's RoPE, the write of
+  its new K/V row into the cache in place (where JAX used
+  `dynamic_update_slice` on an immutable array) and the single-query
+  attention over each row's live positions, grouped by GQA head group
+  (K/V never repeated), are one `ops/decode_attention.decode_attention`
+  call: one K6 launch on the card, the JAX package's masked einsums on
+  the CPU.
 - **Sampling**: greedy, or temperature with optional top-k and top-p; the
   random draws come from a `torch.Generator`.
 - **int8 cache** (`quant_cache=True`): K/V rows stored as per-row int8
   with f32 scales (..., 1) beside them, "k_scale" and "v_scale", in the
   JAX layout; `decode_step` finds it by the "k_scale" key and attends to
-  the rows dequantized to f32, as the JAX package does.
+  the rows dequantized to f32 (`cache_attention`), as the JAX package
+  does.
 - **int8 weights** (`models/quant.quantize_params`) pass straight through:
   `models/llama.linear` and `lm_head` route their products.
 - **MoE** (`models/moe.py`): the MLP is `llama.mlp`, dispatched on the
@@ -42,6 +46,9 @@ from tony_tpu_torch.models.llama import (
 )
 from tony_tpu_torch.models.quant import dequantize_rows, quantize_rows
 from tony_tpu_torch.ops.attention import NEG_INF, flash_attention
+from tony_tpu_torch.ops.decode_attention import (
+    cache_attention, decode_attention, write_rows,
+)
 from tony_tpu_torch.ops.rmsnorm import rms_norm
 from tony_tpu_torch.ops.rope import apply_rope
 
@@ -85,12 +92,6 @@ def empty_cache(config: LlamaConfig, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=config.dtype, device=device)}
 
 
-def _write_rows(dst: torch.Tensor, src: torch.Tensor, rows: torch.Tensor,
-                offsets: torch.Tensor) -> None:
-    for w in range(src.shape[2]):
-        dst[rows, :, offsets + w] = src[:, :, w].to(dst.dtype)
-
-
 def write_cache_rows(kc: torch.Tensor, vc: torch.Tensor, scales,
                      k: torch.Tensor, v: torch.Tensor,
                      offsets: torch.Tensor
@@ -103,37 +104,15 @@ def write_cache_rows(kc: torch.Tensor, vc: torch.Tensor, scales,
     caches themselves, or their rows dequantized to f32."""
     rows = torch.arange(k.shape[0], device=k.device)
     if scales is None:
-        _write_rows(kc, k, rows, offsets)
-        _write_rows(vc, v, rows, offsets)
+        write_rows(kc, k, rows, offsets)
+        write_rows(vc, v, rows, offsets)
         return kc, vc
     ksc, vsc = scales
     qk, k_s = quantize_rows(k)
     qv, v_s = quantize_rows(v)
     for dst, src in ((kc, qk), (vc, qv), (ksc, k_s), (vsc, v_s)):
-        _write_rows(dst, src, rows, offsets)
+        write_rows(dst, src, rows, offsets)
     return dequantize_rows(kc, ksc), dequantize_rows(vc, vsc)
-
-
-def _cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cur_len: Union[int, torch.Tensor],
-                     config: LlamaConfig) -> torch.Tensor:
-    """Single-position attention against the cache. q: (B, H, 1, hd);
-    caches: (B, Hkv, S_max, hd); positions >= cur_len are masked. cur_len
-    is an int (whole batch) or (B,) per-row lengths. q is scaled in f32
-    before the product, as in the JAX package."""
-    b, nh, _, hd = q.shape
-    nkv = k_cache.shape[1]
-    rep = nh // nkv
-    if isinstance(cur_len, torch.Tensor) and cur_len.ndim == 1:
-        cur_len = cur_len[:, None, None, None]             # (B,1,1,1)
-    qg = q.reshape(b, nkv, rep, hd).float() * hd ** -0.5
-    scores = torch.einsum("bgrd,bgsd->bgrs", qg, k_cache.float())
-    cols = torch.arange(scores.shape[-1], device=q.device)
-    scores = torch.where(cols < cur_len, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrs,bgsd->bgrd", probs, v_cache.float())
-    return out.reshape(b, nh, 1, hd).to(q.dtype)
 
 
 def prefill(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -186,36 +165,37 @@ def decode_step(params: Params, config: LlamaConfig, cache: Cache,
                 token: torch.Tensor, pos: Union[int, torch.Tensor]
                 ) -> tuple[torch.Tensor, Cache]:
     """One decode step. token: (B,) int; pos: an int (the position every
-    row's token occupies) or (B,) int per-row positions (continuous
+    row's token occupies) or (B,) int64 per-row positions (continuous
     batching: every row an independent request at its own length).
     Returns (logits (B, V) f32, cache), the cache updated in place. An
-    int8 cache is found by its "k_scale" key."""
+    int8 cache is found by its "k_scale" key and attends to its rows
+    dequantized (`cache_attention`); any other takes `decode_attention`."""
     quant = "k_scale" in cache
     cache_len = cache["k"].shape[3]
     device = token.device
     cos, sin = rope_tables(config, cache_len, device)
     b = token.shape[0]
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+    if not (isinstance(pos, torch.Tensor) and pos.ndim == 1):
+        pos = torch.full((b,), int(pos), dtype=torch.long, device=device)
+    if quant:
         positions = pos[:, None]                      # (B, 1)
-        offsets = pos
-    else:
-        pos = int(pos)
-        positions = torch.tensor([pos], device=device)   # (1,)
-        offsets = torch.full((b,), pos, device=device)
-    cur_len = pos + 1
+        cur_len = pos + 1
     x = embed_lookup(params["embed"], token[:, None], config)  # (B, 1, D)
     for i in range(config.n_layers):
         layer = layer_params(params, i)
         h = rms_norm(x, layer["attn_norm"], config.norm_eps)
         q, k, v = qkv_proj(h, layer, config)
-        q = apply_rope(q, cos, sin, positions)
-        k = apply_rope(k, cos, sin, positions)
-        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
-                  else None)
-        k_eff, v_eff = write_cache_rows(cache["k"][i], cache["v"][i],
-                                        scales, k, v, offsets)
-        attn = _cache_attention(q, k_eff, v_eff, cur_len, config)
-        attn = attn.transpose(1, 2).reshape(b, 1, -1)
+        if quant:
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            k_eff, v_eff = write_cache_rows(
+                cache["k"][i], cache["v"][i],
+                (cache["k_scale"][i], cache["v_scale"][i]), k, v, pos)
+            attn = cache_attention(q, k_eff, v_eff, cur_len)
+            attn = attn.transpose(1, 2).reshape(b, 1, -1)
+        else:
+            attn = decode_attention(q, k, v, cache["k"], cache["v"], i, cos,
+                                    sin, pos)
         x = x + linear(attn, layer["wo"])
         h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
         x = x + mlp(h, layer, config)
